@@ -1,0 +1,60 @@
+"""cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu.
+
+Each check imports in a fresh interpreter whose PYTHONPATH is the repo
+alone (the login profile's site dir can import JAX on its own).
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import cudasw4_tpu_torch
+names = ["cudasw4_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(cudasw4_tpu_torch.__path__, "cudasw4_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "cudasw4_tpu" or m.startswith("cudasw4_tpu."))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def _probe():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", PROBE], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.split("\n")
+    return int(lines[0]), lines[1]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    count, bad = _probe()
+    assert count >= 15  # every module of the port was imported
+    assert bad == "", f"imported: {bad}"
+
+
+@pytest.mark.parametrize("cmd", [
+    [sys.executable, "-m", "cudasw4_tpu_torch.cli.align", "--help"],
+    [sys.executable, "-m", "cudasw4_tpu_torch.cli.makedb"],
+])
+def test_cli_entry_points_start_without_jax(cmd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = (
+        "import runpy, sys; sys.argv = %r; "
+        "sys.modules['jax'] = None; sys.modules['cudasw4_tpu'] = None; "
+        "runpy.run_module(%r, run_name='__main__')" % (cmd[3:] or ["x"], cmd[2])
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
