@@ -19,8 +19,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ladder of 144..5478 residues: every reported hit re-scored by the
    vectorised oracle, the tie order, all 573k scores of the 144-aa query
    against the plain version, and the launch counters of the align run.
+   Then the card's idle share over the same ladder, from a torch.profiler
+   trace (kernel and copy intervals on the device).
 5. kernels line: per kernel, its launches in phase 4 and its time, bound
    and plain time at the largest bucket of its kind in phase 4.
+
+Bounds and per-kernel GCUPS count the DP cells the data needs: real query
+rows times real subject residues.  The kernels also sweep the padding
+after each subject (its matrix row is all negative, so it changes no
+score); each line gives the padded cell count beside the real one.
 
 Then the nvidia-smi line and, last, the contract line
 {"ok": true, "device": {...}}.  Needs CUDA: without it, or outside the
@@ -33,6 +40,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,13 +107,20 @@ def bound(cells: float, nbytes: float, clock_mhz: float):
 
 
 def random_tiles(rng, shape, A, pad):
-    """Subject codes in [0, A-1) with ragged lengths; the rest is pad."""
+    """Subject codes in [0, A-1) with ragged lengths; the rest is pad.
+    Returns (tiles on the card, real residues)."""
     T, L = shape[0], shape[1]
     ns = int(np.prod(shape[2:]))
     x = rng.integers(0, A - 1, size=(T, L, ns), dtype=np.int8)
     lens = rng.integers(1, L + 1, size=(T, 1, ns))
     x[np.arange(L)[None, :, None] >= lens] = pad
-    return torch.as_tensor(x.reshape(shape)).cuda()
+    return torch.as_tensor(x.reshape(shape)).cuda(), int(lens.sum())
+
+
+def cell_counts(shape, nrows, real_rows, real_chars):
+    """(real, padded) DP cells of one kernel call: real query rows x real
+    subject residues, and every query row run x every tile position."""
+    return real_rows * real_chars, nrows * int(np.prod(shape))
 
 
 def query_block(rng, nq, cap, A, pad):
@@ -124,16 +139,17 @@ def phase_kernels(clock_mhz):
     rng = np.random.default_rng(7)
     rows = []
 
-    def record(name, mat, shape, nq, got, want, ms, plain_ms, extra_bytes=0):
+    def record(name, mat, shape, nq, real_nq, real_chars, got, want, ms, plain_ms,
+               extra_bytes=0):
         check(torch.equal(got, want), f"{name} {mat} {shape}: kernel != plain")
-        T, L = shape[0], shape[1]
-        chars = int(np.prod(shape))
-        out_bytes = T * int(np.prod(shape[2:])) * 4
-        b_ms, by = bound(chars * nq, chars + 4 * nq + out_bytes + extra_bytes, clock_mhz)
+        real, padded = cell_counts(shape, nq, real_nq, real_chars)
+        out_bytes = shape[0] * int(np.prod(shape[2:])) * 4
+        b_ms, by = bound(real, int(np.prod(shape)) + 4 * nq + out_bytes + extra_bytes, clock_mhz)
         rows.append({
             "check": name, "mat": mat, "shape": list(shape), "nq": nq, "equal": True,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "gcups": chars * nq / ms / 1e6,
+            "cells_real": real, "cells_padded": padded,
+            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6,
         })
 
     for mat in ("blosum62", "blosum62_full"):
@@ -142,31 +158,31 @@ def phase_kernels(clock_mhz):
         m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
         cell_shapes = [(8, 256, 32, 128)] + ([(4, 768, 32, 128)] if mat == "blosum62" else [])
         for shape in cell_shapes:
-            t = random_tiles(rng, shape, A, pad)
+            t, real_chars = random_tiles(rng, shape, A, pad)
             q = query_block(rng, 464, sw_cell.QCAP, A, pad)
             p = (464, cfg.gop, cfg.gex, 464)
             got = sw_cell.score_bucket_cell(t, q, m, p)
             want = sw_cell.score_bucket_cell_plain(t, q, m, p)
             ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, q, m, p))
             pms = cuda_ms(lambda: sw_cell.score_bucket_cell_plain(t, q, m, p), reps=1)
-            record("B1 cell", mat, shape, 464, got, want, ms, pms)
+            record("B1 cell", mat, shape, 464, 464, real_chars, got, want, ms, pms)
         row_shapes = [(16, 512, 128)] + ([(4, 2304, 128)] if mat == "blosum62" else [])
         for shape in row_shapes:
-            t = random_tiles(rng, shape, A, pad)
+            t, real_chars = random_tiles(rng, shape, A, pad)
             q = query_block(rng, 464, sw_cell.QCAP, A, pad)
             p = (464, cfg.gop, cfg.gex, 464)
             got = sw_row.score_bucket_row(t, q, m, p)
             want = sw_row.score_bucket_row_plain(t, q, m, p)
             ms = cuda_ms(lambda: sw_row.score_bucket_row(t, q, m, p))
             pms = cuda_ms(lambda: sw_row.score_bucket_row_plain(t, q, m, p), reps=1)
-            record("B2 row", mat, shape, 464, got, want, ms, pms)
+            record("B2 row", mat, shape, 464, 464, real_chars, got, want, ms, pms)
 
         # B3: a 5478-aa query over L=1024 col tiles: two NQC chunks with
         # the H/F carry, each chunk and its carried state against the
         # plain version; then the whole query through the any-length
         # function with one-tile groups against one plain sweep.
         shape = (2, 1024, 32, 128)
-        t = random_tiles(rng, shape, A, pad)
+        t, real_chars = random_tiles(rng, shape, A, pad)
         codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
         chunks = [codes[:sw_col.NQC], codes[sw_col.NQC:]]
         state = state_w = None
@@ -188,7 +204,8 @@ def phase_kernels(clock_mhz):
             pms = cuda_ms(lambda: sw_col.score_bucket_col_plain(
                 t, q, m, p, state_in=st_w if k else None, emit_state=k == 0), reps=1)
             io_bytes = 8 * int(np.prod(shape))  # carry out (chunk 0) or in (chunk 1)
-            record(f"B3 col chunk {k}", mat, shape, nq_pad, got, want, ms, pms, io_bytes)
+            record(f"B3 col chunk {k}", mat, shape, nq_pad, len(chunk), real_chars,
+                   got, want, ms, pms, io_bytes)
         got = sw_col.score_bucket_col_any_query(t, codes, m, cfg.gop, cfg.gex, pad=pad, temp_bytes=1)
         best, _, _ = sweep_tiles_torch(t.reshape(2, 1024, 4096), codes.tolist(),
                                        m.view(A, A), cfg.gop, cfg.gex)
@@ -234,21 +251,27 @@ def phase_golden():
 
 # --------------------------------------------------------------- phase 4
 
-def write_sprot_fasta(path, seed=42, chunk=20_000):
-    """The Swiss-Prot length model of benchmarks/make_synthetic_db.py
-    (same draws, same order).  Returns the residue count."""
+def sprot_chunks(seed=42, chunk=20_000):
+    """The Swiss-Prot length model of benchmarks/make_synthetic_db.py (same
+    draws, same order): yields (first record id, lengths int64 [n], the
+    chunk's residues as one uint8 blob) per chunk of records."""
     rng = np.random.default_rng(seed)
+    for base in range(0, SPROT_NUM, chunk):
+        n = min(chunk, SPROT_NUM - base)
+        lens = np.clip(rng.lognormal(np.log(SPROT_MEDIAN), SPROT_SIGMA, size=n),
+                       11, 35000).astype(np.int64)
+        yield base, lens, AAS[rng.integers(0, 20, size=int(lens.sum()))]
+
+
+def write_sprot_fasta(path, seed=42):
+    """Write the Swiss-Prot-scale FASTA; returns the residue count."""
     total = 0
     with open(path, "wb", buffering=1 << 20) as f:
-        for base in range(0, SPROT_NUM, chunk):
-            n = min(chunk, SPROT_NUM - base)
-            lens = np.clip(rng.lognormal(np.log(SPROT_MEDIAN), SPROT_SIGMA, size=n),
-                           11, 35000).astype(np.int64)
+        for base, lens, blob in sprot_chunks(seed):
             total += int(lens.sum())
-            blob = AAS[rng.integers(0, 20, size=int(lens.sum()))]
             out = bytearray()
             pos = 0
-            for i in range(n):
+            for i in range(len(lens)):
                 ln = int(lens[i])
                 out += b">syn%d len %d\n" % (base + i, ln)
                 out += blob[pos : pos + ln].tobytes()
@@ -286,6 +309,45 @@ def read_counts():
                          ("row", sw_row.score_bucket_row),
                          ("col", sw_col.score_bucket_col))
     }
+
+
+def device_idle_share(run):
+    """Trace ``run`` with torch.profiler and measure the card's idle share:
+    1 - (union of the device's kernel, copy and set intervals) / (first
+    device start to last device end).  Returns a dict with the share, the
+    spans in microseconds and the kernel launches (the port's by name,
+    PyTorch's as "other"); the share is None when the trace holds no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(WORK, "ladder_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, names = [], {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            if e["cat"] == "kernel":
+                m = re.search(r"\bsw_\w+_kernel\b", e["name"])
+                name = m.group(0) if m else "other"
+                names[name] = names.get(name, 0) + 1
+    if not spans:
+        return {"device_idle_share": None, "reason": "no device events in the trace"}
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in spans) - spans[0][0]
+    return {"device_idle_share": 1.0 - busy / span, "device_busy_us": busy,
+            "device_span_us": span, "kernels": names}
 
 
 def phase_sprot(clock_mhz):
@@ -401,15 +463,17 @@ def phase_sprot(clock_mhz):
         err = float((a - b).abs().max())
         ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p))
         pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p), reps=1)
-        chars = t.numel()
-        slots = t.shape[0] * int(np.prod(t.shape[2:]))
-        b_ms, by = bound(chars * nrows, chars + 4 * nrows + 4 * slots, clock_mhz)
+        shape = tuple(t.shape)
+        real, padded = cell_counts(shape, nrows, len(mid), int(eng.packed.buckets[i].lengths.sum()))
+        slots = shape[0] * int(np.prod(shape[2:]))
+        b_ms, by = bound(real, t.numel() + 4 * nrows + 4 * slots, clock_mhz)
         kernels.append({
             "name": kname, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
             "replaces": replaces, "launches": counts[kind][0], "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "equal": err == 0.0, "shape": list(t.shape), "nq": nrows,
-            "gcups": chars * nrows / ms / 1e6,
+            "equal": err == 0.0, "shape": list(shape), "nq": nrows,
+            "cells_real": real, "cells_padded": padded,
+            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6,
         })
         check(err == 0.0, f"{kname} differs from plain at the main-path shape {tuple(t.shape)}")
 
@@ -432,6 +496,8 @@ def phase_sprot(clock_mhz):
             by_kind[b.kernel] = by_kind.get(b.kernel, 0.0) + cuda_ms(fn, reps=1)
         breakdown[len(c)] = by_kind
 
+    profiled = device_idle_share(lambda: list(eng.scan_many(queries)))
+
     kinds = {}
     for b in eng.packed.buckets:
         kinds[b.kernel] = kinds.get(b.kernel, 0) + 1
@@ -441,8 +507,9 @@ def phase_sprot(clock_mhz):
         "query_lengths": list(QUERY_LADDER),
         "query_seconds": [s for s, _ in per_query], "query_gcups": [g for _, g in per_query],
         "total_seconds": total_s, "total_gcups": total_gcups,
-        "device_busy_share": sum(q for q, _ in per_query) / total_s,
+        "stream_occupancy_between_queries": sum(q for q, _ in per_query) / total_s,
         "bucket_ms_by_kind": breakdown,
+        "profiled_ladder": profiled,
         "align_run_seconds": t_align, "makedb_seconds": t_makedb, "fasta_seconds": t_fasta,
         "peak_device_bytes": peak, "launches": {k: v[0] for k, v in counts.items()},
         "plain_calls": {k: v[1] for k, v in counts.items()},

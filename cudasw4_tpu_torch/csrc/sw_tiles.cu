@@ -193,13 +193,18 @@ unsigned grid_for(int T, int NS) {
 
 extern "C" {
 
-// Each launch function returns cudaGetLastError() after the launch (0 on
-// success).  Pointers are device pointers; stream is a cudaStream_t.
-// Query and tile codes must lie in [0, A), A <= 26.
+// The three launch functions share one signature.  Each returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments outside its contract: NS = 4096 for
+// cell and col tiles, and a carry (hin, fin) for the col kernel only.
+// Pointers are device pointers; stream is a cudaStream_t.  Query and tile
+// codes must lie in [0, A), A <= 26.
 
 int sw_cell_launch(const void* tiles, const void* query, const void* mat,
-                   int A, int T, int L, int nrows, int gop, int gex,
-                   void* hs, void* fs, void* out, void* stream) {
+                   int A, int T, int L, int NS, int nrows, int gop, int gex,
+                   const void* hin, const void* fin, void* hs, void* fs,
+                   void* out, void* stream) {
+  if (NS != 4096 || hin || fin) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   sw_cell_kernel<<<grid_for(T, 4096), kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
@@ -209,7 +214,9 @@ int sw_cell_launch(const void* tiles, const void* query, const void* mat,
 
 int sw_row_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
-                  void* hs, void* fs, void* out, void* stream) {
+                  const void* hin, const void* fin, void* hs, void* fs,
+                  void* out, void* stream) {
+  if (hin || fin) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   sw_row_kernel<<<grid_for(T, NS), kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
@@ -218,9 +225,10 @@ int sw_row_launch(const void* tiles, const void* query, const void* mat,
 }
 
 int sw_col_launch(const void* tiles, const void* query, const void* mat,
-                  int A, int T, int L, int nrows, int gop, int gex,
+                  int A, int T, int L, int NS, int nrows, int gop, int gex,
                   const void* hin, const void* fin, void* hs, void* fs,
                   void* out, void* stream) {
+  if (NS != 4096) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   sw_col_kernel<<<grid_for(T, 4096), kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,

@@ -29,6 +29,7 @@ from .constants import decode, encode
 from .db.format import DBData
 from .db.packing import PackedDB, pack_db
 from .ops import bucket_kind, cuda_lib, score_bucket, sw_cell, sw_col
+from .ops.sw_row import prepare_query
 from .substitution import ScoringConfig, make_scoring_config
 
 #: Environment switch of the top-N oracle check: "1" re-scores each scan's
@@ -184,12 +185,10 @@ class SearchEngine:
         versions never walk padded rows), and params
         [nq, gop, gex, nq_pad], nq_pad rounded up to the col kernel's row
         granule."""
-        nq = len(codes)
-        qpad = np.full(sw_cell.QCAP, self._pad, dtype=np.int32)
-        qpad[:nq] = codes
-        cu = sw_cell.DEFAULT_UNROLL
-        nq_pad = max(cu, -(-nq // cu) * cu)
-        params = np.array([nq, self.scoring.gop, self.scoring.gex, nq_pad], dtype=np.int32)
+        qpad, nq = prepare_query(codes, pad=self._pad)
+        params = np.array(
+            [nq, self.scoring.gop, self.scoring.gex, sw_col.padded_rows(nq)], dtype=np.int32
+        )
         return qpad, params
 
     def slot_scores(self, codes) -> torch.Tensor:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -29,14 +30,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    # tiles, query, mat, A, T, L, nrows, gop, gex, hs, fs, out, stream
-    "sw_cell_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # tiles, query, mat, A, T, L, NS, nrows, gop, gex, hs, fs, out, stream
-    "sw_row_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # tiles, query, mat, A, T, L, nrows, gop, gex, hin, fin, hs, fs, out, stream
-    "sw_col_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+#: The launch functions of the kernels, all with one signature:
+#: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hin, fin, hs, fs, out, stream.
+LAUNCHES = {
+    "sw_cell_kernel": "sw_cell_launch",
+    "sw_row_kernel": "sw_row_launch",
+    "sw_col_kernel": "sw_col_launch",
 }
+_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 
 _lock = threading.Lock()
 _lib = None
@@ -84,9 +85,9 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name in LAUNCHES.values():
                 fn = getattr(handle, name)
-                fn.argtypes = argtypes
+                fn.argtypes = _SIGNATURE
                 fn.restype = ctypes.c_int
             handle.sw_error_string.argtypes = [ctypes.c_int]
             handle.sw_error_string.restype = ctypes.c_char_p
@@ -133,3 +134,45 @@ def alphabet_dim(matrix_flat: torch.Tensor) -> int:
     if a * a != n or a > 26:
         raise ValueError(f"substitution matrix of {n} entries is not A*A with A <= 26")
     return a
+
+
+def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=None):
+    """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
+    and count the launch on ``wrapper.launches``.
+
+    Checks device, dtype, contiguity and that the ``params[0]`` query rows
+    lie in the query block; allocates the f32 scores [T, NS] and the int32
+    H/F scratch shaped as ``tiles``; raises if the launch reports an error.
+    ``state_in``: (hrow, frow) shaped as ``tiles``, the row above the first
+    query row.  Returns (scores, (hs, fs)): after the kernel the scratch
+    holds the last query row's H and F.  Never synchronises.
+    """
+    dev = tiles.device
+    require(tiles, "tiles", torch.int8, tiles.dim(), dev)
+    require(query, "query", torch.int32, 1, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
+    if not 0 <= nrows <= query.numel():
+        raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
+    hin = fin = None
+    if state_in is not None:
+        for name, t in zip(("hrow", "frow"), state_in):
+            require(t, name, torch.int32, tiles.dim(), dev)
+            if t.shape != tiles.shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
+        hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
+    T, L = tiles.shape[0], tiles.shape[1]
+    NS = math.prod(tiles.shape[2:])
+    out = torch.empty((T, NS), dtype=torch.float32, device=dev)
+    hs = torch.empty(tiles.shape, dtype=torch.int32, device=dev)
+    fs = torch.empty_like(hs)
+    with torch.cuda.device(dev):
+        code = getattr(lib(), LAUNCHES[kernel])(
+            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
+            A, T, L, NS, nrows, gop, gex, hin, fin,
+            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
+        )
+    check_launch(code, kernel)
+    wrapper.launches += 1
+    return out, (hs, fs)

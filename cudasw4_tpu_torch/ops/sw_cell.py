@@ -9,15 +9,12 @@ CUDA tensors and takes the plain version only for CPU tensors.
 
 from __future__ import annotations
 
-import torch
-
 from . import cuda_lib
 from .sw_torch import score_tiles_torch
 
 #: Subjects per tile: G x NSL = 32 x 128, stored as [T, L, G, NSL].
 G = 32
 NSL = 128
-SUBJECTS_PER_TILE = G * NSL
 
 #: int16-state saturation ceiling of the JAX package's default mode; the
 #: port runs exact int32 state only (int16 state is a later slice).
@@ -29,17 +26,6 @@ QCAP = 8192
 #: Query-row granule: the register block of the kernel and the padding
 #: granule of the col kernel's row counts.
 DEFAULT_UNROLL = 8
-
-
-def _check(tiles, query, matrix_flat):
-    dev = tiles.device
-    cuda_lib.require(tiles, "tiles", torch.int8, 4, dev)
-    cuda_lib.require(query, "query", torch.int32, 1, dev)
-    cuda_lib.require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
-    T, L, g, nsl = tiles.shape
-    if (g, nsl) != (G, NSL):
-        raise ValueError(f"cell tiles must be [T, L, {G}, {NSL}], got {tuple(tiles.shape)}")
-    return cuda_lib.alphabet_dim(matrix_flat)
 
 
 def score_bucket_cell_plain(tiles, query, matrix_flat, params):
@@ -59,27 +45,12 @@ def score_bucket_cell(tiles, query, matrix_flat, params):
     the pad code; ``matrix_flat``: int32 [A*A]; ``params``: host ints
     (nq, gop, gex, _).  Codes must lie in [0, A).
     """
+    if tiles.dim() != 4 or tuple(tiles.shape[2:]) != (G, NSL):
+        raise ValueError(f"cell tiles must be [T, L, {G}, {NSL}], got {tuple(tiles.shape)}")
     if tiles.device.type == "cpu":
         score_bucket_cell.plain_calls += 1
         return score_bucket_cell_plain(tiles, query, matrix_flat, params)
-    A = _check(tiles, query, matrix_flat)
-    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    if not 0 <= nq <= query.numel():
-        raise ValueError(f"nq={nq} outside the query block of {query.numel()}")
-    T, L, _, _ = tiles.shape
-    dev = tiles.device
-    out = torch.empty((T, SUBJECTS_PER_TILE), dtype=torch.float32, device=dev)
-    hs = torch.empty((T, L, SUBJECTS_PER_TILE), dtype=torch.int32, device=dev)
-    fs = torch.empty_like(hs)
-    with torch.cuda.device(dev):
-        code = cuda_lib.lib().sw_cell_launch(
-            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, nq, gop, gex, hs.data_ptr(), fs.data_ptr(),
-            out.data_ptr(), cuda_lib.stream_handle(dev),
-        )
-    cuda_lib.check_launch(code, "sw_cell_kernel")
-    score_bucket_cell.launches += 1
-    return out
+    return cuda_lib.launch(score_bucket_cell, "sw_cell_kernel", tiles, query, matrix_flat, params)[0]
 
 
 score_bucket_cell.launches = 0

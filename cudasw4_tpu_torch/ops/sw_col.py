@@ -13,12 +13,11 @@ previous chunk's bottom-row H/F (``state_in``) and returning its own
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..constants import UNKNOWN
 from . import cuda_lib
-from .sw_cell import DEFAULT_UNROLL, G, NSL, SUBJECTS_PER_TILE
+from .sw_cell import DEFAULT_UNROLL, G, NSL
+from .sw_row import prepare_query
 from .sw_torch import sweep_tiles_torch
 
 #: Subject positions per column chunk: every col bucket's L is a multiple.
@@ -78,54 +77,30 @@ def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
     if tiles.device.type == "cpu":
         score_bucket_col.plain_calls += 1
         return score_bucket_col_plain(tiles, query, matrix_flat, params, state_in, emit_state)
-    dev = tiles.device
-    cuda_lib.require(tiles, "tiles", torch.int8, 4, dev)
-    cuda_lib.require(query, "query", torch.int32, 1, dev)
-    cuda_lib.require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
-    A = cuda_lib.alphabet_dim(matrix_flat)
-    nqp, gop, gex = _params(params)
-    if not 0 <= nqp <= query.numel():
-        raise ValueError(f"nq_pad={nqp} outside the query chunk of {query.numel()}")
-    hin = fin = 0
-    if state_in is not None:
-        for name, t in zip(("hrow", "frow"), state_in):
-            cuda_lib.require(t, name, torch.int32, 4, dev)
-            if t.shape != tiles.shape:
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
-        hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
-    out = torch.empty((T, SUBJECTS_PER_TILE), dtype=torch.float32, device=dev)
-    hs = torch.empty((T, L, g, nsl), dtype=torch.int32, device=dev)
-    fs = torch.empty_like(hs)
-    with torch.cuda.device(dev):
-        code = cuda_lib.lib().sw_col_launch(
-            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, nqp, gop, gex, hin or None, fin or None,
-            hs.data_ptr(), fs.data_ptr(), out.data_ptr(),
-            cuda_lib.stream_handle(dev),
-        )
-    cuda_lib.check_launch(code, "sw_col_kernel")
-    score_bucket_col.launches += 1
-    if emit_state:
-        return out, (hs, fs)
-    return out
+    out, state = cuda_lib.launch(score_bucket_col, "sw_col_kernel", tiles, query,
+                                 matrix_flat, params, state_in)
+    return (out, state) if emit_state else out
 
 
 score_bucket_col.launches = 0
 score_bucket_col.plain_calls = 0
 
 
-def pad_query_chunk(codes, unroll: int | None = None, pad: int | None = None):
-    """Pad one query chunk to a multiple of ``unroll`` rows (at least one
-    granule), returning (qpad [NQC] int32 numpy, nq_pad).  ``pad``: padding
-    code (UNKNOWN classic, 25 full-blosum)."""
+def padded_rows(nq: int, unroll: int | None = None) -> int:
+    """Rows the col kernel runs for ``nq`` query rows: ``nq`` rounded up to
+    a multiple of ``unroll``, at least one granule."""
     unroll = DEFAULT_UNROLL if unroll is None else unroll
-    nq = len(codes)
-    if nq > NQC:
-        raise ValueError(f"query chunk of {nq} rows exceeds NQC={NQC}")
-    nq_pad = max(unroll, -(-nq // unroll) * unroll)
-    out = np.full(NQC, UNKNOWN if pad is None else pad, dtype=np.int32)
-    out[:nq] = codes
-    return out, nq_pad
+    return max(unroll, -(-nq // unroll) * unroll)
+
+
+def pad_query_chunk(codes, unroll: int | None = None, pad: int | None = None):
+    """Pad one query chunk to [NQC] and its row count to a multiple of
+    ``unroll`` (at least one granule), returning (qpad [NQC] int32 numpy,
+    nq_pad).  ``pad``: padding code (UNKNOWN classic, 25 full-blosum)."""
+    if len(codes) > NQC:
+        raise ValueError(f"query chunk of {len(codes)} rows exceeds NQC={NQC}")
+    qpad, nq = prepare_query(codes, qcap=NQC, pad=pad)
+    return qpad, padded_rows(nq, unroll)
 
 
 def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,

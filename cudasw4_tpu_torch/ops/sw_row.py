@@ -11,7 +11,6 @@ version only for CPU tensors.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..constants import UNKNOWN
 from . import cuda_lib
@@ -33,30 +32,12 @@ def score_bucket_row(tiles, query, matrix_flat, params):
     pad code; ``matrix_flat``: int32 [A*A]; ``params``: host ints
     (nq, gop, gex, _).  Codes must lie in [0, A).
     """
+    if tiles.dim() != 3:
+        raise ValueError(f"row tiles must be [T, L, NS], got {tuple(tiles.shape)}")
     if tiles.device.type == "cpu":
         score_bucket_row.plain_calls += 1
         return score_bucket_row_plain(tiles, query, matrix_flat, params)
-    dev = tiles.device
-    cuda_lib.require(tiles, "tiles", torch.int8, 3, dev)
-    cuda_lib.require(query, "query", torch.int32, 1, dev)
-    cuda_lib.require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
-    A = cuda_lib.alphabet_dim(matrix_flat)
-    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    if not 0 <= nq <= query.numel():
-        raise ValueError(f"nq={nq} outside the query block of {query.numel()}")
-    T, L, NS = tiles.shape
-    out = torch.empty((T, NS), dtype=torch.float32, device=dev)
-    hs = torch.empty((T, L, NS), dtype=torch.int32, device=dev)
-    fs = torch.empty_like(hs)
-    with torch.cuda.device(dev):
-        code = cuda_lib.lib().sw_row_launch(
-            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, NS, nq, gop, gex, hs.data_ptr(), fs.data_ptr(),
-            out.data_ptr(), cuda_lib.stream_handle(dev),
-        )
-    cuda_lib.check_launch(code, "sw_row_kernel")
-    score_bucket_row.launches += 1
-    return out
+    return cuda_lib.launch(score_bucket_row, "sw_row_kernel", tiles, query, matrix_flat, params)[0]
 
 
 score_bucket_row.launches = 0

@@ -9,6 +9,7 @@ import gzip
 import numpy as np
 import pytest
 
+import chip_smoke
 import cudasw4_tpu.db.format as jf
 import cudasw4_tpu.db.packing as jp
 import cudasw4_tpu.db.pseudo as jps
@@ -97,8 +98,21 @@ def _three_kind_lengths(rng):
     ]))
 
 
-@pytest.mark.parametrize("case", ["small", "three_kind", "sprot_like", "adaptive"])
+#: Swiss-Prot-scale plans: longest sequence, top col bucket's L, padded chars.
+SPROT_PLANS = {
+    "sprot_chip_smoke": (5599, 5632, 254_486_528),
+    "sprot_one_draw": (7196, 7680, 262_875_136),
+}
+
+
+@pytest.mark.parametrize("case", ["small", "three_kind", "sprot_like", "adaptive", *SPROT_PLANS])
 def test_plan_buckets_identical(case):
+    """Both packages' bucket plans, exact.  The Swiss-Prot-scale cases are
+    chip_smoke.py's 573k lengths, drawn chunk by chunk as
+    benchmarks/make_synthetic_db.py draws them, and the same model drawn
+    in one call: 23 buckets either way, but the draw order changes the
+    longest sequence, and with it the top col bucket's L and the padded
+    size."""
     rng = np.random.default_rng(43)
     if case == "small":
         lengths = np.sort(rng.integers(1, 3000, size=500))
@@ -106,11 +120,21 @@ def test_plan_buckets_identical(case):
         lengths = _three_kind_lengths(rng)
     elif case == "sprot_like":
         lengths = np.sort(np.clip(rng.lognormal(np.log(292), 0.64, 57_300), 11, 35000).astype(np.int64))
+    elif case == "sprot_chip_smoke":
+        lengths = np.sort(np.concatenate([lens for _, lens, _ in chip_smoke.sprot_chunks()]))
+    elif case == "sprot_one_draw":
+        draw = np.random.default_rng(42).lognormal(np.log(292.0), 0.64, 573_000)
+        lengths = np.sort(np.clip(draw, 11, 35000).astype(np.int64))
     else:  # >= 2M sequences switch to 16-step edges
         lengths = np.sort(np.clip(rng.lognormal(np.log(220), 0.75, 2_000_000), 11, 35000).astype(np.int64))
     tplan = tp.plan_buckets(lengths)
     assert tplan == jp.plan_buckets(lengths)
     assert {k for *_, k in tplan} >= ({"row", "cell", "col"} if case != "small" else {"row"})
+    if case in SPROT_PLANS:
+        kinds = [k for *_, k in tplan]
+        assert (kinds.count("row"), kinds.count("cell"), kinds.count("col")) == (2, 15, 6)
+        padded = sum(-(-(b - a) // ns) * ns * L for a, b, L, ns, _ in tplan)
+        assert (int(lengths[-1]), tplan[-1][2], padded) == SPROT_PLANS[case]
 
 
 def _db_from_lengths(rng, lengths):

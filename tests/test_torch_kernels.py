@@ -19,6 +19,8 @@ from cudasw4_tpu.ops import sw_pallas_col
 from cudasw4_tpu.ops.sw_jax import score_tiles_jnp
 from cudasw4_tpu.ops.sw_pallas import prepare_query, score_bucket_pallas
 from cudasw4_tpu.ops.sw_pallas_cell import score_bucket_pallas_cell
+from cudasw4_tpu_torch import make_scoring_config
+from cudasw4_tpu_torch.engine import SearchEngine
 from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
 from cudasw4_tpu_torch.ops.sw_torch import score_tiles_torch
 
@@ -158,6 +160,27 @@ def test_col_any_query_equals_pallas_any_query(col_geometry):
         unroll=8, pad=25, temp_bytes=1,
     )
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nq", [1, 8, 13, 3072])
+@pytest.mark.parametrize("mat", MATS)
+def test_query_padding_equals_jax(mat, nq):
+    """The port's prepare_query and pad_query_chunk, and the engine's
+    single-scan query block and params built on them, against the JAX
+    package's padders.  Tolerance: exact."""
+    rng = np.random.default_rng(26)
+    cfg = jax_scoring(mat)
+    codes = rng.integers(0, cfg.alphabet_size - 1, size=nq).astype(np.int8)
+    q, n = sw_row.prepare_query(codes, pad=cfg.pad_code)
+    jq, jn = prepare_query(codes, pad=cfg.pad_code)
+    assert np.array_equal(q, jq) and n == jn == nq
+    c, nq_pad = sw_col.pad_query_chunk(codes, pad=cfg.pad_code)
+    jc, jnq_pad = sw_pallas_col.pad_query_chunk(codes, pad=cfg.pad_code)
+    assert np.array_equal(c, jc) and nq_pad == jnq_pad
+    eng = SearchEngine(scoring=make_scoring_config(mat), device="cpu")
+    qpad, params = eng._single_qpad(codes)
+    assert np.array_equal(qpad, jq)
+    assert params.tolist() == [nq, cfg.gop, cfg.gex, jnq_pad]
 
 
 @pytest.mark.parametrize("mat", MATS)
