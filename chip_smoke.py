@@ -3,26 +3,36 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line with its seconds; any failure exits
+non-zero:
 
 1. device:  the card's name and power limit (nvidia-smi), and the build
    of the CUDA kernels from csrc/ with nvcc.
-2. kernels: each kernel (cell, row, col with its carry) against its plain
-   PyTorch version on the card, exact equality of the integer scores, both
-   alphabets; kernel, plain and bound times.
+2. kernels: each kernel (cell, row, col with its carry, cell batch, col
+   flat, col fused) against its plain PyTorch version on the card, exact
+   equality of the integer scores, both alphabets; kernel, plain and
+   bound times.
 3. golden:  the port's makedb and align --tsv --top 10 on the golden
    fixtures, byte for byte against golden_top10.tsv and
    golden_top10_full.tsv.
 4. sprot:   a Swiss-Prot-scale database (573,000 sequences, log-normal
    lengths, median 292, sigma 0.64, clipped to [11, 35000], ~205M
-   residues, seed 42) through the port's makedb and align on a query
-   ladder of 144..5478 residues: every reported hit re-scored by the
-   vectorised oracle, the tie order, all 573k scores of the 144-aa query
-   against the plain version, and the launch counters of the align run.
-   Then the card's idle share over the same ladder, from a torch.profiler
-   trace (kernel and copy intervals on the device).
-5. kernels line: per kernel, its launches in phase 4 and its time, bound
-   and plain time at the largest bucket of its kind in phase 4.
+   residues, seed 42) through the port's makedb and align on the
+   reference's 20 queries (benchmarks/allqueries.fasta, 144..5478 aa):
+   the 14 of at most NQC residues run as one batch (cell batch, col flat
+   on a 5-pass plan, row per slot), the 6 longer ones as singles.  Every
+   reported hit is re-scored by the vectorised oracle, the tie order is
+   checked, the launch counters of the align run show the path, and all
+   573k scores of every batch slot are held against the single-query
+   kernels' scores.  Then one scan_batch of the 14 with COL_FUSE_MIN_S =
+   3 (its counters show the fused kernel) gives the same scores; the
+   batch and the singles are timed on the same queries; device time by
+   kernel kind per ladder query and for the batch; and the card's idle
+   share over the 20-query scan from a torch.profiler trace.
+5. kernels line: per kernel, its launches on the main path and its time,
+   bound and plain time at its main-path shape: the largest bucket of its
+   kind, with the 464-aa query for the single-query kernels, the batch of
+   14 for the cell batch, and the widest plan pass for the col kernels.
 
 Bounds and per-kernel GCUPS count the DP cells the data needs: real query
 rows times real subject residues.  The kernels also sweep the padding
@@ -58,11 +68,13 @@ OPS_PER_CELL = 11
 
 #: The Swiss-Prot length model (benchmarks/make_synthetic_db.py, "sprot").
 SPROT_NUM, SPROT_MEDIAN, SPROT_SIGMA = 573_000, 292.0, 0.64
+#: The per-bucket breakdown's queries: these lengths of the query set.
 QUERY_LADDER = (144, 464, 1000, 3005, 5478)
 AAS = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
+QUERY_SET = os.path.join(REPO, "benchmarks", "allqueries.fasta")
 
 
 class SmokeFailure(RuntimeError):
@@ -85,9 +97,11 @@ def smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events, one warm-up)."""
-    fn()
+def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the card (CUDA events, one warm-up
+    call unless ``warmup`` is false)."""
+    if warmup:
+        fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -96,6 +110,18 @@ def cuda_ms(fn, reps: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed(fn):
+    """(result, milliseconds) of one call of ``fn`` on the card (CUDA
+    events around it, no warm-up)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def bound(cells: float, nbytes: float, clock_mhz: float):
@@ -133,17 +159,18 @@ def query_block(rng, nq, cap, A, pad):
 
 def phase_kernels(clock_mhz):
     from cudasw4_tpu_torch import make_scoring_config
-    from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
+    from cudasw4_tpu_torch.ops import col_flat_plan, sw_cell, sw_col, sw_row
     from cudasw4_tpu_torch.ops.sw_torch import sweep_tiles_torch
 
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(7)
     rows = []
 
     def record(name, mat, shape, nq, real_nq, real_chars, got, want, ms, plain_ms,
-               extra_bytes=0):
+               extra_bytes=0, slots=1):
         check(torch.equal(got, want), f"{name} {mat} {shape}: kernel != plain")
         real, padded = cell_counts(shape, nq, real_nq, real_chars)
-        out_bytes = shape[0] * int(np.prod(shape[2:])) * 4
+        out_bytes = slots * shape[0] * int(np.prod(shape[2:])) * 4
         b_ms, by = bound(real, int(np.prod(shape)) + 4 * nq + out_bytes + extra_bytes, clock_mhz)
         rows.append({
             "check": name, "mat": mat, "shape": list(shape), "nq": nq, "equal": True,
@@ -212,8 +239,42 @@ def phase_kernels(clock_mhz):
         check(torch.equal(got, best.float()), f"B3 any-query one-tile groups {mat}: != plain")
         rows.append({"check": "B3 col any-query, one-tile groups", "mat": mat,
                      "shape": list(shape), "nq": 5478, "equal": True})
+
+        # B4: four slots (one empty, lengths not multiples of 8) over cell
+        # tiles.  B5 and B6: three slots on their col_flat_plan pass over
+        # col tiles, padded rows walked.
+        shape = (4, 256, 32, 128)
+        t, real_chars = random_tiles(rng, shape, A, pad)
+        lens = [464, 0, 37, 201]
+        qs = torch.stack([query_block(rng, n, 512, A, pad) for n in lens])
+        p = (0, cfg.gop, cfg.gex, 0, *lens)
+        got = sw_cell.score_bucket_cell_batch(t, qs, m, p)
+        pms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch_plain(t, qs, m, p), reps=1, warmup=False)
+        want = sw_cell.score_bucket_cell_batch_plain(t, qs, m, p)
+        ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qs, m, p))
+        record("B4 cell batch", mat, shape, sum(lens), sum(lens), real_chars, got, want, ms, pms,
+               slots=len(lens))
+        shape = (2, 1024, 32, 128)
+        t, real_chars = random_tiles(rng, shape, A, pad)
+        lens = [300, 1000, 77]
+        pads = [sw_col.padded_rows(n) for n in lens]
+        (plan,) = col_flat_plan(pads)
+        offs = tuple(o for _, o in sorted(plan))
+        qs = torch.stack([query_block(rng, n, sw_col.NQC, A, pad) for n in lens])
+        p = (0, cfg.gop, cfg.gex, 0, *pads)
+        pms = cuda_ms(lambda: sw_col.score_bucket_col_flat_plain(t, qs, m, p), reps=1, warmup=False)
+        want = sw_col.score_bucket_col_flat_plain(t, qs, m, p)
+        got = sw_col.score_bucket_col_flat(t, qs, m, p, offs)
+        ms = cuda_ms(lambda: sw_col.score_bucket_col_flat(t, qs, m, p, offs))
+        record("B5 col flat", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
+               slots=len(lens))
+        got = sw_col.score_bucket_col_flat_fused(t, qs, m, p)
+        ms = cuda_ms(lambda: sw_col.score_bucket_col_flat_fused(t, qs, m, p))
+        record("B6 col fused", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
+               slots=len(lens))
     for r in rows:
         emit({"phase": "kernels", **r})
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
 
 # --------------------------------------------------------------- phase 3
@@ -229,6 +290,7 @@ def run_cli(module, argv):
 def phase_golden():
     from cudasw4_tpu_torch.cli import align, makedb
 
+    t_phase = time.perf_counter()
     fix = os.path.join(REPO, "tests", "fixtures")
     prefix = os.path.join(WORK, "golden", "gdb")
     os.makedirs(os.path.dirname(prefix), exist_ok=True)
@@ -246,7 +308,8 @@ def phase_golden():
         )
         with open(os.path.join(fix, golden)) as f:
             check(got == f.read(), f"golden TSV {mat} differs from {golden}")
-    emit({"phase": "golden", "tsv_equal": ["blosum62", "blosum62_full"]})
+    emit({"phase": "golden", "tsv_equal": ["blosum62", "blosum62_full"],
+          "seconds": time.perf_counter() - t_phase})
 
 
 # --------------------------------------------------------------- phase 4
@@ -281,34 +344,39 @@ def write_sprot_fasta(path, seed=42):
     return total
 
 
-def write_queries(path, seed=42):
-    rng = np.random.default_rng(seed)
-    seqs = []
-    with open(path, "w") as f:
-        for i, ln in enumerate(QUERY_LADDER):
-            seq = AAS[rng.integers(0, 20, ln)].tobytes().decode()
-            seqs.append(seq)
-            f.write(f">ladder{i} length {ln}\n{seq}\n")
-    return seqs
+def read_query_set():
+    """The reference's 20 benchmark queries: [(header, sequence)]."""
+    out = []
+    with open(QUERY_SET) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith(">"):
+                out.append([line[1:], ""])
+            elif line:
+                out[-1][1] += line
+    return [tuple(r) for r in out]
+
+
+def wrappers():
+    """The kernels' wrappers by short name: each counts its launches and
+    its plain calls."""
+    from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
+
+    return {
+        "cell": sw_cell.score_bucket_cell, "row": sw_row.score_bucket_row,
+        "col": sw_col.score_bucket_col, "cell_batch": sw_cell.score_bucket_cell_batch,
+        "col_flat": sw_col.score_bucket_col_flat, "col_fused": sw_col.score_bucket_col_flat_fused,
+    }
 
 
 def reset_counts():
-    from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
-
-    for fn in (sw_cell.score_bucket_cell, sw_row.score_bucket_row, sw_col.score_bucket_col):
+    for fn in wrappers().values():
         fn.launches = 0
         fn.plain_calls = 0
 
 
 def read_counts():
-    from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
-
-    return {
-        name: (fn.launches, fn.plain_calls)
-        for name, fn in (("cell", sw_cell.score_bucket_cell),
-                         ("row", sw_row.score_bucket_row),
-                         ("col", sw_col.score_bucket_col))
-    }
+    return {name: (fn.launches, fn.plain_calls) for name, fn in wrappers().items()}
 
 
 def device_idle_share(run):
@@ -320,7 +388,7 @@ def device_idle_share(run):
     device events."""
     from torch.profiler import ProfilerActivity, profile
 
-    path = os.path.join(WORK, "ladder_trace.json")
+    path = os.path.join(WORK, "queries_trace.json")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -356,35 +424,40 @@ def phase_sprot(clock_mhz):
     from cudasw4_tpu_torch.constants import encode
     from cudasw4_tpu_torch.db.format import load_db
     from cudasw4_tpu_torch.engine import SearchEngine
-    from cudasw4_tpu_torch.ops import oracle, score_bucket, sw_cell, sw_col, sw_row
-    from cudasw4_tpu_torch.ops.sw_torch import score_tiles_torch
+    from cudasw4_tpu_torch.ops import (
+        batch_col_scores, col_flat_plan, cuda_lib, oracle, score_bucket, sw_cell, sw_col, sw_row,
+    )
 
+    t_phase = time.perf_counter()
     d = os.path.join(WORK, "sprot")
     os.makedirs(d, exist_ok=True)
     fasta, prefix = os.path.join(d, "sprot.fa"), os.path.join(d, "sprot")
-    qfile, tsv = os.path.join(d, "ladder.fa"), os.path.join(d, "hits.tsv")
+    tsv = os.path.join(d, "hits.tsv")
     t0 = time.perf_counter()
     residues = write_sprot_fasta(fasta)
-    queries = write_queries(qfile)
+    queries = [seq for _, seq in read_query_set()]
+    check(len(queries) == 20, f"{QUERY_SET}: {len(queries)} queries, expected 20")
     t_fasta = time.perf_counter() - t0
     t0 = time.perf_counter()
     rc, _ = run_cli(makedb, [fasta, prefix])
     check(rc == 0, "sprot makedb failed")
     t_makedb = time.perf_counter() - t0
 
+    # The main path: align on the 20 queries.
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc, out = run_cli(align, [
-        "--query", qfile, "--db", prefix, "--top", "10", "--tsv", "--verbose", "--of", tsv,
+        "--query", QUERY_SET, "--db", prefix, "--top", "10", "--tsv", "--verbose", "--of", tsv,
     ])
     t_align = time.perf_counter() - t0
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    align_peak = torch.cuda.max_memory_allocated()
     check(rc == 0, "sprot align failed")
     for name, (launches, plain) in counts.items():
-        check(launches > 0, f"the {name} kernel never launched on the main path")
         check(plain == 0, f"the {name} plain version ran {plain} times on the main path")
+        if name != "col_fused":
+            check(launches > 0, f"the {name} kernel never launched on the main path")
     per_query = [
         (float(a), float(b)) for a, b in
         (line.split("Scan time: ")[1].replace(" GCUPS", "").split(" s, ")
@@ -417,30 +490,87 @@ def phase_sprot(clock_mhz):
         check([h[0] for h in hs] == [int(v) for v in want],
               f"query {qi}: reported scores differ from the oracle")
 
-    # All scores of the 144-aa query against the plain version, and the
-    # per-kernel timings at the largest bucket of each kind.
+    # The batch as align formed it: the plan, the launches, and every
+    # slot's scores against the single-query kernels'.
     eng = SearchEngine(scoring=cfg, num_top=10)
     eng.set_database(db)
-    codes = encode(queries[0])
-    got = eng.slot_scores(codes)
-    qpad, params = eng._single_qpad(codes)
-    qdev = torch.as_tensor(qpad).cuda()
-    mat = eng._matrix_flat.view(21, 21)
-    want = torch.cat([
-        score_tiles_torch(t.reshape(t.shape[0], t.shape[1], -1), qdev, mat,
-                          cfg.gop, cfg.gex, len(codes)).reshape(-1)
-        for t in eng._bucket_tiles
-    ])
-    valid = eng._valid
-    n_equal = int((got[valid] == want[valid]).sum())
-    check(n_equal == db.num_sequences,
-          f"144-aa query: {db.num_sequences - n_equal} of {db.num_sequences} scores differ from plain")
+    qcap_b = eng._qcap_batch
+    codes = [encode(q) for q in queries]
+    group = [c for c in codes if len(c) <= qcap_b]
+    singles = [c for c in codes if len(c) > qcap_b]
+    check(len(group) == 14 and len(singles) == 6 and all(g is c for g, c in zip(group, codes)),
+          f"batch of {len(group)} and {len(singles)} singles, expected 14 and 6")
+    S = len(group)
+    qarr, nqs, pads, params = eng._batch_slot_params(enumerate(group), S, qcap_b)
+    plan = col_flat_plan(pads, limit=S, rtot=qcap_b)
+    pass_sizes = sorted(len(p) for p in plan)
+    check(pass_sizes == [1, 2, 2, 3, 6], f"col plan passes of {pass_sizes} slots, expected 1, 2, 2, 3, 6")
+    kinds = {}
+    for b in eng.packed.buckets:
+        kinds[b.kernel] = kinds.get(b.kernel, 0) + 1
+    check(counts["cell_batch"][0] == kinds["cell"], "cell batch launches != cell buckets")
+    check(counts["col_flat"][0] == len(plan) * kinds["col"], "col flat launches != passes x col buckets")
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    (batch_scores, batch_ms) = timed(lambda: eng.batch_slot_scores(group))
+    batch_peak = torch.cuda.max_memory_allocated() - base_bytes
+    single_scores, singles_ms = timed(lambda: [eng.slot_scores(c) for c in group])
+    valid = eng._valid
+    for i, c in enumerate(group):
+        n_equal = int((batch_scores[i][valid] == single_scores[i][valid]).sum())
+        check(n_equal == db.num_sequences,
+              f"batch slot {i} ({len(c)} aa): {db.num_sequences - n_equal} scores differ from singles")
+    del single_scores
+    group_cells = float(sum(len(c) for c in group)) * eng.packed.total_real_chars
+
+    # The fused col kernel on passes of at least 3 slots: same scores.
+    sw_col.COL_FUSE_MIN_S = 3
+    try:
+        reset_counts()
+        fused_results = eng.scan_batch(group)
+        fused_counts = read_counts()
+        fused_scores = eng.batch_slot_scores(group)
+    finally:
+        sw_col.COL_FUSE_MIN_S = 0
+    n_fused_passes = sum(1 for p in plan if len(p) >= 3)
+    check(fused_counts["col_fused"][0] == n_fused_passes * kinds["col"],
+          f"fused launches {fused_counts['col_fused'][0]}, expected {n_fused_passes * kinds['col']}")
+    check(all(v[1] == 0 for v in fused_counts.values()), "a plain version ran in the fused batch")
+    check(torch.equal(fused_scores, batch_scores), "fused batch scores differ from the flat batch")
+    plain_results = eng.scan_batch(group)
+    check([(r.scores, r.reference_ids) for r in fused_results]
+          == [(r.scores, r.reference_ids) for r in plain_results], "fused batch results differ")
+    del fused_scores
+
+    # Per-kernel timings at the main-path shapes.
     kernels = []
-    mid = encode(queries[1])  # the 464-aa query: one col chunk
+    mid = encode(queries[4])  # the 464-aa query: one col chunk
+    check(len(mid) == 464, "the fifth query is not the 464-aa one")
     qp, prm = eng._single_qpad(mid)
     qm = torch.as_tensor(qp).cuda()
-    wrappers = {
+    largest = {kind: max((k for k, b in enumerate(eng.packed.buckets) if b.kernel == kind),
+                         key=lambda k: eng.packed.buckets[k].tiles.size)
+               for kind in kinds}
+
+    def kernel_row(name, replaces, launches, shape, nrows, real_rows, bucket, got, want,
+                   ms, pms, slots=1, **extra):
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"{name} differs from plain at the main-path shape {tuple(shape)}")
+        real, padded = cell_counts(shape, nrows, real_rows, int(eng.packed.buckets[bucket].lengths.sum()))
+        nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * 4096
+        b_ms, by = bound(real, nbytes, clock_mhz)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
+            "cells_real": real, "cells_padded": padded,
+            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6, **extra,
+        })
+
+    singles_kernels = {
         "cell": (sw_cell.score_bucket_cell, sw_cell.score_bucket_cell_plain,
                  "cudasw4_tpu/ops/sw_pallas_cell.py:506", "sw_cell_kernel"),
         "row": (sw_row.score_bucket_row, sw_row.score_bucket_row_plain,
@@ -448,9 +578,8 @@ def phase_sprot(clock_mhz):
         "col": (sw_col.score_bucket_col, sw_col.score_bucket_col_plain,
                 "cudasw4_tpu/ops/sw_pallas_col.py:220", "sw_col_kernel"),
     }
-    for kind, (fn, plain, replaces, kname) in wrappers.items():
-        i = max((k for k, b in enumerate(eng.packed.buckets) if b.kernel == kind),
-                key=lambda k: eng.packed.buckets[k].tiles.size)
+    for kind, (fn, plain, replaces, kname) in singles_kernels.items():
+        i = largest[kind]
         t = eng._bucket_tiles[i]
         if kind == "col":
             nrows = int(prm[3])
@@ -460,28 +589,52 @@ def phase_sprot(clock_mhz):
             nrows, p, q = len(mid), prm, qm
         a = fn(t, q, eng._matrix_flat, p)
         b = plain(t, q, eng._matrix_flat, p)
-        err = float((a - b).abs().max())
         ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p))
         pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p), reps=1)
-        shape = tuple(t.shape)
-        real, padded = cell_counts(shape, nrows, len(mid), int(eng.packed.buckets[i].lengths.sum()))
-        slots = shape[0] * int(np.prod(shape[2:]))
-        b_ms, by = bound(real, t.numel() + 4 * nrows + 4 * slots, clock_mhz)
-        kernels.append({
-            "name": kname, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
-            "replaces": replaces, "launches": counts[kind][0], "max_abs_err": err,
-            "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "equal": err == 0.0, "shape": list(shape), "nq": nrows,
-            "cells_real": real, "cells_padded": padded,
-            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6,
-        })
-        check(err == 0.0, f"{kname} differs from plain at the main-path shape {tuple(t.shape)}")
+        kernel_row(kname, replaces, counts[kind][0], tuple(t.shape), nrows, len(mid), i, a, b, ms, pms)
+
+    # B4 at the largest cell bucket with the batch of 14; B5 and B6 at the
+    # largest col bucket with the plan's widest pass.
+    qdev = torch.as_tensor(qarr).cuda()
+    i = largest["cell"]
+    t = eng._bucket_tiles[i]
+    a = sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params)
+    b, pms = timed(lambda: sw_cell.score_bucket_cell_batch_plain(t, qdev, eng._matrix_flat, params))
+    ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params))
+    planes = cuda_lib.scratch_planes(t, S)
+    kernel_row("sw_cell_batch_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:343",
+               counts["cell_batch"][0], tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a, b,
+               ms, pms, slots=S, scratch_planes=planes, scratch_bytes=planes * 8 * t.numel())
+    del a, b
+    widest = max(plan, key=len)
+    idx = [slot for slot, _ in widest]
+    offs = tuple(o for _, o in widest)
+    qs = qdev[idx].contiguous()
+    pcol = [int(v) for v in params[:4]] + [int(pads[s]) for s in idx]
+    real_rows = int(sum(nqs[s] for s in idx))
+    i = largest["col"]
+    t = eng._bucket_tiles[i]
+    b, pms = timed(lambda: sw_col.score_bucket_col_flat_plain(t, qs, eng._matrix_flat, pcol))
+    for name, replaces, launches, fn in (
+        ("sw_col_flat_kernel", "cudasw4_tpu/ops/sw_pallas_col.py:721", counts["col_flat"][0],
+         lambda: sw_col.score_bucket_col_flat(t, qs, eng._matrix_flat, pcol, offs, rtot=qcap_b)),
+        ("sw_col_fused_kernel", "cudasw4_tpu/ops/sw_pallas_col.py:796",
+         fused_counts["col_fused"][0],
+         lambda: sw_col.score_bucket_col_flat_fused(t, qs, eng._matrix_flat, pcol, rtot=qcap_b)),
+    ):
+        a = fn()
+        ms = cuda_ms(fn)
+        planes = 1 if "fused" in name else cuda_lib.scratch_planes(t, len(idx))
+        kernel_row(name, replaces, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b,
+                   ms, pms, slots=len(idx), scratch_planes=planes,
+                   scratch_bytes=planes * 8 * t.numel(), pass_offsets=list(offs))
 
     # Where a query's device time goes: each bucket timed alone (CUDA
-    # events), summed by kernel kind, per ladder query.
+    # events), summed by kernel kind, per ladder query; and the batch's.
+    by_len = {len(c): c for c in codes}
     breakdown = {}
-    for seq in queries:
-        c = encode(seq)
+    for n in QUERY_LADDER:
+        c = by_len[n]
         qp, prm = eng._single_qpad(c)
         qd = torch.as_tensor(qp).cuda()
         by_kind = {}
@@ -494,26 +647,47 @@ def phase_sprot(clock_mhz):
                 def fn(t=t, kind=b.kernel):
                     return score_bucket(t, qd, eng._matrix_flat, prm, kind)
             by_kind[b.kernel] = by_kind.get(b.kernel, 0.0) + cuda_ms(fn, reps=1)
-        breakdown[len(c)] = by_kind
+        breakdown[n] = by_kind
+    batch_by_kind = {}
+    for t, b in zip(eng._bucket_tiles, eng.packed.buckets):
+        if b.kernel == "cell":
+            def fn(t=t):
+                return sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params)
+        elif b.kernel == "col":
+            def fn(t=t):
+                return list(batch_col_scores(t, qdev, eng._matrix_flat, params, S, plan, rtot=qcap_b))
+        else:
+            def fn(t=t):
+                return [sw_row.score_bucket_row(t, qdev[k], eng._matrix_flat,
+                                                (int(nqs[k]), cfg.gop, cfg.gex, int(pads[k])))
+                        for k in range(S)]
+        batch_by_kind[b.kernel] = batch_by_kind.get(b.kernel, 0.0) + cuda_ms(fn, reps=1)
 
     profiled = device_idle_share(lambda: list(eng.scan_many(queries)))
 
-    kinds = {}
-    for b in eng.packed.buckets:
-        kinds[b.kernel] = kinds.get(b.kernel, 0) + 1
     emit({
         "phase": "sprot", "sequences": db.num_sequences, "residues": residues,
         "buckets": kinds, "padded_db_bytes": eng.packed.total_padded_chars,
-        "query_lengths": list(QUERY_LADDER),
+        "query_lengths": [len(c) for c in codes], "batch_queries": S, "single_queries": len(singles),
+        "col_plan_pass_slots": [len(p) for p in plan],
         "query_seconds": [s for s, _ in per_query], "query_gcups": [g for _, g in per_query],
         "total_seconds": total_s, "total_gcups": total_gcups,
         "stream_occupancy_between_queries": sum(q for q, _ in per_query) / total_s,
+        "batch14_ms": batch_ms, "batch14_gcups": group_cells / batch_ms / 1e6,
+        "singles14_ms": singles_ms, "singles14_gcups": group_cells / singles_ms / 1e6,
+        "batch14_ms_by_kind": batch_by_kind,
+        "batch14_col_share": batch_by_kind["col"] / sum(batch_by_kind.values()),
+        "batch14_peak_device_bytes_above_db": batch_peak,
         "bucket_ms_by_kind": breakdown,
-        "profiled_ladder": profiled,
+        "profiled_20_queries": profiled,
         "align_run_seconds": t_align, "makedb_seconds": t_makedb, "fasta_seconds": t_fasta,
-        "peak_device_bytes": peak, "launches": {k: v[0] for k, v in counts.items()},
+        "align_peak_device_bytes": align_peak,
+        "launches": {k: v[0] for k, v in counts.items()},
         "plain_calls": {k: v[1] for k, v in counts.items()},
-        "hits_checked": sum(len(h) for h in hits.values()), "q144_scores_equal": n_equal,
+        "fused_batch_launches": {k: v[0] for k, v in fused_counts.items()},
+        "hits_checked": sum(len(h) for h in hits.values()),
+        "batch_slot_scores_equal_singles": S * db.num_sequences,
+        "seconds": time.perf_counter() - t_phase,
     })
     return kernels
 

@@ -1,6 +1,6 @@
 // Affine-gap Smith-Waterman over packed subject tiles, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of the JAX package, one entry point each, all
+// Replaces six TPU kernels of the JAX package, one entry point each, all
 // computing the same recurrence over int8 subject codes and an int32 AxA
 // substitution matrix (A = 21 classic, 26 full-blosum):
 //
@@ -19,6 +19,19 @@
 //   score_bucket_pallas_col (_sw_col_kernel): one query chunk against the
 //   cell layout at long L, with the optional H/F carry in and out between
 //   query chunks.
+// * sw_cell_batch_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
+//   score_bucket_pallas_cell_batch (_sw_cell_batch_kernel): QB queries
+//   [QB, W] against cell tiles in one launch, out [QB, T, 4096].
+// * sw_col_flat_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
+//   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
+//   nqp rows each against col tiles in one launch.  The TPU kernel gives
+//   each slot a row range of one VMEM state pool; here the state lives per
+//   subject position, so the pool offsets place nothing (the wrapper
+//   checks them against the contract).
+// * sw_col_fused_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
+//   score_bucket_pallas_col_flat_fused (_sw_col_flat_fused_kernel): the
+//   same slots walked as one gapless run of rows, with the DP reset to the
+//   top of the matrix at each slot boundary and the slot's max flushed.
 //
 // Design (simple and right first; speed is later work).  One thread per
 // subject: neighbouring threads own neighbouring subjects, so each load of
@@ -44,6 +57,19 @@
 // per subject leaves small buckets without enough warps to hide latency;
 // register-tiled wavefronts with DPX instructions (__viaddmax_s32,
 // __vimax3_s32_relu) are the known way to the bound.
+//
+// The batch kernels have the same bound: 11 operations per cell of every
+// slot, while the tiles are read once per call.  Each slot still re-reads
+// the tile and moves its own scratch traffic, so a batch saves no bytes
+// per cell; what it buys is blocks.  Cell batch and col flat put slots on
+// the grid's y axis: blockIdx.y picks one of P scratch planes (P = slots,
+// capped by the wrapper's scratch budget) and scores slots y, y + P, ...
+// on it, so a launch fills P times the blocks of a single query and takes
+// P x 8 bytes per tile char of scratch (the top Swiss-Prot-scale cell
+// bucket [12, 640, 32, 128]: 251.7 MB a plane; the top col tile
+// [1, 5632, 32, 128]: 184.5 MB).  The fused kernel walks its slots one
+// after another on one plane: the blocks and scratch of a single query,
+// for S queries' rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,6 +187,115 @@ __device__ __forceinline__ void sw_tiles_body(
   if (live) out[(size_t)t * NS + s] = (float)m;
 }
 
+// Build the substitution profile of the query rows q[0, nr) and sweep them
+// over this thread's subject.  Every thread of the block calls it: it
+// synchronises.  hsrc/fsrc: the row above; from_zero: that row is the top
+// of the DP matrix (H = 0, F = -inf).
+__device__ __forceinline__ void run_rows(
+    const int32_t* __restrict__ q, int nr, const int* smat, int* prof, int A,
+    bool live, const int8_t* __restrict__ x, const int32_t* hsrc,
+    const int32_t* fsrc, bool from_zero, int32_t* hs, int32_t* fs, int L,
+    int NS, int gop, int gex, int& m) {
+  __syncthreads();  // smat is loaded; the previous profile is consumed
+  for (int k = threadIdx.x; k < A * kRows; k += blockDim.x) {
+    const int c = k / kRows, r = k % kRows;
+    prof[k] = r < nr ? smat[q[r] * A + c] : 0;
+  }
+  __syncthreads();
+  if (!live) return;
+  if (nr == kRows) {
+    sweep_block<true>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
+                      gex, m);
+  } else {
+    sweep_block<false>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
+                       gex, m);
+  }
+}
+
+// Batch bodies over cell-layout tiles [T, L, 4096] and a query block
+// [S, W]; out is [S, T, 4096].  A block owns kThreads subjects of one tile
+// (blockIdx.x) and one H/F scratch plane (blockIdx.y) of [T, L, 4096].
+constexpr int kCellNS = 4096;
+
+struct BatchBlock {
+  int t, s;
+  size_t base;  // offset of this thread's subject in a [T, L, 4096] array
+  int32_t* h;   // this thread's column of its block's scratch plane
+  int32_t* f;
+};
+
+__device__ __forceinline__ BatchBlock batch_block(int T, int L, int32_t* hs,
+                                                  int32_t* fs) {
+  BatchBlock b;
+  b.t = blockIdx.x / (kCellNS / kThreads);
+  b.s = (blockIdx.x % (kCellNS / kThreads)) * kThreads + threadIdx.x;
+  b.base = (size_t)b.t * L * kCellNS + b.s;
+  const size_t plane = (size_t)blockIdx.y * T * L * kCellNS;
+  b.h = hs + plane + b.base;
+  b.f = fs + plane + b.base;
+  return b;
+}
+
+// B4 and B5: slot q runs its nrows[q] rows from the top of the DP matrix.
+// The block scores slots blockIdx.y, blockIdx.y + gridDim.y, ... one after
+// another on its plane, so a launch of P planes fills P times the blocks of
+// a single-query launch and takes P scratch planes.
+__device__ __forceinline__ void sw_batch_body(
+    const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
+    const int32_t* __restrict__ nrows, const int32_t* __restrict__ mat,
+    int A, int T, int L, int S, int W, int gop, int gex, int32_t* hs,
+    int32_t* fs, float* __restrict__ out) {
+  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
+  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
+  const BatchBlock b = batch_block(T, L, hs, fs);
+  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
+  for (int q = blockIdx.y; q < S; q += gridDim.y) {
+    const int32_t* qrow = queries + (size_t)q * W;
+    const int n = nrows[q];
+    int m = 0;
+    for (int i0 = 0; i0 < n; i0 += kRows) {
+      run_rows(qrow + i0, min(kRows, n - i0), smat, prof, A, true,
+               tiles + b.base, b.h, b.f, i0 == 0, b.h, b.f, L, kCellNS, gop,
+               gex, m);
+    }
+    out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
+  }
+}
+
+// B6: one scratch plane; the block walks the slots' rows concatenated
+// without gaps, rows [starts[q], starts[q + 1]) being slot q's.  At a slot's
+// first row the row above is reset to H = 0, F = -inf (from_zero); where a
+// slot ends its maximum is flushed to out and the running max restarts.
+// Slot boundaries must fall on kRows-row block starts: every slot's row
+// count is a multiple of kRows (the wrapper checks it).
+__device__ __forceinline__ void sw_fused_body(
+    const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ mat,
+    int A, int T, int L, int S, int W, int gop, int gex, int32_t* hs,
+    int32_t* fs, float* __restrict__ out) {
+  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
+  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
+  const BatchBlock b = batch_block(T, L, hs, fs);
+  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
+  const int total = starts[S];
+  int q = 0, m = 0;
+  for (int i = 0; i < total; i += kRows) {
+    while (i >= starts[q + 1]) {  // slot q (maybe empty) ends here
+      out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
+      m = 0;
+      ++q;
+    }
+    const int r = i - starts[q];  // row within slot q
+    run_rows(queries + (size_t)q * W + r, min(kRows, starts[q + 1] - i), smat,
+             prof, A, true, tiles + b.base, b.h, b.f, r == 0, b.h, b.f, L,
+             kCellNS, gop, gex, m);
+  }
+  for (; q < S; ++q) {
+    out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
+    m = 0;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) sw_cell_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
@@ -189,11 +324,55 @@ unsigned grid_for(int T, int NS) {
   return (unsigned)((long long)T * ((NS + kThreads - 1) / kThreads));
 }
 
+__global__ void __launch_bounds__(kThreads) sw_cell_batch_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
+    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
+    int32_t* hs, int32_t* fs, float* out) {
+  sw_batch_body(tiles, queries, nrows, mat, A, T, L, S, W, gop, gex, hs, fs,
+                out);
+}
+
+__global__ void __launch_bounds__(kThreads) sw_col_flat_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
+    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
+    int32_t* hs, int32_t* fs, float* out) {
+  sw_batch_body(tiles, queries, nrows, mat, A, T, L, S, W, gop, gex, hs, fs,
+                out);
+}
+
+__global__ void __launch_bounds__(kThreads) sw_col_fused_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* starts,
+    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
+    int32_t* hs, int32_t* fs, float* out) {
+  sw_fused_body(tiles, queries, starts, mat, A, T, L, S, W, gop, gex, hs, fs,
+                out);
+}
+
+typedef void (*BatchKernel)(const int8_t*, const int32_t*, const int32_t*,
+                            const int32_t*, int, int, int, int, int, int, int,
+                            int32_t*, int32_t*, float*);
+
+int batch_launch(BatchKernel kernel, const void* tiles, const void* queries,
+                 const void* rows, const void* mat, int A, int T, int L,
+                 int S, int W, int planes, int gop, int gex, void* hs,
+                 void* fs, void* out, void* stream) {
+  if (T == 0 || S == 0) return 0;
+  if (planes < 1 || planes > S || planes > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(grid_for(T, kCellNS), (unsigned)planes);
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
+      (const int32_t*)mat, A, T, L, S, W, gop, gex, (int32_t*)hs,
+      (int32_t*)fs, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The three launch functions share one signature.  Each returns
+// The three single-query launches share one signature.  Each returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments outside its contract: NS = 4096 for
 // cell and col tiles, and a carry (hin, fin) for the col kernel only.
@@ -236,6 +415,41 @@ int sw_col_launch(const void* tiles, const void* query, const void* mat,
       (int32_t*)hs, (int32_t*)fs, (float*)out);
   return (int)cudaGetLastError();
 }
+
+// The three batch launches share a second signature.  tiles: int8
+// [T, L, 32, 128]; queries: int32 [S, W]; rows: int32, the slots' row
+// counts [S] (cell batch, col flat) or the slots' first rows and the total
+// [S + 1] (col fused); hs, fs: int32 scratch of planes x [T, L, 32, 128];
+// out: f32 [S, T, 4096].  planes: 1..S, and 1 for the fused kernel.
+
+int sw_cell_batch_launch(const void* tiles, const void* queries,
+                         const void* rows, const void* mat, int A, int T,
+                         int L, int S, int W, int planes, int gop, int gex,
+                         void* hs, void* fs, void* out, void* stream) {
+  return batch_launch(sw_cell_batch_kernel, tiles, queries, rows, mat, A, T,
+                      L, S, W, planes, gop, gex, hs, fs, out, stream);
+}
+
+int sw_col_flat_launch(const void* tiles, const void* queries,
+                       const void* rows, const void* mat, int A, int T, int L,
+                       int S, int W, int planes, int gop, int gex, void* hs,
+                       void* fs, void* out, void* stream) {
+  return batch_launch(sw_col_flat_kernel, tiles, queries, rows, mat, A, T, L,
+                      S, W, planes, gop, gex, hs, fs, out, stream);
+}
+
+int sw_col_fused_launch(const void* tiles, const void* queries,
+                        const void* rows, const void* mat, int A, int T,
+                        int L, int S, int W, int planes, int gop, int gex,
+                        void* hs, void* fs, void* out, void* stream) {
+  if (planes != 1) return (int)cudaErrorInvalidValue;
+  return batch_launch(sw_col_fused_kernel, tiles, queries, rows, mat, A, T, L,
+                      S, W, planes, gop, gex, hs, fs, out, stream);
+}
+
+// Query rows per register block (kRows): the fused kernel's slot
+// boundaries must fall on multiples of it.
+int sw_kernel_rows() { return kRows; }
 
 const char* sw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,11 +1,16 @@
-"""Search engine: a database resident on one device, per-query scans, top-N,
-stats (the counterpart of the resident single-device path of
+"""Search engine: a database resident on one device, single and batched
+scans, top-N, stats (the counterpart of the resident single-device path of
 cudasw4_tpu/engine.py).
 
 Scan flow: encode the query -> score every bucket on its kernel (cell,
 row or col; col buckets chunk queries longer than NQC with the H/F carry)
 -> concatenate the scores in slot order (slot order is ascending reference
 id) -> mask padding slots -> top N by descending score, then ascending id.
+A batch of up to QB_MAX queries of at most ``_qcap_batch`` residues scores
+each bucket in one launch for all of them: the cell batch kernel on cell
+buckets, one flat-pool launch per ``col_flat_plan`` pass on col buckets,
+the row kernel per query on row buckets.  ``scan_many`` groups its queries
+so, as the JAX engine's does.
 GCUPS = query length x sum of real DB lengths / 1e9 / seconds, as the
 reference's makeBenchmarkStats (src/cudasw4.cuh:2264-2271).
 
@@ -28,7 +33,9 @@ import torch
 from .constants import decode, encode
 from .db.format import DBData
 from .db.packing import PackedDB, pack_db
-from .ops import bucket_kind, cuda_lib, score_bucket, sw_cell, sw_col
+from .ops import (
+    batch_col_scores, bucket_kind, col_flat_plan, cuda_lib, score_bucket, sw_cell, sw_col,
+)
 from .ops.sw_row import prepare_query
 from .substitution import ScoringConfig, make_scoring_config
 
@@ -64,6 +71,10 @@ def resolve_device(device=None) -> torch.device:
 
 class SearchEngine:
     """One-device, resident-database search engine."""
+
+    #: Queries per batched scan (short queries only): one launch per bucket
+    #: serves the whole group.
+    QB_MAX = 16
 
     def __init__(
         self,
@@ -222,19 +233,20 @@ class SearchEngine:
         return torch.cat(parts)
 
     def _top_n(self, scores: torch.Tensor):
-        """Top ``max(1, results_per_query)`` slots by descending score, then
-        ascending slot (= ascending reference id): one int64 key per slot,
+        """Top ``max(1, results_per_query)`` slots of each row of ``scores``
+        ([N] or [S, N]) by descending score, then ascending slot (=
+        ascending reference id): one int64 key per slot,
         (score + 1) << 32 | (2^32 - 1 - slot), so the order is total and
         needs no tie rule from topk.  Returns device (scores, ids)."""
         k = max(1, self.results_per_query)
-        n = scores.numel()
+        n = scores.shape[-1]
         if n == 0:
-            empty = torch.zeros(0, dtype=torch.int64, device=self.device)
+            empty = torch.zeros(scores.shape, dtype=torch.int64, device=self.device)
             return empty, empty
         s = torch.where(self._valid, scores.long(), -1) + 1
         slot = torch.arange(n, dtype=torch.int64, device=self.device)
         key = (s << 32) | ((1 << 32) - 1 - slot)
-        top = torch.topk(key, min(k, n)).values
+        top = torch.topk(key, min(k, n), dim=-1).values
         vals = (top >> 32) - 1
         slots = (1 << 32) - 1 - (top & ((1 << 32) - 1))
         return vals, self._flat_idx[slots]
@@ -279,47 +291,193 @@ class SearchEngine:
             self._debug_check_result(codes, result)
         return result
 
+    def _timed(self, fn, *args):
+        """Run ``fn(*args)``; returns (its result, its clock): CUDA events
+        around its launches on the card, so work queued before it does not
+        count, and its wall seconds on the CPU."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            return fn(*args), time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        return out, (start, stop)
+
+    @staticmethod
+    def _seconds(clock) -> float:
+        """Seconds of a clock from ``_timed`` (waits for its events)."""
+        if isinstance(clock, tuple):
+            return clock[0].elapsed_time(clock[1]) / 1e3
+        return clock
+
+    # ------------------------------------------------------------ batching
+
+    @property
+    def _qb_cap(self) -> int:
+        """Most queries scan_batch and scan_many group into one batch."""
+        return self.QB_MAX
+
+    @property
+    def _qcap_batch(self) -> int:
+        """Longest query a batch takes: QCAP_BATCH, or NQC when the
+        database has col buckets, whose batch passes pack the slots' rows
+        into a pool of NQC rows (longer queries run as singles)."""
+        if not any(b.kernel == "col" for b in self.packed.buckets):
+            return sw_cell.QCAP_BATCH
+        return min(sw_cell.QCAP_BATCH, sw_col.NQC)
+
+    def _batch_slot_params(self, entries, QB: int, width: int):
+        """The batch kernels' layout: ``entries`` = (slot, codes) pairs ->
+        (queries [QB, width] int32, nqs, pads, params [4 + 2*QB] =
+        [0, gop, gex, 0] + nqs + pads), pads being the rows rounded up to
+        the unroll (at least one granule)."""
+        queries = np.full((QB, width), self._pad, dtype=np.int32)
+        nqs = np.zeros(QB, np.int32)
+        cu = sw_col.DEFAULT_UNROLL
+        pads = np.full(QB, cu, np.int32)
+        for slot, c in entries:
+            queries[slot, : len(c)] = c
+            nqs[slot] = len(c)
+            pads[slot] = sw_col.padded_rows(len(c), cu)
+        params = np.concatenate(
+            [np.array([0, self.scoring.gop, self.scoring.gex, 0], np.int32), nqs, pads]
+        )
+        return queries, nqs, pads, params
+
+    def batch_slot_scores(self, group) -> torch.Tensor:
+        """Scores f32 [len(group), slots] of a batch of encoded queries,
+        each of at most ``_qcap_batch`` residues, against every slot of the
+        packed database (as ``slot_scores`` gives them for one query).
+
+        The group's slots only are launched: the JAX engine pads its batch
+        to QB_MAX slots to keep one compiled program, which the port does
+        not need.  Each bucket is its own launch, which is the JAX engine's
+        split dispatch (BATCH_SPLIT_CELLS) at every size."""
+        S = len(group)
+        qcap_b = self._qcap_batch
+        queries, nqs, pads, params = self._batch_slot_params(enumerate(group), S, qcap_b)
+        qdev = cuda_lib.to_device(queries, self.device)
+        plan = ()
+        if any(k == "col" for k in self._kinds):
+            plan = col_flat_plan(pads, limit=S, rtot=qcap_b)
+        gop, gex = self.scoring.gop, self.scoring.gex
+        parts = []
+        for tiles, kind in zip(self._bucket_tiles, self._kinds):
+            if kind == "cell":
+                s = sw_cell.score_bucket_cell_batch(tiles, qdev, self._matrix_flat, params)
+            elif kind == "col":
+                got = [None] * S
+                for s_part, slots in batch_col_scores(
+                    tiles, qdev, self._matrix_flat, params, S, plan, rtot=qcap_b
+                ):
+                    for si, slot in enumerate(slots):
+                        got[slot] = s_part[si]
+                s = torch.stack(got)
+            else:
+                s = torch.stack([
+                    score_bucket(tiles, qdev[i], self._matrix_flat,
+                                 (int(nqs[i]), gop, gex, int(pads[i])), kind)
+                    for i in range(S)
+                ])
+            parts.append(s.reshape(S, -1))
+        if not parts:
+            return torch.zeros((S, 0), dtype=torch.float32, device=self.device)
+        return torch.cat(parts, dim=1)
+
+    def _dispatch_batch(self, group):
+        """Launch one batch; returns device (scores, ids), each [S, k]."""
+        return self._top_n(self.batch_slot_scores(group))
+
+    def _materialize_batch(self, vals, ids, group, clock) -> list[ScanResult]:
+        """Per-query ScanResults of one batch, in order.  A query's seconds
+        are the batch's split in proportion to its cells (queries are not
+        separately observable inside one batch)."""
+        vals, ids = vals.tolist(), ids.tolist()  # waits for the batch
+        seconds = self._seconds(clock)
+        total = sum(len(c) for c in group)
+        out = [
+            self._result(v, i, len(c), seconds * len(c) / total if total else seconds)
+            for v, i, c in zip(vals, ids, group)
+        ]
+        if self.debug_check:
+            for c, r in zip(group, out):
+                self._debug_check_result(c, r)
+        return out
+
+    def scan_batch(self, sequences) -> list[ScanResult]:
+        """Scan up to QB_MAX queries of at most ``_qcap_batch`` residues as
+        one batch (synchronous); returns results in input order."""
+        group = [self._encode(s) for s in sequences]
+        if len(group) > self._qb_cap:
+            raise ValueError(
+                f"scan_batch takes at most {self._qb_cap} queries per call "
+                f"(got {len(group)}); use scan_many for larger sets"
+            )
+        if self.packed is None:
+            raise RuntimeError("set_database() must be called before scan_batch()")
+        too_long = [len(c) for c in group if len(c) > self._qcap_batch]
+        if too_long:
+            raise ValueError(
+                f"scan_batch queries must be <= {self._qcap_batch} residues on a "
+                f"resident DB (got {max(too_long)}); use scan() / scan_many for "
+                "longer queries"
+            )
+        if not group:
+            return []
+        (vals, ids), clock = self._timed(self._dispatch_batch, group)
+        return self._materialize_batch(vals, ids, group, clock)
+
     def scan_many(self, sequences, window: int = 3):
         """Pipelined scans: yields one ScanResult per input sequence, in
-        order.  Up to ``window`` queries are launched ahead of reading
-        their results back, so the host's work on the next query overlaps
-        the device's.  Each query runs alone (the singles branch of the
-        JAX engine's scan_many); multi-query batch kernels are a later
-        slice of the port.  On CUDA a query's seconds are the device time
-        from its first kernel to its top-N (CUDA events), so queued
-        queries do not count each other's time; on the CPU, wall time."""
+        order.  Queries of at most ``_qcap_batch`` residues are grouped into
+        batches of up to QB_MAX; a group is launched when it is full or a
+        longer query arrives, which then runs alone.  Up to ``window``
+        launches (batches or singles) are queued ahead of reading their
+        results back, so the host's work overlaps the device's.  A single's
+        seconds are its CUDA-event span on the card (its wall time on the
+        CPU); a batch's span is split over its queries by their cells."""
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan_many()")
-        cuda = self.device.type == "cuda"
-        pending: deque = deque()
+        pending: deque = deque()  # (group or None, vals, ids, codes, clock)
+        shortbuf: list = []
+        qcap_b = self._qcap_batch
 
         def materialize(entry):
-            vals, ids, codes, clock = entry
+            group, vals, ids, codes, clock = entry
+            if group is not None:
+                return self._materialize_batch(vals, ids, group, clock)
             vals, ids = vals.tolist(), ids.tolist()  # waits for the query
-            seconds = clock[0].elapsed_time(clock[1]) / 1e3 if cuda else clock
-            result = self._result(vals, ids, len(codes), seconds)
+            result = self._result(vals, ids, len(codes), self._seconds(clock))
             if self.debug_check:
                 self._debug_check_result(codes, result)
-            return result
+            return [result]
+
+        def flush_shorts():
+            if shortbuf:
+                group = list(shortbuf)
+                shortbuf.clear()
+                (vals, ids), clock = self._timed(self._dispatch_batch, group)
+                pending.append((group, vals, ids, None, clock))
 
         for sequence in sequences:
             codes = self._encode(sequence)
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                vals, ids = self._dispatch(codes)
-                stop.record()
-                clock = (start, stop)
-            else:
-                t0 = time.perf_counter()
-                vals, ids = self._dispatch(codes)
-                clock = time.perf_counter() - t0
-            pending.append((vals, ids, codes, clock))
+            if len(codes) <= qcap_b:
+                shortbuf.append(codes)
+                if len(shortbuf) >= self._qb_cap:
+                    flush_shorts()
+                    while len(pending) > window:
+                        yield from materialize(pending.popleft())
+                continue
+            flush_shorts()
+            (vals, ids), clock = self._timed(self._dispatch, codes)
+            pending.append((None, vals, ids, codes, clock))
             if len(pending) > window:
-                yield materialize(pending.popleft())
+                yield from materialize(pending.popleft())
+        flush_shorts()
         while pending:
-            yield materialize(pending.popleft())
+            yield from materialize(pending.popleft())
 
     def _debug_check_result(self, codes, result: ScanResult) -> None:
         """Re-score the top-N hits with the scalar CPU oracle and raise on

@@ -1,8 +1,10 @@
 """Scoring kernels and the per-bucket dispatch (the counterpart of
-cudasw4_tpu/ops/__init__.py::score_bucket and bucket_kind).
+cudasw4_tpu/ops/__init__.py: score_bucket, bucket_kind, col_flat_plan,
+batch_col_scores).
 
-One CUDA kernel per TPU kernel on the resident single-query path (cell,
-row, col), each with its plain PyTorch version in the same module.  The
+One CUDA kernel per TPU kernel on the resident paths: the single-query
+kernels (cell, row, col) and the batch kernels (cell batch, col flat, col
+fused), each with its plain PyTorch version in the same module.  The
 dispatch is by bucket kind on every device; each wrapper takes its plain
 version only for CPU tensors, so the CPU walks the same branches as the
 card.
@@ -10,7 +12,9 @@ card.
 
 from __future__ import annotations
 
-from . import sw_cell, sw_col, sw_row
+import numpy as np
+
+from . import cuda_lib, sw_cell, sw_col, sw_row
 
 
 def score_bucket(tiles, qpad, matrix_flat, params, kind: str):
@@ -32,6 +36,64 @@ def score_bucket(tiles, qpad, matrix_flat, params, kind: str):
         q = qpad[: min(sw_col.NQC, qpad.shape[0])]
         return sw_col.score_bucket_col(tiles, q, matrix_flat, pc)
     raise ValueError(f"unknown bucket kind {kind!r}")
+
+
+def col_flat_plan(pads, limit=None, rtot=None, smax=8):
+    """Bin-pack batch slots into flat-pool col passes, first-fit
+    decreasing.
+
+    ``pads``: per-slot unroll-padded query row counts; ``limit``: only the
+    first ``limit`` slots are real.  Returns a tuple of passes, each a tuple
+    of (slot, pool row offset) pairs whose reservations (pads rounded up to
+    FLAT_QUANT) sum to at most ``rtot`` (default NQC), with at most
+    ``smax`` slots.  Raises ValueError for a slot longer than the pool.
+    """
+    if rtot is None:
+        rtot = sw_col.NQC
+    n = len(pads) if limit is None else min(int(limit), len(pads))
+    order = sorted(range(n), key=lambda i: -int(pads[i]))
+    passes: list[list] = []  # [rows_reserved, [(slot, off), ...]]
+    for i in order:
+        p = int(pads[i])
+        if p > rtot:
+            raise ValueError(
+                f"slot {i} needs {p} state rows > pool {rtot}; the caller must "
+                "route queries longer than the pool to the chunked single-query path"
+            )
+        r = -(-p // sw_col.FLAT_QUANT) * sw_col.FLAT_QUANT
+        for entry in passes:
+            if entry[0] + r <= rtot and len(entry[1]) < smax:
+                entry[1].append((i, entry[0]))
+                entry[0] += r
+                break
+        else:
+            passes.append([r, [(i, 0)]])
+    return tuple(tuple(e[1]) for e in passes)
+
+
+def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=None):
+    """Score a col bucket for a QB-query batch, one flat-pool launch per
+    plan entry.
+
+    ``queries``: int32 [QB, W] on the tiles' device; ``params``: host ints,
+    the batch layout [4 + 2*QB] = _, gop, gex, _, nq_0.., pad_0.. (pads
+    are the unroll-padded rows the slots run); ``plan``: from
+    col_flat_plan.  Yields (scores [S_pass, T, 4096], slots): row i of the
+    scores belongs to batch slot slots[i].  A pass of at least
+    sw_col.COL_FUSE_MIN_S slots (when that is > 0) runs on the fused
+    kernel, the others on the flat kernel.
+    """
+    for slots_offs in plan:
+        idx = [s for s, _ in slots_offs]
+        offs = tuple(o for _, o in slots_offs)
+        qs = queries.index_select(0, cuda_lib.to_device(np.asarray(idx, np.int64), queries.device))
+        pcol = [int(v) for v in params[:4]] + [int(params[4 + QB + s]) for s in idx]
+        fmin = sw_col.COL_FUSE_MIN_S
+        if fmin > 0 and len(offs) >= fmin:
+            s = sw_col.score_bucket_col_flat_fused(tiles, qs, matrix_flat, pcol, rtot=rtot)
+        else:
+            s = sw_col.score_bucket_col_flat(tiles, qs, matrix_flat, pcol, offs, rtot=rtot)
+        yield s, tuple(idx)
 
 
 def bucket_kind(bucket) -> str:

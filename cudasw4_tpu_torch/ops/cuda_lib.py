@@ -18,6 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -38,6 +39,19 @@ LAUNCHES = {
     "sw_col_kernel": "sw_col_launch",
 }
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+#: The launch functions of the batch kernels, with a second signature:
+#: tiles, queries, rows, mat, A, T, L, S, W, planes, gop, gex, hs, fs, out, stream.
+BATCH_LAUNCHES = {
+    "sw_cell_batch_kernel": "sw_cell_batch_launch",
+    "sw_col_flat_kernel": "sw_col_flat_launch",
+    "sw_col_fused_kernel": "sw_col_fused_launch",
+}
+_BATCH_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+
+#: Device-memory budget for the H/F scratch planes of one batch launch
+#: (8 bytes per tile char each); the plane count, and with it the blocks
+#: in flight, is capped to fit it.
+BATCH_SCRATCH_BYTES = 4 << 30
 
 _lock = threading.Lock()
 _lib = None
@@ -85,10 +99,13 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for name in LAUNCHES.values():
-                fn = getattr(handle, name)
-                fn.argtypes = _SIGNATURE
-                fn.restype = ctypes.c_int
+            for names, sig in ((LAUNCHES, _SIGNATURE), (BATCH_LAUNCHES, _BATCH_SIGNATURE)):
+                for name in names.values():
+                    fn = getattr(handle, name)
+                    fn.argtypes = sig
+                    fn.restype = ctypes.c_int
+            handle.sw_kernel_rows.argtypes = []
+            handle.sw_kernel_rows.restype = ctypes.c_int
             handle.sw_error_string.argtypes = [ctypes.c_int]
             handle.sw_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -176,3 +193,44 @@ def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=Non
     check_launch(code, kernel)
     wrapper.launches += 1
     return out, (hs, fs)
+
+
+def scratch_planes(tiles: torch.Tensor, slots: int) -> int:
+    """H/F scratch planes for a batch launch of ``slots`` slots: one per
+    slot, as many as BATCH_SCRATCH_BYTES holds, at least one."""
+    per_plane = 8 * tiles.numel()
+    return max(1, min(slots, BATCH_SCRATCH_BYTES // max(1, per_plane)))
+
+
+def launch_batch(wrapper, kernel: str, tiles, queries, rows, matrix_flat,
+                 gop: int, gex: int, planes: int):
+    """Launch the batch kernel ``kernel`` (a key of BATCH_LAUNCHES) on the
+    tiles' device and stream, and count the launch on ``wrapper.launches``.
+
+    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W]; ``rows``:
+    host ints, the slots' row counts (cell batch, col flat) or the slots'
+    first rows and the total (col fused), copied to the device without
+    blocking.  Allocates the f32 scores [S, T, 4096] and ``planes`` int32
+    H/F scratch planes shaped as ``tiles``; raises if the launch reports an
+    error.  Never synchronises.
+    """
+    dev = tiles.device
+    require(tiles, "tiles", torch.int8, 4, dev)
+    require(queries, "queries", torch.int32, 2, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    T, L = tiles.shape[0], tiles.shape[1]
+    S, W = queries.shape
+    rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
+    out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
+    hs = torch.empty((planes, *tiles.shape), dtype=torch.int32, device=dev)
+    fs = torch.empty_like(hs)
+    with torch.cuda.device(dev):
+        code = getattr(lib(), BATCH_LAUNCHES[kernel])(
+            tiles.data_ptr(), queries.data_ptr(), rows_dev.data_ptr(),
+            matrix_flat.data_ptr(), A, T, L, S, W, planes, gop, gex,
+            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
+        )
+    check_launch(code, kernel)
+    wrapper.launches += 1
+    return out

@@ -1,17 +1,26 @@
 """Column-layout scoring for long subjects, with the H/F carry between
 query chunks (the counterpart of cudasw4_tpu/ops/sw_pallas_col.py:
-score_bucket_pallas_col, pad_query_chunk, score_bucket_col_any_query).
+score_bucket_pallas_col, pad_query_chunk, score_bucket_col_any_query), and
+the flat-pool batch of query slots (score_bucket_pallas_col_flat and
+score_bucket_pallas_col_flat_fused).
 
-The kernel is ``sw_col_kernel`` in csrc/sw_tiles.cu (its note gives the
-design and the bound on the H100).  ``score_bucket_col`` keeps the TPU
-kernel's contract: one query chunk of ``nq_pad`` rows (at most NQC) against
+The kernels are ``sw_col_kernel``, ``sw_col_flat_kernel`` and
+``sw_col_fused_kernel`` in csrc/sw_tiles.cu (its note gives the design and
+the bound on the H100).  ``score_bucket_col`` keeps the TPU kernel's
+contract: one query chunk of ``nq_pad`` rows (at most NQC) against
 cell-layout tiles whose L is a multiple of LC, optionally starting from the
 previous chunk's bottom-row H/F (``state_in``) and returning its own
 (``emit_state``).  Queries longer than NQC run chunk by chunk through
 ``score_bucket_col_any_query``; per-chunk scores combine by max.
+``score_bucket_col_flat`` and ``score_bucket_col_flat_fused`` keep the
+flat-pool contracts: S slots of nqp rows each, whose rows fit a pool of
+``rtot`` rows.
 """
 
 from __future__ import annotations
+
+import itertools
+import os
 
 import torch
 
@@ -25,6 +34,15 @@ LC = 128
 
 #: Query rows per col call; longer queries chunk with the H/F carry.
 NQC = 3072
+
+#: Offset quantum of the flat pool: col_flat_plan rounds each slot's
+#: reservation up to a multiple of it.
+FLAT_QUANT = 128
+
+#: Flat-pool passes with at least this many slots run on the fused kernel;
+#: 0, the default, never does (the JAX package's switch, under the port's
+#: prefix).
+COL_FUSE_MIN_S = int(os.environ.get("CUDASW4_TPU_TORCH_COL_FUSE_MIN_S", 0))
 
 #: Device-memory budget for one tile group's carry state (bottom-row H and
 #: F, 8 bytes per tile char).  Buckets whose carry would exceed it run the
@@ -143,3 +161,106 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
             best = scores if best is None else torch.maximum(best, scores)
         parts.append(best)
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _flat_contract(tiles, queries, params, rtot):
+    """Check the flat-pool contract that B5 and B6 share; returns
+    (rtot, nqp per slot).  Every slot runs nqp rows, a multiple of the
+    unroll, from the top of its query block."""
+    if tiles.dim() != 4:
+        raise ValueError(f"col tiles must be [T, L, {G}, {NSL}], got {tuple(tiles.shape)}")
+    T, L, g, nsl = tiles.shape
+    if (g, nsl) != (G, NSL) or L % LC:
+        raise ValueError(f"col tiles must be [T, L % {LC} == 0, {G}, {NSL}], got {tuple(tiles.shape)}")
+    if queries.dim() != 2 or queries.shape[0] == 0:
+        raise ValueError(f"queries must be [S >= 1, W], got {tuple(queries.shape)}")
+    S, W = queries.shape
+    rtot = NQC if rtot is None else int(rtot)
+    if W > rtot:
+        raise ValueError(f"query block width {W} exceeds the pool of {rtot} rows")
+    if len(params) < 4 + S:
+        raise ValueError(f"params hold {len(params)} entries, expected 4 + {S}")
+    nqps = [int(params[4 + s]) for s in range(S)]
+    for s, n in enumerate(nqps):
+        if n < 0 or n % DEFAULT_UNROLL:
+            raise ValueError(f"slot {s}: {n} rows is not a multiple of the unroll {DEFAULT_UNROLL}")
+        if n > W:
+            raise ValueError(f"slot {s}: {n} rows exceed the query block of {W}")
+    return rtot, nqps
+
+
+def score_bucket_col_flat_plain(tiles, queries, matrix_flat, params):
+    """Plain PyTorch version of the flat and fused col kernels: each slot
+    swept alone over its nqp rows, f32 [S, T, 4096] (the pool layout
+    places nothing here)."""
+    gop, gex = int(params[1]), int(params[2])
+    T, L, g, nsl = tiles.shape
+    A = cuda_lib.alphabet_dim(matrix_flat)
+    x, mat = tiles.reshape(T, L, g * nsl), matrix_flat.view(A, A)
+    return torch.stack([
+        sweep_tiles_torch(x, queries[s, : int(params[4 + s])].tolist(), mat, gop, gex)[0].float()
+        for s in range(queries.shape[0])
+    ])
+
+
+def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None):
+    """Scores f32 [S, T, 4096]: S flat-pool slots against a col bucket in
+    one launch.
+
+    ``tiles``: int8 [T, L, 32, 128] with L % LC == 0; ``queries``: int32
+    [S, W <= rtot] padded with the pad code; ``params``: host ints [4 + S]
+    = _, gop, gex, _, nqp_0.., each nqp a multiple of DEFAULT_UNROLL;
+    ``offs``: slot s owns pool rows [offs[s], offs[s] + nqp_s), which must
+    not overlap nor pass ``rtot`` (default NQC).
+    """
+    rtot, nqps = _flat_contract(tiles, queries, params, rtot)
+    offs = tuple(int(o) for o in offs)
+    if len(offs) != len(nqps):
+        raise ValueError(f"{len(offs)} offsets for {len(nqps)} slots")
+    if min(offs) < 0 or max(offs) >= rtot:
+        raise ValueError(f"offsets {offs} outside the pool of {rtot} rows")
+    spans = sorted((o, o + n) for o, n in zip(offs, nqps) if n)
+    for a, b in spans:
+        if b > rtot:
+            raise ValueError(f"pool rows [{a}, {b}) pass the pool of {rtot} rows")
+    for (_, b0), (a1, b1) in zip(spans, spans[1:]):
+        if a1 < b0:
+            raise ValueError(f"pool rows [{a1}, {b1}) overlap a slot ending at {b0}")
+    if tiles.device.type == "cpu":
+        score_bucket_col_flat.plain_calls += 1
+        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
+    return cuda_lib.launch_batch(
+        score_bucket_col_flat, "sw_col_flat_kernel", tiles, queries, nqps, matrix_flat,
+        int(params[1]), int(params[2]), cuda_lib.scratch_planes(tiles, len(nqps)),
+    )
+
+
+score_bucket_col_flat.launches = 0
+score_bucket_col_flat.plain_calls = 0
+
+
+def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
+    """Scores f32 [S, T, 4096]: the flat contract with the slots' rows
+    packed without gaps (sum of nqp <= ``rtot``, a multiple of
+    DEFAULT_UNROLL) and walked as one run, one scratch plane for the pass.
+    """
+    rtot, nqps = _flat_contract(tiles, queries, params, rtot)
+    if rtot % DEFAULT_UNROLL:
+        raise ValueError(f"pool of {rtot} rows is not a multiple of the unroll {DEFAULT_UNROLL}")
+    if sum(nqps) > rtot:
+        raise ValueError(f"slots of {sum(nqps)} rows exceed the pool of {rtot} rows")
+    if tiles.device.type == "cpu":
+        score_bucket_col_flat_fused.plain_calls += 1
+        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
+    # Slot boundaries land on the kernel's register-block starts only while
+    # its block is the unroll that every nqp is a multiple of.
+    assert cuda_lib.lib().sw_kernel_rows() == DEFAULT_UNROLL == 8
+    starts = [0, *itertools.accumulate(nqps)]
+    return cuda_lib.launch_batch(
+        score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, starts,
+        matrix_flat, int(params[1]), int(params[2]), 1,
+    )
+
+
+score_bucket_col_flat_fused.launches = 0
+score_bucket_col_flat_fused.plain_calls = 0

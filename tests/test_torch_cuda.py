@@ -14,7 +14,7 @@ import torch
 from cudasw4_tpu_torch import make_scoring_config
 from cudasw4_tpu_torch.db.packing import PackedBucket, PackedDB
 from cudasw4_tpu_torch.engine import SearchEngine
-from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
+from cudasw4_tpu_torch.ops import cuda_lib, sw_cell, sw_col, sw_row
 from cudasw4_tpu_torch.ops.oracle import sw_score_scalar
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +173,106 @@ def test_wrapper_rejects_bad_arguments(dev):
         sw_row.score_bucket_row(torch.zeros((1, 8, 128), dtype=torch.int32, device=dev), q, m, (4, -11, -1, 8))
     with pytest.raises(ValueError):
         sw_cell.score_bucket_cell(torch.zeros((1, 8, 32, 128), dtype=torch.int8, device=dev), q, m, (17, -11, -1, 24))
+
+
+def _batch_inputs(rng, mat, shape, lengths, W):
+    """Tiles, slot queries (real lengths ``lengths``), matrix and config."""
+    cfg = make_scoring_config(mat)
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = torch.as_tensor(_tiles(rng, shape, pad, shape[0] * 4096 - 77, A))
+    q = np.full((len(lengths), W), pad, np.int32)
+    for s, n in enumerate(lengths):
+        q[s, :n] = rng.integers(0, A - 1, size=n)
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    return tiles, torch.as_tensor(q), m, cfg
+
+
+#: Slot lengths: one slot, and eight with an empty one and real lengths
+#: that are not multiples of 8 (their padded rows are walked).
+BATCH_LENGTHS = {"S1": (37,), "S8": (13, 0, 40, 7, 21, 64, 1, 30)}
+
+
+@pytest.mark.parametrize("planes_budget", [None, 1])
+@pytest.mark.parametrize("slots", sorted(BATCH_LENGTHS))
+@pytest.mark.parametrize("mat", MATS)
+def test_cell_batch_kernel_equals_plain(dev, monkeypatch, mat, slots, planes_budget):
+    """All slots on their own scratch planes, and (budget of one byte)
+    all slots one after another on one plane."""
+    if planes_budget is not None:
+        monkeypatch.setattr(cuda_lib, "BATCH_SCRATCH_BYTES", planes_budget)
+    rng = np.random.default_rng(16)
+    lengths = BATCH_LENGTHS[slots]
+    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, 64, 32, 128), lengths, 64)
+    params = (0, cfg.gop, cfg.gex, 0, *lengths)
+    want = sw_cell.score_bucket_cell_batch_plain(tiles, q, m, params)
+    before = sw_cell.score_bucket_cell_batch.launches
+    got = sw_cell.score_bucket_cell_batch(tiles.to(dev), q.to(dev), m.to(dev), params)
+    torch.cuda.synchronize()
+    assert sw_cell.score_bucket_cell_batch.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("slots", sorted(BATCH_LENGTHS))
+@pytest.mark.parametrize("mat", MATS)
+def test_col_flat_and_fused_kernels_equal_plain(dev, mat, slots):
+    rng = np.random.default_rng(17)
+    lengths = BATCH_LENGTHS[slots]
+    nqps = [max(8, -(-n // 8) * 8) for n in lengths]
+    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, 256, 32, 128), lengths, 64)
+    params = (0, cfg.gop, cfg.gex, 0, *nqps)
+    offs = tuple(64 * s for s in range(len(nqps)))
+    want = sw_col.score_bucket_col_flat_plain(tiles, q, m, params)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    flat0 = sw_col.score_bucket_col_flat.launches
+    fused0 = sw_col.score_bucket_col_flat_fused.launches
+    got = sw_col.score_bucket_col_flat(t, qd, md, params, offs, rtot=512)
+    got_f = sw_col.score_bucket_col_flat_fused(t, qd, md, params, rtot=512)
+    torch.cuda.synchronize()
+    assert sw_col.score_bucket_col_flat.launches == flat0 + 1
+    assert sw_col.score_bucket_col_flat_fused.launches == fused0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_f.cpu(), want)
+
+
+def test_engine_batch_cuda_equals_cpu_and_singles(dev, monkeypatch):
+    """scan_batch on the card, with the fused col kernel for passes of two
+    slots or more, against the CPU and against the card's single scans."""
+    monkeypatch.setattr(sw_col, "COL_FUSE_MIN_S", 2)
+    rng = np.random.default_rng(18)
+    cfg = make_scoring_config("blosum62")
+    pad = cfg.pad_code
+    buckets, base = [], 0
+    for L, kind, ns in ((32, "row", 128), (64, "cell", 4096), (256, "col", 4096)):
+        cnt = ns - 5
+        tiles = _tiles(rng, (1, L, ns) if kind == "row" else (1, L, 32, 128), pad, cnt, 21)
+        sidx = np.full((1, ns), -1, np.int32)
+        sidx[0, :cnt] = np.arange(base, base + cnt)
+        buckets.append(PackedBucket(L=L, NS=ns, tiles=tiles, seq_index=sidx,
+                                    lengths=(sidx >= 0).astype(np.int32) * L, kernel=kind))
+        base += cnt
+    packed = PackedDB(buckets=buckets, num_sequences=base, total_real_chars=base)
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in (17, 120, 3, 64, 250)]
+    results = []
+    for device in ("cpu", "cuda"):
+        eng = SearchEngine(scoring=cfg, num_top=25, device=device)
+        eng.set_database(None, packed=packed)
+        results.append([(r.scores, r.reference_ids) for r in eng.scan_batch(queries)])
+    assert results[0] == results[1]
+    assert results[1] == [(r.scores, r.reference_ids) for r in map(eng.scan, queries)]
+
+
+def test_batch_wrappers_reject_bad_arguments(dev):
+    m = torch.zeros(441, dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    t = torch.zeros((1, 128, 32, 128), dtype=torch.int8, device=dev)
+    p = (0, -11, -1, 0, 8, 8)
+    with pytest.raises(ValueError):  # int32 tiles
+        sw_cell.score_bucket_cell_batch(t.int(), q, m, p)
+    with pytest.raises(ValueError):  # query block on the CPU
+        sw_cell.score_bucket_cell_batch(t, q.cpu(), m, p)
+    with pytest.raises(ValueError):  # slot rows overlap
+        sw_col.score_bucket_col_flat(t, q, m, p, (0, 4), rtot=64)
+    with pytest.raises(ValueError):  # slots exceed the pool
+        sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, 16, 16), rtot=24)
+    with pytest.raises(ValueError):  # rows not a multiple of the unroll
+        sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, 8, 5), rtot=64)
