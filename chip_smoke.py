@@ -11,7 +11,12 @@ non-zero:
 2. kernels: each kernel (cell, row, col with its carry, cell batch, col
    flat, col fused) against its plain PyTorch version on the card, exact
    equality of the integer scores, both alphabets; kernel, plain and
-   bound times.
+   bound times.  The int16 modes of cell and col (col over two chunks
+   with the int32 carry) against their plain versions and the exact
+   scores under the SAT rule (``sw_cell.sat_match``), at the default SAT
+   and at one that most subjects reach; the manual-staging kernel (both
+   modes) and the pair kernel (P = 2, 4) against the cell kernel's plain
+   version, timed beside it.
 3. golden:  the port's makedb and align --tsv --top 10 on the golden
    fixtures, byte for byte against golden_top10.tsv and
    golden_top10_full.tsv.
@@ -29,15 +34,30 @@ non-zero:
    batch and the singles are timed on the same queries; device time by
    kernel kind per ladder query and for the batch; and the card's idle
    share over the 20-query scan from a torch.profiler trace.
-5. kernels line: per kernel, its launches on the main path and its time,
-   bound and plain time at its main-path shape: the largest bucket of its
-   kind, with the 464-aa query for the single-query kernels, the batch of
-   14 for the cell batch, and the widest plan pass for the col kernels.
+5. state16: align --dpx on the 20 queries (singles in int16 state), TSV
+   equal to the exact run's; again with SAT lowered to the median top
+   score, so that real tiles flag and are re-scored; a planted 3,100-W
+   subject (34,100 > SAT) on a small database, exact after the re-score
+   of only its flagged tile; the 20 queries as singles in int16 and in
+   int32 state, timed in turns.
+6. long_query: the two longest queries joined (> QCAP = 8192 aa) against
+   the Swiss-Prot-scale database, hits against the oracle, GCUPS.
+7. tools: dmabench and pairbench at their defaults, every line OK.
+8. kernels line: per kernel, its launches on its path (align for the
+   exact kernels, align --dpx for the int16 modes, the tools for the
+   manual and pair kernels; each path's counters are reset just before
+   it and read just after) and its time, bound and plain time at its
+   main-path shape: the largest bucket of its kind, with the 464-aa query
+   for the single-query kernels (and the manual and pair kernels), the
+   batch of 14 for the cell batch, and the widest plan pass for the col
+   kernels.
 
 Bounds and per-kernel GCUPS count the DP cells the data needs: real query
-rows times real subject residues.  The kernels also sweep the padding
-after each subject (its matrix row is all negative, so it changes no
-score); each line gives the padded cell count beside the real one.
+rows times real subject residues; int16 state's bound counts two cells a
+32-bit lane operation (the packed s16x2 forms).  The kernels also sweep
+the padding after each subject (its matrix row is all negative, so it
+changes no score); each line gives the padded cell count beside the real
+one.
 
 Then the nvidia-smi line and, last, the contract line
 {"ok": true, "device": {...}}.  Needs CUDA: without it, or outside the
@@ -65,11 +85,18 @@ INT32_LANES = 132 * 64
 #: int32 operations per DP cell: E (2 adds, 1 max), F (2 adds, 1 max),
 #: H (1 add, 3 max), running max (1 max).
 OPS_PER_CELL = 11
+#: DP cells one 32-bit lane operation can update, by state type: int16
+#: state fits the packed s16x2 forms (vadd2/vmax2 and the DPX s16x2
+#: instructions), two cells an operation.
+CELLS_PER_LANE_OP = {"int32": 1, "int16": 2}
 
 #: The Swiss-Prot length model (benchmarks/make_synthetic_db.py, "sprot").
 SPROT_NUM, SPROT_MEDIAN, SPROT_SIGMA = 573_000, 292.0, 0.64
 #: The per-bucket breakdown's queries: these lengths of the query set.
 QUERY_LADDER = (144, 464, 1000, 3005, 5478)
+#: The planted int16 overflow: a subject of PLANTED_W W's against the same
+#: query scores 11 x 3,100 = 34,100 on blosum62, above SAT = 32,000.
+PLANTED_W = 3100
 AAS = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", dtype=np.uint8)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -124,11 +151,13 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def bound(cells: float, nbytes: float, clock_mhz: float):
+def bound(cells: float, nbytes: float, clock_mhz: float, state: str = "int32"):
     """Least time the card could take: the larger of bytes over the memory
-    rate and int32 operations over the int32 rate.  Returns (ms, by)."""
+    rate and the cells' operations over the lane rate, at two cells an
+    operation for int16 state.  Returns (ms, by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = cells * OPS_PER_CELL / (INT32_LANES * clock_mhz * 1e6) * 1e3
+    lane_ops = cells * OPS_PER_CELL / CELLS_PER_LANE_OP[state]
+    t_ops = lane_ops / (INT32_LANES * clock_mhz * 1e6) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -272,9 +301,119 @@ def phase_kernels(clock_mhz):
         ms = cuda_ms(lambda: sw_col.score_bucket_col_flat_fused(t, qs, m, p))
         record("B6 col fused", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
                slots=len(lens))
+        phase_kernels_state16(mat, cfg, m, rng, rows)
+    phase_kernels_tools(rng, rows)
     for r in rows:
         emit({"phase": "kernels", **r})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
+
+
+def lowered_sat(scores) -> int:
+    """A SAT that most subjects reach: the 25th percentile of the positive
+    exact scores."""
+    pos = scores[scores > 0].float()
+    return max(1, int(torch.quantile(pos[: 1 << 24], 0.25)))
+
+
+def check_sat_rule(name, got, want, sat):
+    from cudasw4_tpu_torch.ops import sw_cell
+
+    check(bool(sw_cell.sat_match(got, want, sat).all()), f"{name}: breaks the SAT rule at SAT={sat}")
+
+
+def phase_kernels_state16(mat, cfg, m, rng, rows):
+    """B1 and B3 in int16 mode against their plain versions (int16 and
+    exact) under the SAT rule, at the default SAT and at one that most
+    subjects reach; B3 over two chunks with the int32 carry, the carried
+    state equal on every subject below SAT."""
+    from cudasw4_tpu_torch.ops import sw_cell, sw_col
+
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    default = sw_cell.SAT
+    shape = (8, 256, 32, 128)
+    t, real_chars = random_tiles(rng, shape, A, pad)
+    q = query_block(rng, 464, sw_cell.QCAP, A, pad)
+    p = (464, cfg.gop, cfg.gex, 464)
+    exact = sw_cell.score_bucket_cell_plain(t, q, m, p)
+    for sat in (default, lowered_sat(exact)):
+        sw_cell.SAT = sat
+        try:
+            got = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+            want = sw_cell.score_bucket_cell_plain(t, q, m, p, exact=False)
+            check_sat_rule(f"B1 int16 {mat}", got, want, sat)
+            check_sat_rule(f"B1 int16 {mat} vs exact", got, exact, sat)
+            ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, q, m, p, exact=False))
+        finally:
+            sw_cell.SAT = default
+        rows.append({"check": "B1 cell int16", "mat": mat, "shape": list(shape), "nq": 464,
+                     "sat": sat, "sat_rule": True, "saturated": int((exact >= sat).sum()),
+                     "ms": ms})
+
+    shape = (2, 1024, 32, 128)
+    t, real_chars = random_tiles(rng, shape, A, pad)
+    codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
+    chunks = [sw_col.pad_query_chunk(c, pad=pad) for c in (codes[:sw_col.NQC], codes[sw_col.NQC:])]
+    qs = [(torch.as_tensor(qp).cuda(), (n, cfg.gop, cfg.gex, 0)) for qp, n in chunks]
+    ex0, _ = sw_col.score_bucket_col_plain(t, qs[0][0], m, qs[0][1], emit_state=True)
+    for sat in (default, lowered_sat(ex0)):
+        sw_cell.SAT = sat
+        try:
+            s0, st = sw_col.score_bucket_col(t, qs[0][0], m, qs[0][1], emit_state=True, exact=False)
+            w0, st_w = sw_col.score_bucket_col_plain(t, qs[0][0], m, qs[0][1], emit_state=True,
+                                                     exact=False)
+            check_sat_rule(f"B3 int16 {mat} chunk 0", s0, w0, sat)
+            check_sat_rule(f"B3 int16 {mat} chunk 0 vs exact", s0, ex0, sat)
+            live = (ex0 < sat).reshape(2, 1, 32, 128).expand(shape)
+            check(all(g.dtype == torch.int32 and torch.equal(g[live], w[live])
+                      for g, w in zip(st, st_w)),
+                  f"B3 int16 {mat}: carried state != plain on subjects below SAT={sat}")
+            s1 = sw_col.score_bucket_col(t, qs[1][0], m, qs[1][1], state_in=st, take_init=True,
+                                         exact=False)
+            w1 = sw_col.score_bucket_col_plain(t, qs[1][0], m, qs[1][1], state_in=st_w, exact=False)
+            check_sat_rule(f"B3 int16 {mat} both chunks", torch.maximum(s0, s1),
+                           torch.maximum(w0, w1), sat)
+            ms = cuda_ms(lambda: sw_col.score_bucket_col(t, qs[1][0], m, qs[1][1], state_in=st,
+                                                         take_init=True, exact=False))
+        finally:
+            sw_cell.SAT = default
+        rows.append({"check": "B3 col int16, two chunks with the carry", "mat": mat,
+                     "shape": list(shape), "nq": 5478, "sat": sat, "sat_rule": True,
+                     "saturated": int((ex0 >= sat).sum()), "ms_chunk1": ms})
+
+
+def phase_kernels_tools(rng, rows):
+    """B7 (both modes) and B8 (P = 2, 4) against B1's plain version, at the
+    cell shapes above and at the top Swiss-Prot-scale cell bucket's
+    [12, 640, 32, 128] x 464, each timed beside B1 on the same inputs."""
+    from cudasw4_tpu_torch import make_scoring_config
+    from cudasw4_tpu_torch.ops import sw_cell
+    from cudasw4_tpu_torch.tools.pairbench import score_pair
+
+    cfg = make_scoring_config("blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    for shape in ((8, 256, 32, 128), (4, 768, 32, 128), (12, 640, 32, 128)):
+        t, real_chars = random_tiles(rng, shape, A, pad)
+        q = query_block(rng, 464, sw_cell.QCAP, A, pad)
+        p = (464, cfg.gop, cfg.gex, 464)
+        want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+        b1_ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, q, m, p))
+        for exact in (True, False):
+            def fn(exact=exact):
+                return sw_cell.score_bucket_cell_manual(t, q, m, p, exact=exact)
+            got = fn()
+            name = f"B7 manual {'int32' if exact else 'int16'}"
+            if exact:
+                check(torch.equal(got, want), f"{name} {shape}: != B1 plain")
+            else:
+                check_sat_rule(f"{name} {shape}", got, want, sw_cell.SAT)
+            rows.append({"check": name, "shape": list(shape), "nq": 464,
+                         "equal" if exact else "sat_rule": True,
+                         "ms": cuda_ms(fn), "b1_ms": b1_ms})
+        for P in (2, 4):
+            check(torch.equal(score_pair(t, q, m, p, P=P), want), f"B8 P={P} {shape}: != B1 plain")
+            rows.append({"check": f"B8 pair P={P}", "shape": list(shape), "nq": 464, "equal": True,
+                         "ms": cuda_ms(lambda: score_pair(t, q, m, p, P=P)), "b1_ms": b1_ms})
 
 
 # --------------------------------------------------------------- phase 3
@@ -358,25 +497,43 @@ def read_query_set():
 
 
 def wrappers():
-    """The kernels' wrappers by short name: each counts its launches and
-    its plain calls."""
+    """The kernels' counters by short name: (wrapper, mode), the mode ""
+    for exact state and "16" for int16 state; each wrapper counts its
+    launches and its plain calls per mode."""
     from cudasw4_tpu_torch.ops import sw_cell, sw_col, sw_row
+    from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     return {
-        "cell": sw_cell.score_bucket_cell, "row": sw_row.score_bucket_row,
-        "col": sw_col.score_bucket_col, "cell_batch": sw_cell.score_bucket_cell_batch,
-        "col_flat": sw_col.score_bucket_col_flat, "col_fused": sw_col.score_bucket_col_flat_fused,
+        "cell": (sw_cell.score_bucket_cell, ""), "cell16": (sw_cell.score_bucket_cell, "16"),
+        "row": (sw_row.score_bucket_row, ""),
+        "col": (sw_col.score_bucket_col, ""), "col16": (sw_col.score_bucket_col, "16"),
+        "cell_batch": (sw_cell.score_bucket_cell_batch, ""),
+        "col_flat": (sw_col.score_bucket_col_flat, ""),
+        "col_fused": (sw_col.score_bucket_col_flat_fused, ""),
+        "manual": (sw_cell.score_bucket_cell_manual, ""),
+        "manual16": (sw_cell.score_bucket_cell_manual, "16"),
+        "pair": (score_pair, ""),
     }
 
 
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
-        fn.plain_calls = 0
+    for fn, mode in wrappers().values():
+        setattr(fn, "launches" + mode, 0)
+        setattr(fn, "plain_calls" + mode, 0)
 
 
 def read_counts():
-    return {name: (fn.launches, fn.plain_calls) for name, fn in wrappers().items()}
+    return {name: (getattr(fn, "launches" + mode), getattr(fn, "plain_calls" + mode))
+            for name, (fn, mode) in wrappers().items()}
+
+
+def check_path(counts, path, launched):
+    """The run ``path`` launched every kernel of ``launched`` and ran no
+    plain version."""
+    for name, (launches, plain) in counts.items():
+        check(plain == 0, f"{path}: the {name} plain version ran {plain} times")
+    for name in launched:
+        check(counts[name][0] > 0, f"{path}: the {name} kernel never launched")
 
 
 def device_idle_share(run):
@@ -454,10 +611,9 @@ def phase_sprot(clock_mhz):
     counts = read_counts()
     align_peak = torch.cuda.max_memory_allocated()
     check(rc == 0, "sprot align failed")
-    for name, (launches, plain) in counts.items():
-        check(plain == 0, f"the {name} plain version ran {plain} times on the main path")
-        if name != "col_fused":
-            check(launches > 0, f"the {name} kernel never launched on the main path")
+    check_path(counts, "align", ("cell", "row", "col", "cell_batch", "col_flat"))
+    check(not any(counts[k][0] for k in ("cell16", "col16", "manual", "manual16", "pair")),
+          "align launched an int16 or tool kernel")
     per_query = [
         (float(a), float(b)) for a, b in
         (line.split("Scan time: ")[1].replace(" GCUPS", "").split(" s, ")
@@ -555,17 +711,17 @@ def phase_sprot(clock_mhz):
                for kind in kinds}
 
     def kernel_row(name, replaces, launches, shape, nrows, real_rows, bucket, got, want,
-                   ms, pms, slots=1, **extra):
+                   ms, pms, slots=1, state="int32", **extra):
         err = float((got - want).abs().max())
         check(err == 0.0, f"{name} differs from plain at the main-path shape {tuple(shape)}")
         real, padded = cell_counts(shape, nrows, real_rows, int(eng.packed.buckets[bucket].lengths.sum()))
         nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * 4096
-        b_ms, by = bound(real, nbytes, clock_mhz)
+        b_ms, by = bound(real, nbytes, clock_mhz, state)
         kernels.append({
             "name": name, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
+            "state": state, "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
             "cells_real": real, "cells_padded": padded,
             "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6, **extra,
         })
@@ -587,11 +743,32 @@ def phase_sprot(clock_mhz):
             q = qm[: sw_col.NQC]
         else:
             nrows, p, q = len(mid), prm, qm
-        a = fn(t, q, eng._matrix_flat, p)
-        b = plain(t, q, eng._matrix_flat, p)
-        ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p))
-        pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p), reps=1)
-        kernel_row(kname, replaces, counts[kind][0], tuple(t.shape), nrows, len(mid), i, a, b, ms, pms)
+        for exact in (True,) if kind == "row" else (True, False):  # the row kernel: int32 only
+            kw = {} if kind == "row" else {"exact": exact}
+            a = fn(t, q, eng._matrix_flat, p, **kw)
+            b = plain(t, q, eng._matrix_flat, p, **kw)
+            ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw))
+            pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p, **kw), reps=1)
+            # int16 state: its launches come from the align --dpx run.
+            kernel_row(kname if exact else kname.replace("_kernel", "16_kernel"), replaces,
+                       counts[kind][0] if exact else None, tuple(t.shape), nrows, len(mid), i,
+                       a, b, ms, pms, state="int32" if exact else "int16")
+            if kind == "cell" and exact:
+                cell_args, cell_want, cell_pms = (i, t, q, p), b, pms
+
+    # B7 and B8 at the same bucket and query as B1, against B1's plain
+    # version; their launches come from the tools phase.
+    from cudasw4_tpu_torch.tools.pairbench import score_pair
+
+    i, t, q, p = cell_args
+    for name, replaces, fn in (
+        ("sw_manual_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448",
+         lambda: sw_cell.score_bucket_cell_manual(t, q, eng._matrix_flat, p)),
+        ("sw_pair_kernel", "tools/pairbench.py:45",
+         lambda: score_pair(t, q, eng._matrix_flat, p, P=2)),
+    ):
+        kernel_row(name, replaces, None, tuple(t.shape), len(mid), len(mid), i, fn(), cell_want,
+                   cuda_ms(fn), cell_pms)
 
     # B4 at the largest cell bucket with the batch of 14; B5 and B6 at the
     # largest col bucket with the plan's widest pass.
@@ -689,7 +866,216 @@ def phase_sprot(clock_mhz):
         "batch_slot_scores_equal_singles": S * db.num_sequences,
         "seconds": time.perf_counter() - t_phase,
     })
-    return kernels
+    ctx = {"prefix": prefix, "tsv": tsv, "queries": queries, "db": db, "cfg": cfg, "eng": eng,
+           "total_gcups": total_gcups}
+    return {k["name"]: k for k in kernels}, ctx
+
+
+# ------------------------------------------------------ phase state16
+
+def planted_db(rng, planted, n=6000):
+    """A small database whose long tail packs into col buckets: ``n``
+    random subjects of planted - 200 .. planted + 99 aa and one of
+    ``planted`` W's, sorted by
+    length ascending as makedb stores them (the planted one at a random
+    place among the subjects of its length).  Returns (DBData, the planted
+    subject's id)."""
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.db.format import DBData
+
+    lens = np.sort(rng.integers(planted - 200, planted + 100, size=n))
+    seqs = [rng.integers(0, 20, size=int(k)).astype(np.int8) for k in lens]
+    lo, hi = np.searchsorted(lens, planted, "left"), np.searchsorted(lens, planted, "right")
+    at = int(rng.integers(lo, hi + 1))
+    seqs.insert(at, encode("W" * planted))
+    lens = np.array([len(x) for x in seqs], np.int32)
+    offsets = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum((lens + 3) // 4 * 4, out=offsets[1:])
+    chars = np.full(int(offsets[-1]), 20, np.int8)
+    for x, a in zip(seqs, offsets[:-1]):
+        chars[a : a + len(x)] = x
+    return DBData(chars=chars, offsets=offsets.astype(np.uint64), lengths=lens,
+                  headers=np.zeros(0, np.uint8),
+                  header_offsets=np.zeros(len(seqs) + 1, np.uint64)), at
+
+
+def phase_state16(ctx, kernels):
+    """The int16-state path: align --dpx on the 20 queries (TSV equal to
+    the exact run's; its counters are the int16 kernels' launches), again
+    with SAT lowered to the median top score so that real tiles flag
+    (TSV equal again, re-scored tiles and exact launches counted), a
+    planted 34,100 hit above the default SAT on a small database, and the
+    20 queries as singles in int16 and in int32 state, timed in turns."""
+    from cudasw4_tpu_torch.cli import align
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.engine import SearchEngine
+    from cudasw4_tpu_torch.ops import sw_cell
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "sprot")
+    with open(ctx["tsv"]) as f:
+        exact_text = f.read()
+
+    def align_dpx(name):
+        tsv = os.path.join(d, name)
+        rc, out = run_cli(align, ["--query", QUERY_SET, "--db", ctx["prefix"], "--top", "10",
+                                  "--tsv", "--verbose", "--of", tsv, "--dpx"])
+        check(rc == 0, f"align --dpx ({name}) failed")
+        with open(tsv) as f:
+            text = f.read()
+        check(text == exact_text, f"align --dpx ({name}): TSV differs from the exact run's")
+        total = [line for line in out.splitlines() if line.startswith("Total time:")][0]
+        return float(total.split(", ")[1].replace(" GCUPS", ""))
+
+    # The int16 modes' main path.
+    reset_counts()
+    dpx_gcups = align_dpx("hits_dpx.tsv")
+    counts = read_counts()
+    check_path(counts, "align --dpx", ("cell16", "row", "col16"))
+    check(counts["cell_batch"][0] == 0 and counts["col_flat"][0] == 0,
+          "align --dpx launched a batch kernel")
+    kernels["sw_cell16_kernel"]["launches"] = counts["cell16"][0]
+    kernels["sw_col16_kernel"]["launches"] = counts["col16"][0]
+
+    # SAT lowered so that real tiles flag: the re-score and its merge.
+    tops = sorted(int(line.split("\t")[4]) for line in exact_text.splitlines()[1:]
+                  if line.split("\t")[3] == "0")
+    sat_low = tops[len(tops) // 2]
+    flagged, real_rescore = [], SearchEngine._rescore_overflow
+
+    def spy(self, tmaxes, vals, ids, codes):
+        flagged.append(sum(int((tm >= sw_cell.SAT).sum()) for tm in tmaxes))
+        return real_rescore(self, tmaxes, vals, ids, codes)
+
+    default_sat = sw_cell.SAT
+    SearchEngine._rescore_overflow, sw_cell.SAT = spy, sat_low
+    try:
+        reset_counts()
+        low_gcups = align_dpx("hits_dpx_lowered_sat.tsv")
+        low_counts = read_counts()
+    finally:
+        SearchEngine._rescore_overflow, sw_cell.SAT = real_rescore, default_sat
+    check(len(flagged) > 0, f"no query re-scored at SAT={sat_low}")
+    low_flagged = list(flagged)
+    check_path(low_counts, "align --dpx at a lowered SAT", ("cell16", "col16"))
+
+    # A planted hit above the default SAT: 3,100 W against 3,100 W.
+    db, at = planted_db(np.random.default_rng(5), PLANTED_W)
+    w = int(encode("W")[0])
+    top = PLANTED_W * int(ctx["cfg"].matrix[w, w])
+    check(top >= sw_cell.SAT, f"the planted score {top} does not reach SAT={sw_cell.SAT}")
+    eng = SearchEngine(scoring=ctx["cfg"], num_top=10)
+    eng.state16 = True
+    eng.set_database(db)
+    kinds = [b.kernel for b in eng.packed.buckets]
+    tiles_total = sum(b.num_tiles for b in eng.packed.buckets)
+    exact_tiles, real_score = [], SearchEngine._score_bucket
+
+    def score_spy(self, tiles, kind, codes, qdev, params, exact):
+        if exact:  # the fast pass is int16: exact calls are the re-score's
+            exact_tiles.append(int(tiles.shape[0]))
+        return real_score(self, tiles, kind, codes, qdev, params, exact)
+
+    flagged.clear()
+    SearchEngine._rescore_overflow, SearchEngine._score_bucket = spy, score_spy
+    try:
+        reset_counts()
+        res = eng.scan("W" * PLANTED_W)
+        planted_counts = read_counts()
+    finally:
+        SearchEngine._rescore_overflow, SearchEngine._score_bucket = real_rescore, real_score
+    check(len(flagged) == 1, f"planted hit: {len(flagged)} re-scores, expected 1")
+    check(res.scores[0] == top and res.reference_ids[0] == at,
+          f"planted hit: {res.scores[0]} at {res.reference_ids[0]}, expected {top} at {at}")
+    check(res.stats.num_overflows >= 1, "planted hit: no overflow counted")
+    check(exact_tiles and sum(exact_tiles) == flagged[0] < tiles_total,
+          f"planted hit: exact scoring over {exact_tiles} tiles, {flagged} flagged of {tiles_total}")
+    check_path(planted_counts, "planted hit", ("col16", "col"))
+    del eng
+
+    # int16 against int32 state, the 20 queries as singles, in turns.
+    eng = ctx["eng"]
+    ms = {"int32": [], "int16": []}
+    for q in ctx["queries"]:
+        for state16 in (False, True):
+            eng.state16 = state16
+            _, t = timed(lambda: eng.scan(q))
+            ms["int16" if state16 else "int32"].append(t)
+    eng.state16 = False
+    cells = float(sum(len(q) for q in ctx["queries"])) * eng.packed.total_real_chars
+    emit({
+        "phase": "state16", "dpx_total_gcups": dpx_gcups, "exact_total_gcups": ctx["total_gcups"],
+        "dpx_launches": {k: v[0] for k, v in counts.items()},
+        "lowered_sat": sat_low, "lowered_sat_total_gcups": low_gcups,
+        "lowered_sat_rescored_queries": len(low_flagged), "lowered_sat_flagged_tiles": low_flagged,
+        "lowered_sat_launches": {k: v[0] for k, v in low_counts.items()},
+        "planted": {"buckets": kinds, "tiles": tiles_total, "top": res.scores[0],
+                    "num_overflows": res.stats.num_overflows, "flagged_tiles": flagged,
+                    "exact_tiles": exact_tiles,
+                    "launches": {k: v[0] for k, v in planted_counts.items()}},
+        "singles_ms_int32": ms["int32"], "singles_ms_int16": ms["int16"],
+        "singles_gcups_int32": cells / sum(ms["int32"]) / 1e6,
+        "singles_gcups_int16": cells / sum(ms["int16"]) / 1e6,
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
+# ---------------------------------------------------- phase long_query
+
+def phase_long_query(ctx):
+    """The two longest reference queries joined (> QCAP = 8192 aa) against
+    the Swiss-Prot-scale database: its hits against the vectorised oracle
+    and its GCUPS."""
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.ops import oracle, sw_cell
+
+    t_phase = time.perf_counter()
+    eng, db, cfg = ctx["eng"], ctx["db"], ctx["cfg"]
+    longest = sorted(ctx["queries"], key=len)[-2:]
+    codes = encode(longest[1] + longest[0])
+    check(len(codes) > sw_cell.QCAP, f"joined query of {len(codes)} aa is not beyond QCAP")
+    reset_counts()
+    res, ms = timed(lambda: eng.scan(codes))
+    counts = read_counts()
+    check_path(counts, "long query", ("cell", "row", "col"))
+    hs = list(zip(res.scores, res.reference_ids))
+    check(hs == sorted(hs, key=lambda h: (-h[0], h[1])), "long query: hits out of order")
+    subs = [db.get_sequence(r) for r in res.reference_ids]
+    block = np.full((len(subs), max(len(x) for x in subs)), cfg.pad_code, np.int8)
+    for k, x in enumerate(subs):
+        block[k, : len(x)] = x
+    want = oracle.sw_score_rowvec(codes, block, cfg.matrix, cfg.gop, cfg.gex)
+    check(res.scores == [int(v) for v in want], "long query: scores differ from the oracle")
+    emit({"phase": "long_query", "query_aa": len(codes), "ms": ms,
+          "gcups": len(codes) * eng.packed.total_real_chars / ms / 1e6,
+          "hits": hs, "launches": {k: v[0] for k, v in counts.items()},
+          "seconds": time.perf_counter() - t_phase})
+
+
+# --------------------------------------------------------- phase tools
+
+def phase_tools(kernels):
+    """dmabench and pairbench in this process at their defaults: every
+    checked line must say OK; their counters are B7's and B8's launches."""
+    from cudasw4_tpu_torch.tools import dmabench, pairbench
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    lines = {}
+    for tool in (dmabench, pairbench):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(tool.main([]) == 0, f"{tool.__name__} failed")
+        lines[tool.__name__.rsplit(".", 1)[1]] = buf.getvalue().splitlines()
+    counts = read_counts()
+    checked = [x for ls in lines.values() for x in ls if "[" in x]
+    check(len(checked) == 7 and all(x.endswith("[OK]") for x in checked),
+          f"the tools' checks: {checked}")
+    check_path(counts, "dmabench and pairbench", ("cell", "manual", "pair"))
+    kernels["sw_manual_kernel"]["launches"] = counts["manual"][0]
+    kernels["sw_pair_kernel"]["launches"] = counts["pair"][0]
+    emit({"phase": "tools", "lines": lines, "launches": {k: v[0] for k, v in counts.items()},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -712,8 +1098,13 @@ def main() -> int:
           "build_and_load_seconds": time.perf_counter() - t0})
     phase_kernels(clock_mhz)
     phase_golden()
-    kernels = phase_sprot(clock_mhz)
-    emit({"kernels": kernels})
+    kernels, ctx = phase_sprot(clock_mhz)
+    phase_state16(ctx, kernels)
+    phase_long_query(ctx)
+    phase_tools(kernels)
+    for k in kernels.values():
+        check(k["launches"], f"{k['name']} never launched on its path")
+    emit({"kernels": list(kernels.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,8 +4,8 @@ cudasw4_tpu/cli/align.py).
 The same flag surface and byte-identical plain and TSV output as the JAX
 package's align, plus ``--device`` (``cuda`` by default; ``cpu`` runs the
 kernels' plain PyTorch versions).  Options whose paths later slices of
-the port bring (int16 state, streaming, profiling, tuning) raise
-NotImplementedError naming the slice.
+the port bring (streaming, profiling, tuning) raise NotImplementedError
+naming the slice.
 
 Usage: python -m cudasw4_tpu_torch.cli.align --query q.fa --db prefix [--top N] [--tsv]
 """
@@ -179,9 +179,10 @@ HELP = """Usage: align [options]
            which is a later slice of this port.
       --tuning file.json : later slice of this port.
       --singlePassType/--manyPassType_small/--manyPassType_large/--overflowType val, --dpx :
-           Kernel family selection (Half2|DPXs16|DPXs32|Float).  Float/DPXs32 run the exact
-           int32 path, the port's only one; Half2/DPXs16 (or --dpx) ask for int16 state,
-           a later slice of this port.
+           Kernel family selection (Half2|DPXs16|DPXs32|Float).  The single-pass type decides:
+           Half2/DPXs16 (or --dpx) run int16 DP state, re-scoring the tiles whose scores
+           saturate with exact int32 state; Float/DPXs32 run exact int32 state (the default,
+           unless CUDASW4_TPU_TORCH_STATE16=1).
 """
 
 
@@ -243,12 +244,6 @@ def run(argv=None) -> int:
         if v is not None and v not in allowed:
             print(msg)
             return 1
-    sp = opts["kernel_types"].get("singlePassType")
-    if opts["dpx"] or sp in ("Half2", "DPXs16"):
-        raise NotImplementedError(
-            "int16 DP state (--dpx, --singlePassType Half2|DPXs16) waits for "
-            "the int16-state slice of the port; the exact int32 path is the default"
-        )
     if opts["profile"]:
         raise NotImplementedError("--profile waits for the profiling slice of the port")
     if opts["tuning"]:
@@ -270,6 +265,14 @@ def run(argv=None) -> int:
         ),
         verbose=opts["verbose"],
     )
+    # Kernel-type selection (the reference's --dpx preset and single-pass
+    # type): the 16-bit families run int16 state with the exact overflow
+    # re-score, the 32-bit families exact int32 state.
+    sp = opts["kernel_types"].get("singlePassType")
+    if opts["dpx"] or sp in ("Half2", "DPXs16"):
+        engine.state16 = True
+    elif sp in ("Float", "DPXs32"):
+        engine.state16 = False
     if opts["verbose"]:
         print("Selected options:")
         print(f"blosum: {opts['mat'].upper()}")

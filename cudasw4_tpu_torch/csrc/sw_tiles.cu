@@ -1,24 +1,26 @@
 // Affine-gap Smith-Waterman over packed subject tiles, for Hopper (sm_90a).
 //
-// Replaces six TPU kernels of the JAX package, one entry point each, all
-// computing the same recurrence over int8 subject codes and an int32 AxA
-// substitution matrix (A = 21 classic, 26 full-blosum):
+// Replaces the eight TPU kernels of the JAX package, all computing the same
+// recurrence over int8 subject codes and an int32 AxA substitution matrix
+// (A = 21 classic, 26 full-blosum):
 //
 //   E[i][j] = max(E[i][j-1] + gex, H[i][j-1] + gop)
 //   F[i][j] = max(F[i-1][j] + gex, H[i-1][j] + gop)
 //   H[i][j] = max(0, H[i-1][j-1] + B[q_i, s_j], E[i][j], F[i][j])
-//   score   = max over i, j of H[i][j]                 (exact int32 state)
+//   score   = max over i, j of H[i][j]
 //
 // * sw_cell_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell (_sw_cell_kernel, _run_query_sweeps): one
 //   query against cell tiles [T, L, 32, 128], a pure reshape of
-//   [T, L, 4096].
+//   [T, L, 4096].  Exact int32 state (sw_cell_kernel) or, with sat > 0,
+//   int16 state saturating at sat (sw_cell16_kernel).
 // * sw_row_launch replaces cudasw4_tpu/ops/sw_pallas.py score_bucket_pallas
-//   (_sw_kernel): one query against row tiles [T, L, NS].
+//   (_sw_kernel): one query against row tiles [T, L, NS], int32 only.
 // * sw_col_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col (_sw_col_kernel): one query chunk against the
-//   cell layout at long L, with the optional H/F carry in and out between
-//   query chunks.
+//   cell layout at long L, with the optional int32 H/F carry in and out
+//   between query chunks; int32 state (sw_col_kernel) or int16
+//   (sw_col16_kernel).
 // * sw_cell_batch_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell_batch (_sw_cell_batch_kernel): QB queries
 //   [QB, W] against cell tiles in one launch, out [QB, T, 4096].
@@ -32,13 +34,19 @@
 //   score_bucket_pallas_col_flat_fused (_sw_col_flat_fused_kernel): the
 //   same slots walked as one gapless run of rows, with the DP reset to the
 //   top of the matrix at each slot boundary and the slot's max flushed.
+// * sw_cell_manual_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
+//   score_bucket_pallas_cell_manual (_sw_cell_kernel_manual): B1's
+//   contract with the tiles staged by hand through a 2-deep ring in shared
+//   memory (int32 or int16 state).
+// * sw_cell_pair_launch replaces tools/pairbench.py score_pair
+//   (_kernel_pair): B1's contract, exact, P consecutive tiles per block.
 //
 // Design (simple and right first; speed is later work).  One thread per
 // subject: neighbouring threads own neighbouring subjects, so each load of
 // x[t, j, :] and of the H/F row is coalesced.  The query streams in blocks
 // of kRows rows; each thread keeps E and H[i][j-1] of its kRows rows in
 // registers and sweeps j over the whole subject.  The H and F of the row
-// above each block live in a scratch row int32 [T, L, NS] in device memory
+// above each block live in a scratch row [T, L, NS] in device memory
 // (read, then overwritten with the block's bottom row), so neither the
 // subject length nor the query length is capped.  That scratch row is
 // exactly the col contract's boundary carry: take_init reads the first
@@ -48,15 +56,29 @@
 // Padded query rows and subject positions carry the pad code, whose matrix
 // row is all negative, so they never raise the max.
 //
+// int16 state (the JAX kernels' exact=False): the arithmetic stays int32
+// in registers; only the scratch row is int16, and every store of it
+// clamps both H and F at sat (<= 32767).  The TPU kernel clamps H after
+// each query row, which keeps its F below sat; here 8 rows live in
+// registers, so an unclamped H can feed F inside a block, and F is clamped
+// too.  The contract holds per subject: a clamped value is one whose true
+// value passed sat, so a subject whose true score is below sat is exact,
+// and one whose score reaches sat returns >= sat (the first DP cell that
+// reaches sat has only unclamped predecessors, and the running max tracks
+// the unclamped registers).  The int32 carry of the col contract stays
+// int32: the first block of an int16 col launch reads it, and the wrapper
+// widens the int16 scratch it emits.
+//
 // Bound on the H100 SXM (3.35 TB/s; int32 at 132 SMs x 64 lanes x clock,
 // 16.7 Tops/s at 1.98 GHz): a cell update is 11 int32 operations (3 for E,
 // 3 for F, 4 for H, 1 for the running max) and the inputs are about one
 // byte per subject position, so every contract is bound by operations,
 // by a factor of ~nrows/2 over bytes.  This design moves 16 bytes of
-// scratch per kRows cells (2 B/cell at kRows = 8) besides, and one thread
-// per subject leaves small buckets without enough warps to hide latency;
-// register-tiled wavefronts with DPX instructions (__viaddmax_s32,
-// __vimax3_s32_relu) are the known way to the bound.
+// scratch per kRows cells (2 B/cell at kRows = 8; 1 B/cell with int16
+// state) besides, and one thread per subject leaves small buckets without
+// enough warps to hide latency; register-tiled wavefronts with DPX
+// instructions (__viaddmax_s32, __vimax3_s32_relu) are the known way to
+// the bound.
 //
 // The batch kernels have the same bound: 11 operations per cell of every
 // slot, while the tiles are read once per call.  Each slot still re-reads
@@ -70,9 +92,26 @@
 // [1, 5632, 32, 128]: 184.5 MB).  The fused kernel walks its slots one
 // after another on one plane: the blocks and scratch of a single query,
 // for S queries' rows.
-
+//
+// The manual-staging kernel is the Hopper form of the TPU kernel's copy of
+// tile t+1 started before tile t's compute: a persistent grid (as
+// many blocks as fit on the card at once) whose blocks each walk 128-
+// subject stripes k = blockIdx.x, + gridDim.x, ...  A stripe is L x 128
+// bytes; the block stages it through a 2-deep ring of CH-column chunks
+// in dynamic shared memory with cp.async (16 B a copy, commit/wait_group)
+// and starts the next chunk's copy before it sweeps the current one.
+// The wrapper passes CH = min(64, L): the chunks of a longer stripe
+// stream again for every 8-row block, 2 x 8 KB a block; a stripe of
+// L <= 64 is one chunk, copied once and held for all its query rows.  (A
+// whole-stripe ring at L = 640 takes 160 KB, one block per SM, and ran at
+// about 1.9 times the chunked ring's time.)  The pair kernel gives each
+// block 128 lanes of P consecutive tiles and scores them one after
+// another: T / P x 32 blocks.  The JAX tool's unroll has no counterpart:
+// the register block is kRows.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,14 +121,54 @@ constexpr int kRows = 8;      // query rows per register block
 constexpr int kCols = 8;      // subject positions loaded ahead per step
 constexpr int kThreads = 128; // subjects per block
 
+// A stored state value: int32 as it is; int16 clamped at sat.
+template <typename St>
+__device__ __forceinline__ St to_state(int v, int sat) {
+  if constexpr (std::is_same<St, int32_t>::value) {
+    return v;
+  } else {
+    return (St)min(v, sat);
+  }
+}
+
+// The kRows cells of one subject column j: prof[c * kRows + r] =
+// B[q_r, c] for the column's code c; hup/fup: H and F of the row above,
+// replaced by the block's bottom row; diag_next: H[i0 - 1][j - 1] in,
+// H[i0 - 1][j] out; e/hl: each row's E and H[j - 1], carried in j.
+template <bool kFull>
+__device__ __forceinline__ void update_column(
+    const int* prof, int c, int& hup, int& fup, int& diag_next,
+    int (&e)[kRows], int (&hl)[kRows], int nr, int gop, int gex, int& m) {
+  const int4* p4 = reinterpret_cast<const int4*>(prof + c * kRows);
+  const int4 lo = p4[0], hi = p4[1];
+  const int sub[kRows] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int diag = diag_next;
+  diag_next = hup;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kFull || r < nr) {
+      const int ee = max(e[r] + gex, hl[r] + gop);
+      const int ff = max(fup + gex, hup + gop);
+      const int h = max(max(diag + sub[r], max(ee, ff)), 0);
+      m = max(m, h);
+      diag = hl[r];
+      hl[r] = h;
+      e[r] = ee;
+      hup = h;
+      fup = ff;
+    }
+  }
+}
+
 // Sweep query rows [i0, i0 + nr) over all L positions of one subject.
 // hsrc/fsrc: the row above (may alias hs/fs); from_zero: the row above is
-// the top of the DP matrix (H = 0, F = -inf).
-template <bool kFull>
+// the top of the DP matrix (H = 0, F = -inf).  St: the scratch row's type;
+// Src: the row above's (an int32 carry into an int16 sweep).
+template <bool kFull, typename St = int32_t, typename Src = St>
 __device__ __forceinline__ void sweep_block(
-    const int8_t* __restrict__ x, const int32_t* hsrc, const int32_t* fsrc,
-    bool from_zero, int32_t* hs, int32_t* fs, const int* prof, int L,
-    int NS, int nr, int gop, int gex, int& m) {
+    const int8_t* __restrict__ x, const Src* hsrc, const Src* fsrc,
+    bool from_zero, St* hs, St* fs, const int* prof, int L, int NS, int nr,
+    int gop, int gex, int& m, int sat = 0) {
   int e[kRows], hl[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -111,48 +190,59 @@ __device__ __forceinline__ void sweep_block(
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj) {
       if (j0 + jj < L) {
-        const int4* p4 = reinterpret_cast<const int4*>(prof + cv[jj] * kRows);
-        const int4 lo = p4[0], hi = p4[1];
-        const int sub[kRows] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        int hup = hv[jj], fup = fv[jj];
-        int diag = diag_next;
-        diag_next = hup;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (kFull || r < nr) {
-            const int ee = max(e[r] + gex, hl[r] + gop);
-            const int ff = max(fup + gex, hup + gop);
-            const int h = max(max(diag + sub[r], max(ee, ff)), 0);
-            m = max(m, h);
-            diag = hl[r];
-            hl[r] = h;
-            e[r] = ee;
-            hup = h;
-            fup = ff;
-          }
-        }
-        hv[jj] = hup;
-        fv[jj] = fup;
+        update_column<kFull>(prof, cv[jj], hv[jj], fv[jj], diag_next, e, hl,
+                             nr, gop, gex, m);
       }
     }
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj) {
       if (j0 + jj < L) {
         const size_t o = (size_t)(j0 + jj) * NS;
-        hs[o] = hv[jj];
-        fs[o] = fv[jj];
+        hs[o] = to_state<St>(hv[jj], sat);
+        fs[o] = to_state<St>(fv[jj], sat);
       }
     }
   }
 }
 
+// sweep_block at the block's row count: the full kRows or a ragged tail.
+template <typename St, typename Src>
+__device__ __forceinline__ void sweep_rows(
+    const int8_t* __restrict__ x, const Src* hsrc, const Src* fsrc,
+    bool from_zero, St* hs, St* fs, const int* prof, int L, int NS, int nr,
+    int gop, int gex, int& m, int sat) {
+  if (nr == kRows) {
+    sweep_block<true, St, Src>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS,
+                               nr, gop, gex, m, sat);
+  } else {
+    sweep_block<false, St, Src>(x, hsrc, fsrc, from_zero, hs, fs, prof, L,
+                                NS, nr, gop, gex, m, sat);
+  }
+}
+
+// Fill prof[c * kRows + r] = B[q[r], c] for the rows r < nr (0 past them).
+// Every thread of the block calls it: it synchronises before (smat is
+// loaded, the previous profile is consumed) and after.
+__device__ __forceinline__ void build_profile(const int32_t* __restrict__ q,
+                                              int nr, const int* smat,
+                                              int* prof, int A) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < A * kRows; k += blockDim.x) {
+    const int c = k / kRows, r = k % kRows;
+    prof[k] = r < nr ? smat[q[r] * A + c] : 0;
+  }
+  __syncthreads();
+}
+
 // One block = kThreads subjects of one tile; the grid is flat over
-// (tile, subject block).  Writes out[t, s] = max H as float.
+// (tile, subject block).  Writes out[t, s] = max H as float.  St: the
+// scratch rows' type (int16 saturates at sat); hin/fin: the int32 carry.
+template <typename St>
 __device__ __forceinline__ void sw_tiles_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ query,
     const int32_t* __restrict__ mat, int A, int L, int NS, int nrows,
-    int gop, int gex, const int32_t* hin, const int32_t* fin, int32_t* hs,
-    int32_t* fs, float* __restrict__ out) {
+    int gop, int gex, const int32_t* hin, const int32_t* fin, St* hs,
+    St* fs, float* __restrict__ out, int sat) {
   __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
   __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
   const int blocks_per_tile = (NS + kThreads - 1) / kThreads;
@@ -173,14 +263,19 @@ __device__ __forceinline__ void sw_tiles_body(
     if (live) {
       const bool first = i0 == 0;
       const bool from_zero = first && hin == nullptr;
-      const int32_t* hsrc = first && hin ? hin + base : hs + base;
-      const int32_t* fsrc = first && fin ? fin + base : fs + base;
-      if (nr == kRows) {
-        sweep_block<true>(tiles + base, hsrc, fsrc, from_zero, hs + base,
-                          fs + base, prof, L, NS, nr, gop, gex, m);
+      if constexpr (std::is_same<St, int32_t>::value) {
+        const int32_t* hsrc = first && hin ? hin + base : hs + base;
+        const int32_t* fsrc = first && fin ? fin + base : fs + base;
+        sweep_rows<St, St>(tiles + base, hsrc, fsrc, from_zero, hs + base,
+                           fs + base, prof, L, NS, nr, gop, gex, m, sat);
+      } else if (first && hin) {
+        sweep_rows<St, int32_t>(tiles + base, hin + base, fin + base, false,
+                                hs + base, fs + base, prof, L, NS, nr, gop,
+                                gex, m, sat);
       } else {
-        sweep_block<false>(tiles + base, hsrc, fsrc, from_zero, hs + base,
-                           fs + base, prof, L, NS, nr, gop, gex, m);
+        sweep_rows<St, St>(tiles + base, hs + base, fs + base, from_zero,
+                           hs + base, fs + base, prof, L, NS, nr, gop, gex, m,
+                           sat);
       }
     }
   }
@@ -196,20 +291,10 @@ __device__ __forceinline__ void run_rows(
     bool live, const int8_t* __restrict__ x, const int32_t* hsrc,
     const int32_t* fsrc, bool from_zero, int32_t* hs, int32_t* fs, int L,
     int NS, int gop, int gex, int& m) {
-  __syncthreads();  // smat is loaded; the previous profile is consumed
-  for (int k = threadIdx.x; k < A * kRows; k += blockDim.x) {
-    const int c = k / kRows, r = k % kRows;
-    prof[k] = r < nr ? smat[q[r] * A + c] : 0;
-  }
-  __syncthreads();
+  build_profile(q, nr, smat, prof, A);
   if (!live) return;
-  if (nr == kRows) {
-    sweep_block<true>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
-                      gex, m);
-  } else {
-    sweep_block<false>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
-                       gex, m);
-  }
+  sweep_rows<int32_t, int32_t>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS,
+                               nr, gop, gex, m, 0);
 }
 
 // Batch bodies over cell-layout tiles [T, L, 4096] and a query block
@@ -300,29 +385,245 @@ __global__ void __launch_bounds__(kThreads) sw_cell_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
     float* out) {
-  sw_tiles_body(tiles, query, mat, A, L, 4096, nrows, gop, gex, nullptr,
-                nullptr, hs, fs, out);
+  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex,
+                         nullptr, nullptr, hs, fs, out, 0);
+}
+
+__global__ void __launch_bounds__(kThreads) sw_cell16_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, int16_t* hs, int16_t* fs, float* out,
+    int sat) {
+  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex,
+                         nullptr, nullptr, hs, fs, out, sat);
 }
 
 __global__ void __launch_bounds__(kThreads) sw_row_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int NS, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
     float* out) {
-  sw_tiles_body(tiles, query, mat, A, L, NS, nrows, gop, gex, nullptr,
-                nullptr, hs, fs, out);
+  sw_tiles_body<int32_t>(tiles, query, mat, A, L, NS, nrows, gop, gex,
+                         nullptr, nullptr, hs, fs, out, 0);
 }
 
 __global__ void __launch_bounds__(kThreads) sw_col_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int nrows, int gop, int gex, const int32_t* hin,
     const int32_t* fin, int32_t* hs, int32_t* fs, float* out) {
-  sw_tiles_body(tiles, query, mat, A, L, 4096, nrows, gop, gex, hin, fin,
-                hs, fs, out);
+  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hin,
+                         fin, hs, fs, out, 0);
+}
+
+__global__ void __launch_bounds__(kThreads) sw_col16_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, const int32_t* hin,
+    const int32_t* fin, int16_t* hs, int16_t* fs, float* out, int sat) {
+  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hin,
+                         fin, hs, fs, out, sat);
+}
+
+// ------------------------------------------------ B8: P tiles per block
+
+// Block b owns lanes (b % 32) * 128 .. + 127 of tiles (b / 32) * P .. + P - 1
+// and scores them one after another, each from the top of the DP matrix.
+__global__ void __launch_bounds__(kThreads) sw_pair_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, int P, int32_t* hs, int32_t* fs,
+    float* out) {
+  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
+  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
+  const int s = (blockIdx.x % (kCellNS / kThreads)) * kThreads + threadIdx.x;
+  const int t0 = blockIdx.x / (kCellNS / kThreads) * P;
+  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
+  for (int t = t0; t < t0 + P; ++t) {
+    const size_t base = (size_t)t * L * kCellNS + s;
+    int m = 0;
+    for (int i0 = 0; i0 < nrows; i0 += kRows) {
+      run_rows(query + i0, min(kRows, nrows - i0), smat, prof, A, true,
+               tiles + base, hs + base, fs + base, i0 == 0, hs + base,
+               fs + base, L, kCellNS, gop, gex, m);
+    }
+    out[(size_t)t * kCellNS + s] = (float)m;
+  }
+}
+
+// ------------------------------------- B7: manual staging of the tiles
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copies of columns [j0, j0 + ncols) of stripe k (tile k / 32,
+// lanes (k % 32) * 128 ..) into dst, 128 bytes a column, as one group.
+__device__ __forceinline__ void stage_chunk(int8_t* dst,
+                                            const int8_t* __restrict__ tiles,
+                                            int k, int j0, int ncols, int L) {
+  const int8_t* src =
+      tiles + ((size_t)(k >> 5) * L + j0) * kCellNS + (k & 31) * kThreads;
+  for (int i = threadIdx.x; i < ncols * 8; i += blockDim.x) {
+    const int j = i >> 3, part = (i & 7) * 16;
+    cp_async16(dst + j * kThreads + part, src + (size_t)j * kCellNS + part);
+  }
+  cp_async_commit();
+}
+
+// Columns [j_begin, j_end) of one subject for the query rows of the
+// current profile, with the subject's codes xs[(j - j_begin) * 128] in
+// shared memory and the row carry (e, hl, diag_next) in registers.
+template <bool kFull, typename St>
+__device__ __forceinline__ void sweep_span(
+    const int8_t* xs, St* hs, St* fs, bool from_zero, const int* prof,
+    int j_begin, int j_end, int nr, int gop, int gex, int sat,
+    int (&e)[kRows], int (&hl)[kRows], int& diag_next, int& m) {
+  for (int j0 = j_begin; j0 < j_end; j0 += kCols) {
+    int hv[kCols], fv[kCols], cv[kCols];
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      if (j0 + jj < j_end) {
+        const size_t o = (size_t)(j0 + jj) * kCellNS;
+        hv[jj] = from_zero ? 0 : hs[o];
+        fv[jj] = from_zero ? kNeg : fs[o];
+        cv[jj] = xs[(j0 + jj - j_begin) * kThreads];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      if (j0 + jj < j_end) {
+        update_column<kFull>(prof, cv[jj], hv[jj], fv[jj], diag_next, e, hl,
+                             nr, gop, gex, m);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kCols; ++jj) {
+      if (j0 + jj < j_end) {
+        const size_t o = (size_t)(j0 + jj) * kCellNS;
+        hs[o] = to_state<St>(hv[jj], sat);
+        fs[o] = to_state<St>(fv[jj], sat);
+      }
+    }
+  }
+}
+
+// Persistent grid over the T x 32 stripes of 128 subjects.  The ring:
+// two slots of CH columns x 128 bytes in dynamic shared memory.  With
+// CH == L a stripe is one chunk, copied once and kept for all its row
+// blocks; otherwise every (row block, chunk) of a stripe is a copy.  The
+// next copy in this block's order starts before the current chunk is
+// swept, so it overlaps the sweep.
+template <typename St>
+__global__ void __launch_bounds__(kThreads) sw_manual_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int nrows, int gop, int gex, int CH, St* hs, St* fs,
+    float* out, int sat) {
+  extern __shared__ __align__(16) int8_t ring[];
+  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
+  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
+  const int nstripes = T * (kCellNS / kThreads);
+  const int nch = (L + CH - 1) / CH;
+  const int rbs = max(1, (nrows + kRows - 1) / kRows);  // row blocks walked
+  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
+  int slot = 0, cur = 0;
+  if ((int)blockIdx.x < nstripes) {
+    stage_chunk(ring, tiles, blockIdx.x, 0, min(CH, L), L);
+  }
+  for (int k = blockIdx.x; k < nstripes; k += gridDim.x) {
+    const size_t base = (size_t)(k >> 5) * L * kCellNS + (k & 31) * kThreads +
+                        threadIdx.x;
+    int m = 0;
+    for (int rb = 0; rb < rbs; ++rb) {
+      const int i0 = rb * kRows;
+      const int nr = min(kRows, nrows - i0);  // <= 0 for an empty query
+      build_profile(query + i0, max(nr, 0), smat, prof, A);
+      int e[kRows], hl[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        e[r] = kNeg;
+        hl[r] = 0;
+      }
+      int diag_next = 0;
+      for (int c = 0; c < nch; ++c) {
+        if (nch > 1 || rb == 0) {
+          // The copy after this one, in this block's order.
+          int nk = k, nc = c + 1;
+          if (nch == 1 || (nc == nch && rb + 1 == rbs)) {
+            nk = k + gridDim.x;
+            nc = 0;
+          } else if (nc == nch) {
+            nc = 0;
+          }
+          __syncthreads();  // nobody still reads the slot it overwrites
+          if (nk < nstripes) {
+            stage_chunk(ring + (slot ^ 1) * CH * kThreads, tiles, nk, nc * CH,
+                        min(CH, L - nc * CH), L);
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();  // the current chunk is in, for every thread
+          cur = slot;
+          slot ^= 1;
+        }
+        if (nr <= 0) continue;
+        const int j_begin = c * CH, j_end = min(L, j_begin + CH);
+        const int8_t* xs = ring + cur * CH * kThreads + threadIdx.x;
+        if (nr == kRows) {
+          sweep_span<true, St>(xs, hs + base, fs + base, rb == 0, prof,
+                               j_begin, j_end, nr, gop, gex, sat, e, hl,
+                               diag_next, m);
+        } else {
+          sweep_span<false, St>(xs, hs + base, fs + base, rb == 0, prof,
+                                j_begin, j_end, nr, gop, gex, sat, e, hl,
+                                diag_next, m);
+        }
+      }
+    }
+    out[(size_t)(k >> 5) * kCellNS + (k & 31) * kThreads + threadIdx.x] =
+        (float)m;
+  }
+}
+
+template <typename St>
+int manual_launch(const void* tiles, const void* query, const void* mat,
+                  int A, int T, int L, int nrows, int gop, int gex, int sat,
+                  int CH, void* hs, void* fs, void* out, cudaStream_t stream) {
+  const size_t ring = (size_t)2 * CH * kThreads;
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_manual_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ring);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sw_manual_kernel<St>, kThreads, ring);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long stripes = (long long)T * (kCellNS / kThreads);
+  const long long resident = (long long)per_sm * sms;
+  const unsigned grid = (unsigned)(stripes < resident ? stripes : resident);
+  sw_manual_kernel<St><<<grid, kThreads, ring, stream>>>(
+      (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, T,
+      L, nrows, gop, gex, CH, (St*)hs, (St*)fs, (float*)out, sat);
+  return (int)cudaGetLastError();
 }
 
 unsigned grid_for(int T, int NS) {
   return (unsigned)((long long)T * ((NS + kThreads - 1) / kThreads));
 }
+
+// sat: 0 for exact int32 state, else the int16 state's ceiling.
+bool sat_ok(int sat) { return sat >= 0 && sat <= 32767; }
 
 __global__ void __launch_bounds__(kThreads) sw_cell_batch_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
@@ -375,27 +676,38 @@ extern "C" {
 // The three single-query launches share one signature.  Each returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments outside its contract: NS = 4096 for
-// cell and col tiles, and a carry (hin, fin) for the col kernel only.
-// Pointers are device pointers; stream is a cudaStream_t.  Query and tile
-// codes must lie in [0, A), A <= 26.
+// cell and col tiles, a carry (hin, fin) for the col kernel only, and
+// sat = 0 (exact int32 state) or 0 < sat <= 32767 (int16 state, cell and
+// col only; hs and fs are then int16).  Pointers are device pointers;
+// stream is a cudaStream_t.  Query and tile codes must lie in [0, A),
+// A <= 26.
 
 int sw_cell_launch(const void* tiles, const void* query, const void* mat,
                    int A, int T, int L, int NS, int nrows, int gop, int gex,
                    const void* hin, const void* fin, void* hs, void* fs,
-                   void* out, void* stream) {
-  if (NS != 4096 || hin || fin) return (int)cudaErrorInvalidValue;
+                   void* out, int sat, void* stream) {
+  if (NS != 4096 || hin || fin || !sat_ok(sat)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (T == 0) return 0;
-  sw_cell_kernel<<<grid_for(T, 4096), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
-      nrows, gop, gex, (int32_t*)hs, (int32_t*)fs, (float*)out);
+  const unsigned grid = grid_for(T, 4096);
+  if (sat) {
+    sw_cell16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
+        L, nrows, gop, gex, (int16_t*)hs, (int16_t*)fs, (float*)out, sat);
+  } else {
+    sw_cell_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
+        L, nrows, gop, gex, (int32_t*)hs, (int32_t*)fs, (float*)out);
+  }
   return (int)cudaGetLastError();
 }
 
 int sw_row_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
                   const void* hin, const void* fin, void* hs, void* fs,
-                  void* out, void* stream) {
-  if (hin || fin) return (int)cudaErrorInvalidValue;
+                  void* out, int sat, void* stream) {
+  if (hin || fin || sat) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   sw_row_kernel<<<grid_for(T, NS), kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
@@ -406,13 +718,55 @@ int sw_row_launch(const void* tiles, const void* query, const void* mat,
 int sw_col_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
                   const void* hin, const void* fin, void* hs, void* fs,
-                  void* out, void* stream) {
-  if (NS != 4096) return (int)cudaErrorInvalidValue;
+                  void* out, int sat, void* stream) {
+  if (NS != 4096 || !sat_ok(sat)) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  sw_col_kernel<<<grid_for(T, 4096), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned grid = grid_for(T, 4096);
+  if (sat) {
+    sw_col16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
+        L, nrows, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
+        (int16_t*)hs, (int16_t*)fs, (float*)out, sat);
+  } else {
+    sw_col_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
+        L, nrows, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
+        (int32_t*)hs, (int32_t*)fs, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The two tool kernels share a third signature: cell tiles [T, L, 32, 128],
+// scratch hs/fs shaped as the tiles (int16 when sat > 0), out f32
+// [T, 4096]; arg is the ring's chunk columns CH (manual; 1 <= CH <= L, and
+// 2 x CH x 128 bytes of shared memory must fit a block) or the tiles per
+// block P (pair; exact only, T % P == 0).
+
+int sw_cell_manual_launch(const void* tiles, const void* query,
+                          const void* mat, int A, int T, int L, int nrows,
+                          int gop, int gex, int sat, int arg, void* hs,
+                          void* fs, void* out, void* stream) {
+  if (!sat_ok(sat) || arg < 1) return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  if (sat) {
+    return manual_launch<int16_t>(tiles, query, mat, A, T, L, nrows, gop, gex,
+                                  sat, arg, hs, fs, out,
+                                  (cudaStream_t)stream);
+  }
+  return manual_launch<int32_t>(tiles, query, mat, A, T, L, nrows, gop, gex,
+                                0, arg, hs, fs, out, (cudaStream_t)stream);
+}
+
+int sw_cell_pair_launch(const void* tiles, const void* query, const void* mat,
+                        int A, int T, int L, int nrows, int gop, int gex,
+                        int sat, int arg, void* hs, void* fs, void* out,
+                        void* stream) {
+  if (sat || arg < 1 || T % arg) return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  const unsigned grid = (unsigned)((long long)(T / arg) * (kCellNS / kThreads));
+  sw_pair_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
-      nrows, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
-      (int32_t*)hs, (int32_t*)fs, (float*)out);
+      nrows, gop, gex, arg, (int32_t*)hs, (int32_t*)fs, (float*)out);
   return (int)cudaGetLastError();
 }
 

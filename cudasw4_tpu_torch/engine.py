@@ -3,9 +3,15 @@ scans, top-N, stats (the counterpart of the resident single-device path of
 cudasw4_tpu/engine.py).
 
 Scan flow: encode the query -> score every bucket on its kernel (cell,
-row or col; col buckets chunk queries longer than NQC with the H/F carry)
--> concatenate the scores in slot order (slot order is ascending reference
-id) -> mask padding slots -> top N by descending score, then ascending id.
+row or col; col buckets chunk queries longer than NQC with the H/F carry;
+a query longer than QCAP grows its block in QCAP steps on cell and row
+buckets, as the JAX engine's ``_scan_long_query`` does) -> concatenate
+the scores in slot order (slot order is ascending reference id) -> mask
+padding slots -> top N by descending score, then ascending id.  With
+``state16`` (``CUDASW4_TPU_TORCH_STATE16=1``, ``align --dpx``) singles run
+int16 state on cell and col buckets; when the top score reaches SAT, only
+the tiles whose max reaches it are re-scored with exact state and merged
+(``_rescore_overflow``).  Queries longer than QCAP run exact.
 A batch of up to QB_MAX queries of at most ``_qcap_batch`` residues scores
 each bucket in one launch for all of them: the cell batch kernel on cell
 buckets, one flat-pool launch per ``col_flat_plan`` pass on col buckets,
@@ -39,16 +45,22 @@ from .ops import (
 from .ops.sw_row import prepare_query
 from .substitution import ScoringConfig, make_scoring_config
 
-#: Environment switch of the top-N oracle check: "1" re-scores each scan's
-#: top hits on the scalar CPU oracle and raises on a mismatch.
+#: Environment switch of the oracle check: "1" re-scores each scan's top
+#: hits on the scalar CPU oracle and raises on a mismatch; "full" diffs
+#: every database score against the vectorised oracle (num_top is forced
+#: to the database size).
 DEBUG_CHECK_ENV = "CUDASW4_TPU_TORCH_DEBUG_CHECK"
+
+#: Environment switch of int16 DP state with the overflow re-score ("1").
+STATE16_ENV = "CUDASW4_TPU_TORCH_STATE16"
 
 
 @dataclass
 class BenchmarkStats:
     seconds: float = 0.0
     gcups: float = 0.0
-    num_overflows: int = 0  # int16-state overflows; always 0 (exact int32)
+    num_overflows: int = 0  # top-N hits that saturated int16 state and
+    #                         were re-scored exactly with int32 state
 
 
 @dataclass
@@ -91,13 +103,13 @@ class SearchEngine:
         self.max_device_bytes = max_device_bytes
         self.col_temp_bytes = col_temp_bytes
         self.verbose = verbose
+        # int16 DP state with the overflow re-score (the reference's
+        # 16-bit kernel families); off by default, as in the JAX engine.
+        self.state16 = os.environ.get(STATE16_ENV, "0") == "1"
         dc = os.environ.get(DEBUG_CHECK_ENV, "0")
-        if dc.lower() == "full":
-            raise NotImplementedError(
-                "the full-database debug check waits for the int16-state "
-                "slice of the port (its verifiers come together)"
-            )
-        self.debug_check = dc not in ("", "0")
+        self.debug_check = (
+            None if dc in ("", "0") else ("full" if dc.lower() == "full" else "top")
+        )
         # Alphabet padding code: 20 classic, 25 full-blosum.
         self._pad = self.scoring.pad_code
         self.db: DBData | None = None
@@ -131,6 +143,10 @@ class SearchEngine:
             )
         t0 = time.perf_counter()
         self.db = db
+        if self.debug_check == "full" and self.num_top < db.num_sequences:
+            # The reference's debug build forces numTop to the DB size so
+            # the comparison covers every score.
+            self.num_top = int(db.num_sequences)
         self._bucket_tiles = []
         self.packed = packed if packed is not None else pack_db(db, pad_code=self._pad)
         if self.packed.total_padded_chars > self._device_budget():
@@ -192,45 +208,57 @@ class SearchEngine:
 
     def _single_qpad(self, codes):
         """Query block and params for a single scan: the query padded with
-        the pad code to QCAP (the kernels stop at nq, and the plain
-        versions never walk padded rows), and params
-        [nq, gop, gex, nq_pad], nq_pad rounded up to the col kernel's row
-        granule."""
-        qpad, nq = prepare_query(codes, pad=self._pad)
+        the pad code to QCAP, or to the next multiple of QCAP for a longer
+        query (the kernels stop at nq, and the plain versions never walk
+        padded rows), and params [nq, gop, gex, nq_pad], nq_pad rounded up
+        to the col kernel's row granule."""
+        cap = sw_cell.QCAP
+        qpad, nq = prepare_query(codes, qcap=max(cap, -(-len(codes) // cap) * cap), pad=self._pad)
         params = np.array(
             [nq, self.scoring.gop, self.scoring.gex, sw_col.padded_rows(nq)], dtype=np.int32
         )
         return qpad, params
 
-    def slot_scores(self, codes) -> torch.Tensor:
+    def _exact_for(self, codes) -> bool:
+        """Whether a single scan of ``codes`` runs exact int32 state: always
+        without ``state16``, and for queries longer than QCAP (as the JAX
+        engine's ``_scan_long_query``)."""
+        return not self.state16 or len(codes) > sw_cell.QCAP
+
+    def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool):
+        """Scores f32 [T, NS] of one query against one bucket's tiles: col
+        buckets take NQC-row chunks with the H/F carry when the query's
+        padded rows pass NQC, every other case one kernel call."""
+        if kind == "col" and int(params[3]) > sw_col.NQC:
+            return sw_col.score_bucket_col_any_query(
+                tiles, codes, self._matrix_flat, self.scoring.gop, self.scoring.gex,
+                pad=self._pad, temp_bytes=self.col_temp_bytes, exact=exact,
+            )
+        return score_bucket(tiles, qdev, self._matrix_flat, params, kind, exact=exact)
+
+    def bucket_scores(self, codes, exact: bool = True) -> list[torch.Tensor]:
+        """Scores f32 [T, NS] of one query against each bucket, in bucket
+        order, on the device; ``exact=False``: int16 state (cell and col
+        buckets)."""
+        codes = np.asarray(codes, dtype=np.int8)
+        qpad, params = self._single_qpad(codes)
+        qdev = cuda_lib.to_device(qpad, self.device)
+        return [
+            self._score_bucket(tiles, kind, codes, qdev, params, exact)
+            for tiles, kind in zip(self._bucket_tiles, self._kinds)
+        ]
+
+    def slot_scores(self, codes, exact: bool = True) -> torch.Tensor:
         """Scores f32 of every slot of the packed database, in slot order
         (bucket, tile, lane), on the device; padding slots hold whatever
         the kernels gave them (mask with ``seq_index >= 0``)."""
-        codes = np.asarray(codes, dtype=np.int8)
-        if len(codes) > sw_cell.QCAP:
-            raise NotImplementedError(
-                f"a query of {len(codes)} residues exceeds QCAP={sw_cell.QCAP}; "
-                "long queries (_scan_long_query) wait for a later slice of the port"
-            )
-        qpad, params = self._single_qpad(codes)
-        qdev = cuda_lib.to_device(qpad, self.device)
-        nq_pad = int(params[3])
-        parts = []
-        for tiles, kind in zip(self._bucket_tiles, self._kinds):
-            if kind == "col" and nq_pad > sw_col.NQC:
-                # Queries beyond the col kernel's row capacity: NQC-row
-                # chunks with the H/F boundary carry.
-                s = sw_col.score_bucket_col_any_query(
-                    tiles, codes, self._matrix_flat,
-                    self.scoring.gop, self.scoring.gex,
-                    pad=self._pad, temp_bytes=self.col_temp_bytes,
-                )
-            else:
-                s = score_bucket(tiles, qdev, self._matrix_flat, params, kind)
-            parts.append(s.reshape(-1))
+        return self._slots(self.bucket_scores(codes, exact))
+
+    def _slots(self, parts) -> torch.Tensor:
+        """Per-bucket scores [T, NS] flattened into one slot-order vector."""
         if not parts:
             return torch.zeros(0, dtype=torch.float32, device=self.device)
-        return torch.cat(parts)
+        return torch.cat([p.reshape(-1) for p in parts])
 
     def _top_n(self, scores: torch.Tensor):
         """Top ``max(1, results_per_query)`` slots of each row of ``scores``
@@ -252,10 +280,15 @@ class SearchEngine:
         return vals, self._flat_idx[slots]
 
     def _dispatch(self, codes):
-        """Launch one query's scan; returns device (scores, ids)."""
-        return self._top_n(self.slot_scores(codes))
+        """Launch one query's scan; returns device (scores, ids, tile
+        maxima), the tile maxima [T] per bucket for an int16-state scan and
+        None for an exact one."""
+        exact = self._exact_for(codes)
+        parts = self.bucket_scores(codes, exact)
+        vals, ids = self._top_n(self._slots(parts))
+        return vals, ids, None if exact else [p.amax(dim=1) for p in parts]
 
-    def _result(self, vals, ids, nq: int, seconds: float) -> ScanResult:
+    def _result(self, vals, ids, nq: int, seconds: float, overflows: int = 0) -> ScanResult:
         k = self.results_per_query
         cells = float(nq) * float(self.packed.total_real_chars)
         self._total_cells += cells
@@ -265,8 +298,55 @@ class SearchEngine:
             stats=BenchmarkStats(
                 seconds=seconds,
                 gcups=cells / 1e9 / seconds if seconds > 0 else 0.0,
+                num_overflows=overflows,
             ),
         )
+
+    def _finish_single(self, codes, vals, ids, tmaxes):
+        """Host (vals, ids, overflows) of a single scan: the fast pass's
+        top-N, and when its top score reaches SAT the re-scored merge
+        (``_rescore_overflow``), overflows counting the fast top-N entries
+        at or above SAT.  Reads the device results back."""
+        vals, ids = vals.tolist(), ids.tolist()
+        if tmaxes is None or not vals or vals[0] < sw_cell.SAT:
+            return vals, ids, 0
+        overflows = sum(1 for v in vals if v >= sw_cell.SAT)
+        vals, ids = self._rescore_overflow(tmaxes, vals, ids, codes)
+        return vals, ids, overflows
+
+    def _rescore_overflow(self, tmaxes, vals, ids, codes):
+        """Exact int32 re-score of only the tiles whose int16 max reached
+        SAT, merged into the fast pass's top-N by (-score, id) (the JAX
+        engine's single-device ``_rescore_overflow``; the mesh twin waits
+        for the multi-GPU slice).
+
+        A saturated subject's exact score is >= SAT and every unsaturated
+        score is exact and < SAT, so the true top-N is the exact scores of
+        the flagged tiles' subjects merged with the fast top-N less its
+        entries from those tiles.  Returns host (vals, ids)."""
+        sat = sw_cell.SAT
+        qpad, params = self._single_qpad(codes)
+        qdev = cuda_lib.to_device(qpad, self.device)
+        cand_v, cand_i = [], []
+        for b, tiles, kind, tmax in zip(self.packed.buckets, self._bucket_tiles,
+                                        self._kinds, tmaxes):
+            sel = torch.nonzero(tmax >= sat).flatten()
+            if sel.numel() == 0:
+                continue
+            s = self._score_bucket(tiles.index_select(0, sel), kind, codes, qdev, params, True)
+            sidx = b.seq_index[sel.cpu().numpy()].reshape(-1)
+            s = s.reshape(-1).cpu().numpy()
+            keep = sidx >= 0
+            cand_v.append(s[keep].astype(np.int64))
+            cand_i.append(sidx[keep].astype(np.int64))
+        if not cand_v:  # a flag without a flagged tile cannot happen
+            return vals, ids
+        vals, ids = np.asarray(vals, np.int64), np.asarray(ids, np.int64)
+        keep = ~np.isin(ids, np.concatenate(cand_i))
+        allv = np.concatenate([vals[keep], *cand_v])
+        alli = np.concatenate([ids[keep], *cand_i])
+        order = np.lexsort((alli, -allv))[: len(vals)]
+        return allv[order].tolist(), alli[order].tolist()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -283,10 +363,10 @@ class SearchEngine:
             raise RuntimeError("set_database() must be called before scan()")
         codes = self._encode(sequence)
         t0 = time.perf_counter()
-        vals, ids = self._dispatch(codes)
+        vals, ids, overflows = self._finish_single(codes, *self._dispatch(codes))
         self._sync()
         seconds = time.perf_counter() - t0
-        result = self._result(vals.tolist(), ids.tolist(), len(codes), seconds)
+        result = self._result(vals, ids, len(codes), seconds, overflows)
         if self.debug_check:
             self._debug_check_result(codes, result)
         return result
@@ -387,7 +467,8 @@ class SearchEngine:
         return torch.cat(parts, dim=1)
 
     def _dispatch_batch(self, group):
-        """Launch one batch; returns device (scores, ids), each [S, k]."""
+        """Launch one batch; returns device (scores, ids), each [S, k]
+        (batches are exact)."""
         return self._top_n(self.batch_slot_scores(group))
 
     def _materialize_batch(self, vals, ids, group, clock) -> list[ScanResult]:
@@ -433,23 +514,27 @@ class SearchEngine:
         """Pipelined scans: yields one ScanResult per input sequence, in
         order.  Queries of at most ``_qcap_batch`` residues are grouped into
         batches of up to QB_MAX; a group is launched when it is full or a
-        longer query arrives, which then runs alone.  Up to ``window``
-        launches (batches or singles) are queued ahead of reading their
-        results back, so the host's work overlaps the device's.  A single's
-        seconds are its CUDA-event span on the card (its wall time on the
-        CPU); a batch's span is split over its queries by their cells."""
+        longer query arrives, which then runs alone.  Under ``state16``
+        every query runs alone (the batch kernels are exact), as in the JAX
+        engine.  Up to ``window`` launches (batches or singles) are queued
+        ahead of reading their results back, so the host's work overlaps
+        the device's.  A single's seconds are its CUDA-event span on the
+        card (its wall time on the CPU), plus its overflow re-score's; a
+        batch's span is split over its queries by their cells."""
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan_many()")
-        pending: deque = deque()  # (group or None, vals, ids, codes, clock)
+        pending: deque = deque()  # (group or None, (vals, ids, tmaxes), codes, clock)
         shortbuf: list = []
-        qcap_b = self._qcap_batch
+        qcap_b = self._qcap_batch if not self.state16 else -1
 
         def materialize(entry):
-            group, vals, ids, codes, clock = entry
+            group, out, codes, clock = entry
             if group is not None:
-                return self._materialize_batch(vals, ids, group, clock)
-            vals, ids = vals.tolist(), ids.tolist()  # waits for the query
-            result = self._result(vals, ids, len(codes), self._seconds(clock))
+                return self._materialize_batch(*out, group, clock)
+            # Reads the query back; a re-score is timed on its own.
+            (vals, ids, overflows), clock2 = self._timed(self._finish_single, codes, *out)
+            seconds = self._seconds(clock) + self._seconds(clock2)
+            result = self._result(vals, ids, len(codes), seconds, overflows)
             if self.debug_check:
                 self._debug_check_result(codes, result)
             return [result]
@@ -458,8 +543,8 @@ class SearchEngine:
             if shortbuf:
                 group = list(shortbuf)
                 shortbuf.clear()
-                (vals, ids), clock = self._timed(self._dispatch_batch, group)
-                pending.append((group, vals, ids, None, clock))
+                out, clock = self._timed(self._dispatch_batch, group)
+                pending.append((group, out, None, clock))
 
         for sequence in sequences:
             codes = self._encode(sequence)
@@ -471,8 +556,8 @@ class SearchEngine:
                         yield from materialize(pending.popleft())
                 continue
             flush_shorts()
-            (vals, ids), clock = self._timed(self._dispatch, codes)
-            pending.append((None, vals, ids, codes, clock))
+            out, clock = self._timed(self._dispatch, codes)
+            pending.append((None, out, codes, clock))
             if len(pending) > window:
                 yield from materialize(pending.popleft())
         flush_shorts()
@@ -481,7 +566,10 @@ class SearchEngine:
 
     def _debug_check_result(self, codes, result: ScanResult) -> None:
         """Re-score the top-N hits with the scalar CPU oracle and raise on
-        any difference (the reference's CUDASW_DEBUG_CHECK_CORRECTNESS)."""
+        any difference (the reference's CUDASW_DEBUG_CHECK_CORRECTNESS);
+        with ``debug_check == "full"`` diff every score instead."""
+        if self.debug_check == "full":
+            return self._debug_check_full(codes, result)
         from .ops.oracle import sw_score_scalar
 
         for score, ref in zip(result.scores, result.reference_ids):
@@ -494,6 +582,41 @@ class SearchEngine:
                     f"debug check failed: refId {ref} scored {score}, "
                     f"oracle says {want}"
                 )
+
+    def _debug_check_full(self, codes, result: ScanResult) -> None:
+        """Diff every database score against the vectorised CPU oracle
+        (``CUDASW4_TPU_TORCH_DEBUG_CHECK=full``), the analog of the
+        reference's computeAllScoresCPU comparison.  set_database forced
+        num_top to the database size, so the result carries one (score, id)
+        per sequence; a mismatch anywhere fails."""
+        from .ops.oracle import sw_score_rowvec
+
+        n = self.packed.num_sequences
+        ids = np.asarray(result.reference_ids, dtype=np.int64)
+        if len(result.scores) != n or len(np.unique(ids)) != n:
+            raise AssertionError(
+                f"full debug check expects one result per sequence: got "
+                f"{len(result.scores)} results / {len(np.unique(ids))} "
+                f"distinct ids for {n} sequences"
+            )
+        got = np.zeros(n, dtype=np.int64)
+        got[ids] = np.asarray(result.scores, dtype=np.int64)
+        lengths = np.asarray(self.db.lengths, dtype=np.int64)
+        want = np.zeros(n, dtype=np.int64)
+        chunk = 256  # equal-padded batches for the row oracle
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            subs = np.full((b - a, max(1, int(lengths[a:b].max()))), self._pad, dtype=np.int8)
+            for i in range(a, b):
+                s = self.db.get_sequence(i)
+                subs[i - a, : len(s)] = s
+            want[a:b] = sw_score_rowvec(
+                codes, subs, self.scoring.matrix, self.scoring.gop, self.scoring.gex,
+            )
+        bad = np.nonzero(got != want)[0]
+        if bad.size:
+            head = ", ".join(f"refId {i}: got {got[i]}, oracle {want[i]}" for i in bad[:5])
+            raise AssertionError(f"full debug check failed for {bad.size}/{n} sequences: {head}")
 
     # --------------------------------------------------------------- timer
 

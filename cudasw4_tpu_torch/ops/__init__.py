@@ -3,8 +3,9 @@ cudasw4_tpu/ops/__init__.py: score_bucket, bucket_kind, col_flat_plan,
 batch_col_scores).
 
 One CUDA kernel per TPU kernel on the resident paths: the single-query
-kernels (cell, row, col) and the batch kernels (cell batch, col flat, col
-fused), each with its plain PyTorch version in the same module.  The
+kernels (cell, row, col; cell and col also with int16 state) and the batch
+kernels (cell batch, col flat, col fused), each with its plain PyTorch
+version in the same module.  The
 dispatch is by bucket kind on every device; each wrapper takes its plain
 version only for CPU tensors, so the CPU walks the same branches as the
 card.
@@ -17,24 +18,26 @@ import numpy as np
 from . import cuda_lib, sw_cell, sw_col, sw_row
 
 
-def score_bucket(tiles, qpad, matrix_flat, params, kind: str):
+def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True):
     """Score one bucket's tiles against one query; returns f32 [T, NS].
 
-    ``qpad``: int32 [QCAP] query block padded with the pad code;
+    ``qpad``: int32 [>= nq] query block padded with the pad code;
     ``params``: host ints (nq, gop, gex, nq_pad), nq_pad the query rows
     rounded up to the unroll granule.  For "col" the caller guarantees
     nq_pad <= sw_col.NQC; longer queries go through
-    sw_col.score_bucket_col_any_query.
+    sw_col.score_bucket_col_any_query.  ``exact=False``: int16 state on
+    cell and col buckets; the row kernel is int32 only, as the JAX
+    package's is, so its scores are exact in both modes.
     """
     if kind == "cell":
-        return sw_cell.score_bucket_cell(tiles, qpad, matrix_flat, params)
+        return sw_cell.score_bucket_cell(tiles, qpad, matrix_flat, params, exact=exact)
     if kind == "row":
         return sw_row.score_bucket_row(tiles, qpad, matrix_flat, params)
     if kind == "col":
         nq_pad = int(params[3])
         pc = (nq_pad, int(params[1]), int(params[2]), nq_pad)
         q = qpad[: min(sw_col.NQC, qpad.shape[0])]
-        return sw_col.score_bucket_col(tiles, q, matrix_flat, pc)
+        return sw_col.score_bucket_col(tiles, q, matrix_flat, pc, exact=exact)
     raise ValueError(f"unknown bucket kind {kind!r}")
 
 

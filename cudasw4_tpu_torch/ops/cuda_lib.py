@@ -31,14 +31,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: The launch functions of the kernels, all with one signature:
-#: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hin, fin, hs, fs, out, stream.
+#: The launch functions of the single-query kernels, all with one
+#: signature: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hin, fin,
+#: hs, fs, out, sat, stream.  sat = 0 runs exact int32 state; sat > 0 the
+#: int16 mode (cell and col: ``sw_cell16_kernel``, ``sw_col16_kernel``).
 LAUNCHES = {
     "sw_cell_kernel": "sw_cell_launch",
     "sw_row_kernel": "sw_row_launch",
     "sw_col_kernel": "sw_col_launch",
 }
-_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 #: The launch functions of the batch kernels, with a second signature:
 #: tiles, queries, rows, mat, A, T, L, S, W, planes, gop, gex, hs, fs, out, stream.
 BATCH_LAUNCHES = {
@@ -47,6 +49,15 @@ BATCH_LAUNCHES = {
     "sw_col_fused_kernel": "sw_col_fused_launch",
 }
 _BATCH_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#: The launch functions of the tool kernels (B7, B8), with a third
+#: signature: tiles, query, mat, A, T, L, nrows, gop, gex, sat, arg, hs,
+#: fs, out, stream; arg is the manual kernel's ring chunk columns or the
+#: pair kernel's tiles per block.
+TOOL_LAUNCHES = {
+    "sw_manual_kernel": "sw_cell_manual_launch",
+    "sw_pair_kernel": "sw_cell_pair_launch",
+}
+_TOOL_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 
 #: Device-memory budget for the H/F scratch planes of one batch launch
 #: (8 bytes per tile char each); the plane count, and with it the blocks
@@ -99,7 +110,8 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for names, sig in ((LAUNCHES, _SIGNATURE), (BATCH_LAUNCHES, _BATCH_SIGNATURE)):
+            for names, sig in ((LAUNCHES, _SIGNATURE), (BATCH_LAUNCHES, _BATCH_SIGNATURE),
+                               (TOOL_LAUNCHES, _TOOL_SIGNATURE)):
                 for name in names.values():
                     fn = getattr(handle, name)
                     fn.argtypes = sig
@@ -153,25 +165,59 @@ def alphabet_dim(matrix_flat: torch.Tensor) -> int:
     return a
 
 
-def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=None):
-    """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
-    and count the launch on ``wrapper.launches``.
+def count(wrapper, exact: bool, plain: bool = False) -> None:
+    """Add one to a wrapper's counter of its mode: ``launches`` or
+    ``plain_calls`` for exact int32 state, ``launches16`` or
+    ``plain_calls16`` for int16 state."""
+    name = ("plain_calls" if plain else "launches") + ("" if exact else "16")
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
-    Checks device, dtype, contiguity and that the ``params[0]`` query rows
-    lie in the query block; allocates the f32 scores [T, NS] and the int32
-    H/F scratch shaped as ``tiles``; raises if the launch reports an error.
-    ``state_in``: (hrow, frow) shaped as ``tiles``, the row above the first
-    query row.  Returns (scores, (hs, fs)): after the kernel the scratch
-    holds the last query row's H and F.  Never synchronises.
-    """
-    dev = tiles.device
-    require(tiles, "tiles", torch.int8, tiles.dim(), dev)
+
+def check_sat(sat: int) -> int:
+    """The int16 ceiling as the kernels take it: 0 < sat <= 32767."""
+    sat = int(sat)
+    if not 0 < sat <= 32767:
+        raise ValueError(f"int16 state needs 0 < SAT <= 32767, got {sat}")
+    return sat
+
+
+def _query_rows(query, nrows: int, dev) -> None:
     require(query, "query", torch.int32, 1, dev)
+    if not 0 <= nrows <= query.numel():
+        raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
+
+
+def _single_io(tiles, query, matrix_flat, params, sat: int, ndim: int):
+    """Checks and buffers of a single-query launch: device, dtype and
+    contiguity of ``tiles`` (``ndim`` dims) and ``matrix_flat``, the
+    ``params[0]`` query rows within the query block; allocates the f32
+    scores [T, NS] and the H/F scratch shaped as ``tiles`` (int32, or int16
+    for ``sat`` > 0).  Returns (A, nrows, gop, gex, out, hs, fs)."""
+    dev = tiles.device
+    require(tiles, "tiles", torch.int8, ndim, dev)
     require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
     A = alphabet_dim(matrix_flat)
     nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    if not 0 <= nrows <= query.numel():
-        raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
+    _query_rows(query, nrows, dev)
+    out = torch.empty((tiles.shape[0], math.prod(tiles.shape[2:])), dtype=torch.float32,
+                      device=dev)
+    hs = torch.empty(tiles.shape, dtype=torch.int16 if sat else torch.int32, device=dev)
+    return A, nrows, gop, gex, out, hs, torch.empty_like(hs)
+
+
+def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=None, sat: int = 0):
+    """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
+    and count the launch on the wrapper (``count``).
+
+    Checks and allocates as ``_single_io``; raises if the launch reports an
+    error.  ``state_in``: int32 (hrow, frow) shaped as ``tiles``, the row
+    above the first query row.  Returns (scores, (hs, fs)): after the
+    kernel the scratch holds the last query row's H and F.  Never
+    synchronises.
+    """
+    dev = tiles.device
+    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat,
+                                                 tiles.dim())
     hin = fin = None
     if state_in is not None:
         for name, t in zip(("hrow", "frow"), state_in):
@@ -180,19 +226,32 @@ def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=Non
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
         hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
     T, L = tiles.shape[0], tiles.shape[1]
-    NS = math.prod(tiles.shape[2:])
-    out = torch.empty((T, NS), dtype=torch.float32, device=dev)
-    hs = torch.empty(tiles.shape, dtype=torch.int32, device=dev)
-    fs = torch.empty_like(hs)
     with torch.cuda.device(dev):
         code = getattr(lib(), LAUNCHES[kernel])(
             tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, NS, nrows, gop, gex, hin, fin,
+            A, T, L, out.shape[1], nrows, gop, gex, hin, fin,
+            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), sat, stream_handle(dev),
+        )
+    check_launch(code, kernel)
+    count(wrapper, not sat)
+    return out, (hs, fs)
+
+
+def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int, arg: int):
+    """Launch the tool kernel ``kernel`` (a key of TOOL_LAUNCHES) on cell
+    tiles [T, L, 32, 128], as ``launch`` does (``arg``: see
+    TOOL_LAUNCHES).  Returns the scores."""
+    dev = tiles.device
+    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat, 4)
+    with torch.cuda.device(dev):
+        code = getattr(lib(), TOOL_LAUNCHES[kernel])(
+            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
+            A, tiles.shape[0], tiles.shape[1], nrows, gop, gex, sat, arg,
             hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
         )
     check_launch(code, kernel)
-    wrapper.launches += 1
-    return out, (hs, fs)
+    count(wrapper, not sat)
+    return out
 
 
 def scratch_planes(tiles: torch.Tensor, slots: int) -> int:

@@ -1,12 +1,16 @@
-"""Cell-layout scoring against tiles of 32 x 128 subjects, exact int32
-state: one query (the counterpart of
-cudasw4_tpu/ops/sw_pallas_cell.py::score_bucket_pallas_cell) or a batch of
-queries in one launch (score_bucket_pallas_cell_batch).
+"""Cell-layout scoring against tiles of 32 x 128 subjects: one query (the
+counterpart of cudasw4_tpu/ops/sw_pallas_cell.py::score_bucket_pallas_cell,
+exact int32 or int16 state), the same with the tiles staged by hand
+(score_bucket_pallas_cell_manual), or a batch of queries in one launch
+(score_bucket_pallas_cell_batch, exact).
 
-The kernels are ``sw_cell_kernel`` and ``sw_cell_batch_kernel`` in
-csrc/sw_tiles.cu (its note gives the design and the bound on the H100).
-``score_bucket_cell`` and ``score_bucket_cell_batch`` launch them for CUDA
-tensors and take their plain versions only for CPU tensors.
+The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
+``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_tiles.cu (its
+note gives the design and the bound on the H100).  The wrappers launch
+them for CUDA tensors and take their plain versions only for CPU tensors.
+Each counts its launches and plain calls per mode (``launches`` and
+``plain_calls`` for exact state, ``launches16`` and ``plain_calls16`` for
+int16 state).
 """
 
 from __future__ import annotations
@@ -20,11 +24,14 @@ from .sw_torch import score_tiles_torch
 G = 32
 NSL = 128
 
-#: int16-state saturation ceiling of the JAX package's default mode; the
-#: port runs exact int32 state only (int16 state is a later slice).
+#: int16-state saturation ceiling (``exact=False``): a subject whose
+#: true score is below SAT scores exactly, one whose score reaches it
+#: returns >= SAT, which flags its tile for the engine's exact re-score.
+#: Read at every call, so tests may lower it.
 SAT = 32000
 
-#: Query chars per kernel call: the engine pads every query to this.
+#: Query chars per kernel call: the engine pads every query to this; a
+#: longer query grows its block in steps of QCAP (the kernels have no cap).
 QCAP = 8192
 
 #: Query capacity of a batch slot: the engine's batch width on a database
@@ -36,37 +43,86 @@ QCAP_BATCH = 8192
 DEFAULT_UNROLL = 8
 
 
+#: Ring chunk of the manual-staging kernel, in subject positions: a stripe
+#: of L > 64 streams as 64-position chunks (2 x 8 KB of shared memory)
+#: again for each 8-row block; a shorter stripe is one chunk, held for all
+#: query rows.
+MANUAL_CHUNK = 64
+
+
+def sat_state(exact: bool) -> int | None:
+    """The int16 ceiling of a call: None for exact state, else SAT (read
+    now, so a lowered SAT takes effect)."""
+    return None if exact else cuda_lib.check_sat(SAT)
+
+
+def sat_match(got, want, sat: int | None = None):
+    """Bool tensor: where each score of an int16-state run ``got`` meets
+    the SAT rule against the exact or int16 scores ``want``: ``got >= SAT``
+    where ``want >= SAT``, else ``got == want``.  Every int16 comparison of
+    the port uses it."""
+    sat = SAT if sat is None else sat
+    return torch.where(want >= sat, got >= sat, got == want)
+
+
 def _cell_tiles(tiles) -> None:
     if tiles.dim() != 4 or tuple(tiles.shape[2:]) != (G, NSL):
         raise ValueError(f"cell tiles must be [T, L, {G}, {NSL}], got {tuple(tiles.shape)}")
 
 
-def score_bucket_cell_plain(tiles, query, matrix_flat, params):
+def score_bucket_cell_plain(tiles, query, matrix_flat, params, exact: bool = True):
     """Plain PyTorch version of the cell kernel: f32 [T, 4096]."""
     nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
     T, L, g, nsl = tiles.shape
     A = cuda_lib.alphabet_dim(matrix_flat)
     return score_tiles_torch(
-        tiles.reshape(T, L, g * nsl), query, matrix_flat.view(A, A), gop, gex, nq
+        tiles.reshape(T, L, g * nsl), query, matrix_flat.view(A, A), gop, gex, nq,
+        sat=sat_state(exact),
     )
 
 
-def score_bucket_cell(tiles, query, matrix_flat, params):
+def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
     """Scores f32 [T, 4096] of one query against a cell bucket.
 
     ``tiles``: int8 [T, L, 32, 128]; ``query``: int32 [>= nq], padded with
     the pad code; ``matrix_flat``: int32 [A*A]; ``params``: host ints
-    (nq, gop, gex, _).  Codes must lie in [0, A).
+    (nq, gop, gex, _).  Codes must lie in [0, A).  ``exact=False``: int16
+    state saturating at SAT (see ``sat_match``).
     """
     _cell_tiles(tiles)
     if tiles.device.type == "cpu":
-        score_bucket_cell.plain_calls += 1
-        return score_bucket_cell_plain(tiles, query, matrix_flat, params)
-    return cuda_lib.launch(score_bucket_cell, "sw_cell_kernel", tiles, query, matrix_flat, params)[0]
+        cuda_lib.count(score_bucket_cell, exact, plain=True)
+        return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
+    return cuda_lib.launch(score_bucket_cell, "sw_cell_kernel", tiles, query, matrix_flat,
+                           params, sat=sat_state(exact) or 0)[0]
 
 
-score_bucket_cell.launches = 0
-score_bucket_cell.plain_calls = 0
+score_bucket_cell.launches = score_bucket_cell.launches16 = 0
+score_bucket_cell.plain_calls = score_bucket_cell.plain_calls16 = 0
+
+
+def score_bucket_cell_manual(tiles, query, matrix_flat, params, exact: bool = True):
+    """``score_bucket_cell`` with the tiles staged by hand (the counterpart
+    of score_bucket_pallas_cell_manual): a persistent grid whose blocks
+    copy 128-subject stripes into a 2-deep shared-memory ring of
+    MANUAL_CHUNK-position chunks with cp.async, starting the next copy
+    before sweeping the current chunk.
+
+    Same contract and results as ``score_bucket_cell``.  The TPU kernel's
+    ``priority`` (its DMA queue) has no Hopper counterpart and is not
+    taken.  Its plain version is ``score_bucket_cell_plain``.
+    """
+    _cell_tiles(tiles)
+    if tiles.device.type == "cpu":
+        cuda_lib.count(score_bucket_cell_manual, exact, plain=True)
+        return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
+    chunk = max(1, min(MANUAL_CHUNK, tiles.shape[1]))
+    return cuda_lib.launch_tool(score_bucket_cell_manual, "sw_manual_kernel", tiles, query,
+                                matrix_flat, params, sat_state(exact) or 0, chunk)
+
+
+score_bucket_cell_manual.launches = score_bucket_cell_manual.launches16 = 0
+score_bucket_cell_manual.plain_calls = score_bucket_cell_manual.plain_calls16 = 0
 
 
 def score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params):

@@ -4,13 +4,15 @@ score_bucket_pallas_col, pad_query_chunk, score_bucket_col_any_query), and
 the flat-pool batch of query slots (score_bucket_pallas_col_flat and
 score_bucket_pallas_col_flat_fused).
 
-The kernels are ``sw_col_kernel``, ``sw_col_flat_kernel`` and
-``sw_col_fused_kernel`` in csrc/sw_tiles.cu (its note gives the design and
-the bound on the H100).  ``score_bucket_col`` keeps the TPU kernel's
-contract: one query chunk of ``nq_pad`` rows (at most NQC) against
-cell-layout tiles whose L is a multiple of LC, optionally starting from the
-previous chunk's bottom-row H/F (``state_in``) and returning its own
-(``emit_state``).  Queries longer than NQC run chunk by chunk through
+The kernels are ``sw_col_kernel`` (``sw_col16_kernel`` for int16 state),
+``sw_col_flat_kernel`` and ``sw_col_fused_kernel`` in csrc/sw_tiles.cu (its
+note gives the design and the bound on the H100).  ``score_bucket_col``
+keeps the TPU kernel's contract: one query chunk of ``nq_pad`` rows (at
+most NQC) against cell-layout tiles whose L is a multiple of LC,
+optionally starting from the previous chunk's bottom-row H/F
+(``state_in``, int32) and returning its own (``emit_state``, int32 in
+both modes); ``exact=False`` runs int16 state saturating at
+``sw_cell.SAT``.  Queries longer than NQC run chunk by chunk through
 ``score_bucket_col_any_query``; per-chunk scores combine by max.
 ``score_bucket_col_flat`` and ``score_bucket_col_flat_fused`` keep the
 flat-pool contracts: S slots of nqp rows each, whose rows fit a pool of
@@ -24,7 +26,7 @@ import os
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, sw_cell
 from .sw_cell import DEFAULT_UNROLL, G, NSL
 from .sw_row import prepare_query
 from .sw_torch import sweep_tiles_torch
@@ -55,7 +57,7 @@ def _params(params):
 
 
 def score_bucket_col_plain(tiles, query, matrix_flat, params, state_in=None,
-                           emit_state: bool = False):
+                           emit_state: bool = False, exact: bool = True):
     """Plain PyTorch version of the col kernel (same contract)."""
     nqp, gop, gex = _params(params)
     T, L, g, nsl = tiles.shape
@@ -68,7 +70,8 @@ def score_bucket_col_plain(tiles, query, matrix_flat, params, state_in=None,
     if isinstance(rows, torch.Tensor):
         rows = rows.tolist()
     best, H, F = sweep_tiles_torch(
-        tiles.reshape(T, L, g * nsl), rows, matrix_flat.view(A, A), gop, gex, h0, f0
+        tiles.reshape(T, L, g * nsl), rows, matrix_flat.view(A, A), gop, gex, h0, f0,
+        sat=sw_cell.sat_state(exact),
     )
     scores = best.float()
     if emit_state:
@@ -77,15 +80,17 @@ def score_bucket_col_plain(tiles, query, matrix_flat, params, state_in=None,
 
 
 def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
-                     take_init: bool = False, emit_state: bool = False):
+                     take_init: bool = False, emit_state: bool = False,
+                     exact: bool = True):
     """Scores f32 [T, 4096] = per-subject max over this query chunk's rows.
 
     ``tiles``: int8 [T, L, 32, 128] with L % LC == 0; ``query``: int32
     [NQC] chunk padded with the pad code; ``params``: host ints
     (nq_pad, gop, gex, _), nq_pad the rows to run; ``state_in``: (hrow,
     frow) int32 [T, L, 32, 128] from the previous chunk, given exactly when
-    ``take_init``.  With ``emit_state`` also returns (hrow, frow): the
-    last row's H/F, the next chunk's ``state_in``.
+    ``take_init``.  With ``emit_state`` also returns (hrow, frow), int32:
+    the last row's H/F, the next chunk's ``state_in``.  ``exact=False``:
+    int16 state saturating at ``sw_cell.SAT`` (``sw_cell.sat_match``).
     """
     if take_init != (state_in is not None):
         raise ValueError("take_init must be set exactly when state_in is given")
@@ -93,15 +98,19 @@ def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
     if (g, nsl) != (G, NSL) or L % LC:
         raise ValueError(f"col tiles must be [T, L % {LC} == 0, {G}, {NSL}], got {tuple(tiles.shape)}")
     if tiles.device.type == "cpu":
-        score_bucket_col.plain_calls += 1
-        return score_bucket_col_plain(tiles, query, matrix_flat, params, state_in, emit_state)
+        cuda_lib.count(score_bucket_col, exact, plain=True)
+        return score_bucket_col_plain(tiles, query, matrix_flat, params, state_in, emit_state,
+                                      exact)
     out, state = cuda_lib.launch(score_bucket_col, "sw_col_kernel", tiles, query,
-                                 matrix_flat, params, state_in)
-    return (out, state) if emit_state else out
+                                 matrix_flat, params, state_in,
+                                 sat=sw_cell.sat_state(exact) or 0)
+    if not emit_state:
+        return out
+    return out, tuple(s.to(torch.int32) for s in state)  # int16 scratch widens
 
 
-score_bucket_col.launches = 0
-score_bucket_col.plain_calls = 0
+score_bucket_col.launches = score_bucket_col.launches16 = 0
+score_bucket_col.plain_calls = score_bucket_col.plain_calls16 = 0
 
 
 def padded_rows(nq: int, unroll: int | None = None) -> int:
@@ -123,10 +132,11 @@ def pad_query_chunk(codes, unroll: int | None = None, pad: int | None = None):
 
 def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
                                unroll: int | None = None, pad: int | None = None,
-                               temp_bytes: int | None = None):
+                               temp_bytes: int | None = None, exact: bool = True):
     """Score a col bucket against a query of any length: NQC-row chunks
     with the H/F carry between them, tiles in groups whose carry fits
-    ``temp_bytes`` (default COL_CARRY_TEMP_BYTES).
+    ``temp_bytes`` (default COL_CARRY_TEMP_BYTES); ``exact=False`` runs
+    every chunk with int16 state.
 
     ``codes``: encoded query (host array).  Returns f32 [T, 4096] on the
     tiles' device.  Each group runs its whole chunk loop before the next
@@ -155,7 +165,7 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
             emit = k + 1 < len(qps)
             res = score_bucket_col(
                 sub, qpad, matrix_flat, params, state_in=state,
-                take_init=state is not None, emit_state=emit,
+                take_init=state is not None, emit_state=emit, exact=exact,
             )
             scores, state = res if emit else (res, None)
             best = scores if best is None else torch.maximum(best, scores)

@@ -13,6 +13,12 @@ Formulation (one query row per step, vectorised over [T, L, NS], int32):
     H    = max(Ht, E)
 The E identity is exact because a gap extended from an E-derived H never
 beats extending the gap that produced it (gop <= gex <= 0).
+
+int16 state (``sat``): after each row, H and F are clamped at ``sat``
+before the next row reads them, as the int16 state rows of the kernels
+store them; the running max takes the unclamped H.  A subject whose true
+score is below ``sat`` is exact, and one whose score reaches it returns
+>= ``sat``.
 """
 
 from __future__ import annotations
@@ -23,13 +29,15 @@ import torch
 NEG = -(1 << 24)
 
 
-def sweep_tiles_torch(tiles, rows, matrix, gop: int, gex: int, h0=None, f0=None):
+def sweep_tiles_torch(tiles, rows, matrix, gop: int, gex: int, h0=None, f0=None,
+                      sat: int | None = None):
     """Advance the DP over the query ``rows`` (int codes, host sequence).
 
     ``tiles``: int8 [T, L, NS]; ``matrix``: int [A, A] on the tiles' device;
     ``h0``/``f0``: int32 [T, L, NS] H/F of the row above the first row
-    (None: H = 0, F = -inf, the top of the DP matrix).  Returns
-    (best int32 [T, NS], H, F), where H/F are the last row's state.
+    (None: H = 0, F = -inf, the top of the DP matrix); ``sat``: the int16
+    state's ceiling, None for exact state.  Returns (best int32 [T, NS],
+    H, F), where H/F are the last row's state (clamped with ``sat``).
     """
     T, L, NS = tiles.shape
     dev = tiles.device
@@ -52,18 +60,22 @@ def sweep_tiles_torch(tiles, rows, matrix, gop: int, gex: int, h0=None, f0=None)
         E = torch.cat([lead, s[:, :-1]], dim=1) + c2
         H = torch.maximum(ht, E)
         best = torch.maximum(best, H.amax(dim=1))
+        if sat is not None:
+            H, F = H.clamp_max(sat), F.clamp_max(sat)
     return best, H, F
 
 
-def score_tiles_torch(tiles, query, matrix, gop: int, gex: int, nq: int):
+def score_tiles_torch(tiles, query, matrix, gop: int, gex: int, nq: int,
+                      sat: int | None = None):
     """Scores f32 [T, NS] for one query against all tiles of a bucket.
 
     ``tiles``: int8 [T, L, NS] position-major subject codes; ``query``: int
     codes (tensor or array), of which the first ``nq`` rows are real;
-    ``matrix``: int [A, A].  Padded query rows are never walked.
+    ``matrix``: int [A, A]; ``sat``: as ``sweep_tiles_torch``.  Padded
+    query rows are never walked.
     """
     rows = query[:nq]
     if isinstance(rows, torch.Tensor):
         rows = rows.tolist()
-    best, _, _ = sweep_tiles_torch(tiles, rows, matrix, gop, gex)
+    best, _, _ = sweep_tiles_torch(tiles, rows, matrix, gop, gex, sat=sat)
     return best.float()

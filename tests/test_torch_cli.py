@@ -84,8 +84,7 @@ def test_makedb_and_plain_output_equal_jax_cli(tmp_path, capsys):
 def test_cli_unported_options_raise(tmp_path, capsys):
     prefix = str(tmp_path / "gdb")
     assert makedb.run([DB_FA, prefix]) == 0
-    for extra in (["--dpx"], ["--singlePassType", "Half2"], ["--tuning", "t.json"],
-                  ["--profile", "trace"], ["--maxGpuMem", "1K"]):
+    for extra in (["--tuning", "t.json"], ["--profile", "trace"], ["--maxGpuMem", "1K"]):
         with pytest.raises(NotImplementedError):
             align.run(["--query", QUERIES, "--db", prefix, "--device", "cpu", *extra])
     assert align.run(["--query", QUERIES, "--db", prefix, "--manyPassType_small", "Float"]) == 1

@@ -276,3 +276,111 @@ def test_batch_wrappers_reject_bad_arguments(dev):
         sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, 16, 16), rtot=24)
     with pytest.raises(ValueError):  # rows not a multiple of the unroll
         sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, 8, 5), rtot=64)
+
+
+# ------------------------------------------- int16 state, B7 and B8
+
+#: The default SAT, and one lowered so that most random subjects saturate.
+SATS = [32000, 30]
+
+
+def _sat_lanes_equal(got_state, want_state, want_scores, sat):
+    """Carried H/F rows agree on every subject whose score is below sat
+    (a saturated subject's state is free under the SAT rule)."""
+    T = want_scores.shape[0]
+    live = (want_scores < sat).reshape(T, 1, 32, 128)
+    return all(torch.equal(g.cpu()[live.expand_as(w)], w[live.expand_as(w)])
+               for g, w in zip(got_state, want_state))
+
+
+@pytest.mark.parametrize("sat", SATS)
+@pytest.mark.parametrize("mat", MATS)
+def test_cell16_kernel_meets_sat_rule(dev, monkeypatch, mat, sat):
+    monkeypatch.setattr(sw_cell, "SAT", sat)
+    rng = np.random.default_rng(21)
+    cfg = make_scoring_config(mat)
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = torch.as_tensor(_tiles(rng, (2, 64, 32, 128), pad, 2 * 4096 - 100, A))
+    q = torch.as_tensor(_query(rng, 53, 256, pad, A))
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    params = (53, cfg.gop, cfg.gex, 56)
+    want16 = sw_cell.score_bucket_cell_plain(tiles, q, m, params, exact=False)
+    exact = sw_cell.score_bucket_cell_plain(tiles, q, m, params)
+    before = sw_cell.score_bucket_cell.launches16
+    got = sw_cell.score_bucket_cell(tiles.to(dev), q.to(dev), m.to(dev), params, exact=False).cpu()
+    assert sw_cell.score_bucket_cell.launches16 == before + 1
+    assert bool(sw_cell.sat_match(got, want16).all())
+    assert bool(sw_cell.sat_match(got, exact).all())
+    if sat == 30:
+        assert int((exact >= sat).sum()) > 100  # the lowered SAT flags subjects
+
+
+@pytest.mark.parametrize("sat", SATS)
+@pytest.mark.parametrize("mat", MATS)
+def test_col16_kernel_carry_meets_sat_rule(dev, monkeypatch, mat, sat):
+    """int16 state over two chunks with the int32 carry between them."""
+    monkeypatch.setattr(sw_cell, "SAT", sat)
+    rng = np.random.default_rng(22)
+    cfg = make_scoring_config(mat)
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = torch.as_tensor(_tiles(rng, (2, 256, 32, 128), pad, 2 * 4096, A))
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    t_dev, m_dev = tiles.to(dev), m.to(dev)
+    q1 = torch.as_tensor(_query(rng, 40, 64, pad, A))
+    q2 = torch.as_tensor(_query(rng, 21, 64, pad, A))
+    p1, p2 = (40, cfg.gop, cfg.gex, 0), (24, cfg.gop, cfg.gex, 0)
+    ex1, _ = sw_col.score_bucket_col_plain(tiles, q1, m, p1, emit_state=True)
+    w1, st1w = sw_col.score_bucket_col_plain(tiles, q1, m, p1, emit_state=True, exact=False)
+    s1, st1 = sw_col.score_bucket_col(t_dev, q1.to(dev), m_dev, p1, emit_state=True, exact=False)
+    assert all(s.dtype == torch.int32 for s in st1)
+    assert bool(sw_cell.sat_match(s1.cpu(), w1).all())
+    assert bool(sw_cell.sat_match(s1.cpu(), ex1).all())
+    assert _sat_lanes_equal(st1, st1w, ex1, sat)
+    w2 = sw_col.score_bucket_col_plain(tiles, q2, m, p2, state_in=st1w, exact=False)
+    s2 = sw_col.score_bucket_col(t_dev, q2.to(dev), m_dev, p2, state_in=st1, take_init=True,
+                                 exact=False)
+    both_w = torch.maximum(w1, w2)
+    assert bool(sw_cell.sat_match(torch.maximum(s1, s2).cpu(), both_w).all())
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("L", [40, 64, 136])
+def test_manual_kernel_equals_cell_plain(dev, monkeypatch, exact, L):
+    """B7 over 3 tiles (96 stripes): a stripe of one short chunk, of one
+    full 64-column chunk, and of two full chunks plus a ragged one."""
+    monkeypatch.setattr(sw_cell, "SAT", 30)
+    rng = np.random.default_rng(23)
+    cfg = make_scoring_config("blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = torch.as_tensor(_tiles(rng, (3, L, 32, 128), pad, 3 * 4096 - 9, A))
+    q = torch.as_tensor(_query(rng, 45, 128, pad, A))
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    params = (45, cfg.gop, cfg.gex, 48)
+    want = sw_cell.score_bucket_cell_plain(tiles, q, m, params, exact=exact)
+    got = sw_cell.score_bucket_cell_manual(tiles.to(dev), q.to(dev), m.to(dev), params,
+                                           exact=exact).cpu()
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert bool(sw_cell.sat_match(got, want).all())
+    empty = sw_cell.score_bucket_cell_manual(tiles.to(dev), q.to(dev), m.to(dev),
+                                             (0, cfg.gop, cfg.gex, 8))
+    assert not bool(empty.any())
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_pair_kernel_equals_cell_plain(dev, P):
+    from cudasw4_tpu_torch.tools.pairbench import score_pair
+
+    rng = np.random.default_rng(24)
+    cfg = make_scoring_config("blosum62_full")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = torch.as_tensor(_tiles(rng, (4, 40, 32, 128), pad, 4 * 4096 - 3, A))
+    q = torch.as_tensor(_query(rng, 37, 64, pad, A))
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    params = (37, cfg.gop, cfg.gex, 40)
+    want = sw_cell.score_bucket_cell_plain(tiles, q, m, params)
+    before = score_pair.launches
+    got = score_pair(tiles.to(dev), q.to(dev), m.to(dev), params, P=P)
+    assert score_pair.launches == before + 1
+    assert torch.equal(got.cpu(), want)

@@ -22,7 +22,7 @@ import cudasw4_tpu_torch.db.packing as tp
 from cudasw4_tpu_torch import make_scoring_config
 from cudasw4_tpu_torch.db.format import DBData
 from cudasw4_tpu_torch.engine import SearchEngine
-from cudasw4_tpu_torch.ops import sw_col
+from cudasw4_tpu_torch.ops import sw_cell, sw_col
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,8 +142,6 @@ def test_engine_stats_and_unported_paths(setup):
     assert eng.get_reference_header(0) == "s0"
     assert len(eng.get_reference_sequence(5)) == int(db.lengths[5])
     with pytest.raises(NotImplementedError):
-        eng.scan(np.zeros(8193, np.int8))
-    with pytest.raises(NotImplementedError):
         eng.set_database(db, pack_cache="x.npz")
     with pytest.raises(NotImplementedError):
         SearchEngine(device="cpu", max_device_bytes=1000).set_database(db)
@@ -163,3 +161,25 @@ def test_engine_debug_check_and_device_default(setup, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError):
         SearchEngine()
+
+
+def test_engine_long_query_equals_jax_scan_long_query(setup, lowered, monkeypatch):
+    """A 100-aa query beyond a lowered QCAP (64): the JAX engine (qcap=64)
+    routes it through ``_scan_long_query``; the port grows its query block
+    to 128 rows on the row and cell buckets and chunks the col bucket with
+    the carry (NQC 24), in exact state also under ``state16``."""
+    db = setup[0]
+    q = np.random.default_rng(52).integers(0, 20, size=100).astype(np.int8)
+    fields = ("chars", "offsets", "lengths", "headers", "header_offsets")
+    jeng = JaxEngine(scoring=jax_scoring("blosum62"), num_top=12, qcap=64)
+    jeng.set_database(JaxDBData(**{f: getattr(db, f) for f in fields}))
+    want = _results([jeng._scan_long_query(q)])
+    monkeypatch.setattr(sw_cell, "QCAP", 64)
+    for state16 in (False, True):
+        eng = SearchEngine(scoring=make_scoring_config("blosum62"), num_top=12, device="cpu")
+        eng.state16 = state16
+        eng.set_database(db)
+        assert eng._single_qpad(q)[0].shape == (128,)
+        before = sw_cell.score_bucket_cell.plain_calls16
+        assert _results(eng.scan_many([q])) == want
+        assert sw_cell.score_bucket_cell.plain_calls16 == before  # long queries run exact
