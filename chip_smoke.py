@@ -11,8 +11,12 @@ non-zero:
 2. kernels: each kernel (cell, row, col with its carry, cell batch, col
    flat, col fused) against its plain PyTorch version on the card, exact
    equality of the integer scores, both alphabets; kernel, plain and
-   bound times.  The int16 modes of cell and col (col over two chunks
-   with the int32 carry) against their plain versions and the exact
+   bound times.  The col kernel also at its edges (COL_EDGES: one partial
+   pass, a partial last pass over three chunks with the carry, nq_pad =
+   8), scores and carried rows, and col flat on one pass of slots of 8,
+   1000 and 3072 rows.  The int16 modes of cell and col (col over two
+   chunks with the int32 carry, and at its edges) against their plain
+   versions and the exact
    scores under the SAT rule (``sw_cell.sat_match``), at the default SAT
    and at one that most subjects reach; the manual-staging kernel (both
    modes) and the pair kernel (P = 2, 4) against the cell kernel's plain
@@ -82,9 +86,12 @@ import torch
 #: operation bound uses: 132 SMs x 64 int32 lanes x the SM clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
-#: int32 operations per DP cell: E (2 adds, 1 max), F (2 adds, 1 max),
-#: H (1 add, 3 max), running max (1 max).
-OPS_PER_CELL = 11
+#: int32 operations per DP cell with the DPX instructions, as the col
+#: kernel's SASS spends them: E and F (one VIADDMNMX each), H (the diagonal
+#: add fused into VIADDMNMX.RELU with E, then VIMNMX.RELU with F), H + gop
+#: (shared by the next column's E and the next row's F), and the running
+#: max over two cells in one VIMNMX3, half an operation a cell.
+OPS_PER_CELL = 5.5
 #: DP cells one 32-bit lane operation can update, by state type: int16
 #: state fits the packed s16x2 forms (vadd2/vmax2 and the DPX s16x2
 #: instructions), two cells an operation.
@@ -184,6 +191,75 @@ def query_block(rng, nq, cap, A, pad):
     return torch.as_tensor(q).cuda()
 
 
+#: B3's edge cases in phase 2, beside the two 3072-row chunks at L=1024:
+#: (tiles shape, real rows of each query chunk).  The col kernel's pass is
+#: 512 columns: L=128 is one partial pass; L=1152 is two full passes and a
+#: partial one, over three chunks with the carry; 8 rows is the least
+#: nq_pad.
+COL_EDGES = (
+    ((1, 128, 32, 128), (13,)),
+    ((1, 1152, 32, 128), (40, 3, 21)),
+    ((2, 640, 32, 128), (8, 5)),
+)
+
+
+def col_chunks(chunks, cfg):
+    """Query chunks (host codes) as the col kernel takes them: [(query on
+    the card, params)], each padded to NQC and its rows to a multiple of 8."""
+    from cudasw4_tpu_torch.ops import sw_col
+
+    out = []
+    for c in chunks:
+        qp, nq_pad = sw_col.pad_query_chunk(c, pad=cfg.pad_code)
+        out.append((torch.as_tensor(qp).cuda(), (nq_pad, cfg.gop, cfg.gex, 0)))
+    return out
+
+
+def col_chain(name, t, chunks, m, sat=None, ref=None):
+    """B3 and its plain version over the query ``chunks`` with the carry
+    between them.  Exact state (``sat`` None): scores and both carried rows
+    equal at every chunk; returns the runs [(kernel scores, plain scores,
+    the plain carry into the chunk or None, ms of the one plain call)].
+    int16 state at ``sat``: the scores so far meet the SAT rule against the
+    plain int16 run's and the exact run's (``ref``, the exact chain's
+    runs), and the carried rows equal the plain int16 run's on every
+    subject whose exact score so far is below sat; returns the subjects at
+    or above sat."""
+    from cudasw4_tpu_torch.ops import sw_cell, sw_col
+
+    default = sw_cell.SAT
+    sw_cell.SAT = sat or default
+    try:
+        st = st_w = None
+        runs, best = [], None
+        for k, (q, p) in enumerate(chunks):
+            emit = k + 1 < len(chunks)
+            kw = {"emit_state": emit, "exact": sat is None}
+            got = sw_col.score_bucket_col(t, q, m, p, state_in=st, take_init=st is not None, **kw)
+            want, pms = timed(lambda: sw_col.score_bucket_col_plain(t, q, m, p, state_in=st_w, **kw))
+            st_in = st_w
+            if emit:
+                (got, st), (want, st_w) = got, want
+            runs.append((got, want, st_in, pms))
+            if sat is None:
+                check(torch.equal(got, want), f"{name} chunk {k}: kernel != plain")
+                check(not emit or all(torch.equal(a, b) for a, b in zip(st, st_w)),
+                      f"{name} chunk {k}: carried H/F rows != plain")
+                continue
+            step = (got, want, ref[k][1])
+            best = step if best is None else tuple(map(torch.maximum, best, step))
+            check_sat_rule(f"{name} int16 chunk {k}", best[0], best[1], sat)
+            check_sat_rule(f"{name} int16 chunk {k} vs exact", best[0], best[2], sat)
+            if emit:
+                live = (best[2] < sat).reshape(t.shape[0], 1, 32, 128).expand(t.shape)
+                check(all(a.dtype == torch.int32 and torch.equal(a[live], b[live])
+                          for a, b in zip(st, st_w)),
+                      f"{name} int16 chunk {k}: carried rows != plain below SAT={sat}")
+    finally:
+        sw_cell.SAT = default
+    return runs if sat is None else int((best[2] >= sat).sum())
+
+
 # --------------------------------------------------------------- phase 2
 
 def phase_kernels(clock_mhz):
@@ -235,32 +311,20 @@ def phase_kernels(clock_mhz):
 
         # B3: a 5478-aa query over L=1024 col tiles: two NQC chunks with
         # the H/F carry, each chunk and its carried state against the
-        # plain version; then the whole query through the any-length
-        # function with one-tile groups against one plain sweep.
+        # plain version (its one call timed); then the whole query through
+        # the any-length function with one-tile groups against one plain
+        # sweep.
         shape = (2, 1024, 32, 128)
         t, real_chars = random_tiles(rng, shape, A, pad)
         codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
         chunks = [codes[:sw_col.NQC], codes[sw_col.NQC:]]
-        state = state_w = None
-        for k, chunk in enumerate(chunks):
-            qp, nq_pad = sw_col.pad_query_chunk(chunk, pad=pad)
-            q = torch.as_tensor(qp).cuda()
-            p = (nq_pad, cfg.gop, cfg.gex, 0)
-            emit_state = k == 0
-            got = sw_col.score_bucket_col(t, q, m, p, state_in=state,
-                                          take_init=state is not None, emit_state=emit_state)
-            want = sw_col.score_bucket_col_plain(t, q, m, p, state_in=state_w, emit_state=emit_state)
-            if emit_state:
-                (got, state), (want, state_w) = got, want
-                check(torch.equal(state[0], state_w[0]) and torch.equal(state[1], state_w[1]),
-                      f"B3 {mat}: carried H/F state != plain")
-            st, st_w = state, state_w
+        qs = col_chunks(chunks, cfg)
+        runs = col_chain(f"B3 {mat}", t, qs, m)
+        for k, (chunk, (q, p), (got, want, st_w, pms)) in enumerate(zip(chunks, qs, runs)):
             ms = cuda_ms(lambda: sw_col.score_bucket_col(
-                t, q, m, p, state_in=st if k else None, take_init=bool(k), emit_state=k == 0))
-            pms = cuda_ms(lambda: sw_col.score_bucket_col_plain(
-                t, q, m, p, state_in=st_w if k else None, emit_state=k == 0), reps=1)
+                t, q, m, p, state_in=st_w, take_init=st_w is not None, emit_state=k == 0))
             io_bytes = 8 * int(np.prod(shape))  # carry out (chunk 0) or in (chunk 1)
-            record(f"B3 col chunk {k}", mat, shape, nq_pad, len(chunk), real_chars,
+            record(f"B3 col chunk {k}", mat, shape, p[0], len(chunk), real_chars,
                    got, want, ms, pms, io_bytes)
         got = sw_col.score_bucket_col_any_query(t, codes, m, cfg.gop, cfg.gex, pad=pad, temp_bytes=1)
         best, _, _ = sweep_tiles_torch(t.reshape(2, 1024, 4096), codes.tolist(),
@@ -268,6 +332,14 @@ def phase_kernels(clock_mhz):
         check(torch.equal(got, best.float()), f"B3 any-query one-tile groups {mat}: != plain")
         rows.append({"check": "B3 col any-query, one-tile groups", "mat": mat,
                      "shape": list(shape), "nq": 5478, "equal": True})
+        # B3's edges: one partial pass, a partial last pass with the carry
+        # over three chunks, and chunks of nq_pad = 8.
+        for eshape, lens in COL_EDGES:
+            t, _ = random_tiles(rng, eshape, A, pad)
+            qs = col_chunks([rng.integers(0, A - 1, size=n).astype(np.int8) for n in lens], cfg)
+            col_chain(f"B3 {mat} {eshape} rows {lens}", t, qs, m)
+            rows.append({"check": "B3 col edge, carried rows", "mat": mat, "shape": list(eshape),
+                         "chunk_rows": [p[0] for _, p in qs], "equal": True})
 
         # B4: four slots (one empty, lengths not multiples of 8) over cell
         # tiles.  B5 and B6: three slots on their col_flat_plan pass over
@@ -301,6 +373,21 @@ def phase_kernels(clock_mhz):
         ms = cuda_ms(lambda: sw_col.score_bucket_col_flat_fused(t, qs, m, p))
         record("B6 col fused", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
                slots=len(lens))
+        # B5 on one pass of unequal slots, 8 to 3072 rows, in a pool of
+        # their reservations, over a partial last subject pass.
+        shape = (1, 1152, 32, 128)
+        t, real_chars = random_tiles(rng, shape, A, pad)
+        lens = [8, 1000, 3072]
+        rtot = sum(-(-n // sw_col.FLAT_QUANT) * sw_col.FLAT_QUANT for n in lens)
+        (plan,) = col_flat_plan(lens, rtot=rtot)
+        offs = tuple(o for _, o in sorted(plan))
+        qs = torch.stack([query_block(rng, n, sw_col.NQC, A, pad) for n in lens])
+        p = (0, cfg.gop, cfg.gex, 0, *lens)
+        want = sw_col.score_bucket_col_flat_plain(t, qs, m, p)
+        got = sw_col.score_bucket_col_flat(t, qs, m, p, offs, rtot=rtot)
+        check(torch.equal(got, want), f"B5 col flat {mat} slots {lens}: kernel != plain")
+        rows.append({"check": "B5 col flat, unequal slots", "mat": mat, "shape": list(shape),
+                     "slot_rows": lens, "pool_offsets": list(offs), "rtot": rtot, "equal": True})
         phase_kernels_state16(mat, cfg, m, rng, rows)
     phase_kernels_tools(rng, rows)
     for r in rows:
@@ -324,8 +411,9 @@ def check_sat_rule(name, got, want, sat):
 def phase_kernels_state16(mat, cfg, m, rng, rows):
     """B1 and B3 in int16 mode against their plain versions (int16 and
     exact) under the SAT rule, at the default SAT and at one that most
-    subjects reach; B3 over two chunks with the int32 carry, the carried
-    state equal on every subject below SAT."""
+    subjects reach; B3 over two chunks with the int32 carry and at its
+    edge shapes (COL_EDGES), the carried state equal on every subject
+    below SAT."""
     from cudasw4_tpu_torch.ops import sw_cell, sw_col
 
     A, pad = cfg.alphabet_size, cfg.pad_code
@@ -352,33 +440,29 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
     shape = (2, 1024, 32, 128)
     t, real_chars = random_tiles(rng, shape, A, pad)
     codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
-    chunks = [sw_col.pad_query_chunk(c, pad=pad) for c in (codes[:sw_col.NQC], codes[sw_col.NQC:])]
-    qs = [(torch.as_tensor(qp).cuda(), (n, cfg.gop, cfg.gex, 0)) for qp, n in chunks]
-    ex0, _ = sw_col.score_bucket_col_plain(t, qs[0][0], m, qs[0][1], emit_state=True)
-    for sat in (default, lowered_sat(ex0)):
+    qs = col_chunks([codes[:sw_col.NQC], codes[sw_col.NQC:]], cfg)
+    ref = col_chain(f"B3 {mat}", t, qs, m)
+    st = ref[1][2]
+    for sat in (default, lowered_sat(ref[0][1])):
+        saturated = col_chain(f"B3 {mat}", t, qs, m, sat, ref)
         sw_cell.SAT = sat
         try:
-            s0, st = sw_col.score_bucket_col(t, qs[0][0], m, qs[0][1], emit_state=True, exact=False)
-            w0, st_w = sw_col.score_bucket_col_plain(t, qs[0][0], m, qs[0][1], emit_state=True,
-                                                     exact=False)
-            check_sat_rule(f"B3 int16 {mat} chunk 0", s0, w0, sat)
-            check_sat_rule(f"B3 int16 {mat} chunk 0 vs exact", s0, ex0, sat)
-            live = (ex0 < sat).reshape(2, 1, 32, 128).expand(shape)
-            check(all(g.dtype == torch.int32 and torch.equal(g[live], w[live])
-                      for g, w in zip(st, st_w)),
-                  f"B3 int16 {mat}: carried state != plain on subjects below SAT={sat}")
-            s1 = sw_col.score_bucket_col(t, qs[1][0], m, qs[1][1], state_in=st, take_init=True,
-                                         exact=False)
-            w1 = sw_col.score_bucket_col_plain(t, qs[1][0], m, qs[1][1], state_in=st_w, exact=False)
-            check_sat_rule(f"B3 int16 {mat} both chunks", torch.maximum(s0, s1),
-                           torch.maximum(w0, w1), sat)
             ms = cuda_ms(lambda: sw_col.score_bucket_col(t, qs[1][0], m, qs[1][1], state_in=st,
                                                          take_init=True, exact=False))
         finally:
             sw_cell.SAT = default
         rows.append({"check": "B3 col int16, two chunks with the carry", "mat": mat,
                      "shape": list(shape), "nq": 5478, "sat": sat, "sat_rule": True,
-                     "saturated": int((ex0 >= sat).sum()), "ms_chunk1": ms})
+                     "saturated": saturated, "ms_chunk1": ms})
+    for eshape, lens in COL_EDGES:
+        t, _ = random_tiles(rng, eshape, A, pad)
+        qs = col_chunks([rng.integers(0, A - 1, size=n).astype(np.int8) for n in lens], cfg)
+        name = f"B3 {mat} {eshape} rows {lens}"
+        ref = col_chain(name, t, qs, m)
+        for sat in (default, lowered_sat(ref[0][1])):
+            rows.append({"check": "B3 col int16 edge", "mat": mat, "shape": list(eshape),
+                         "chunk_rows": [p[0] for _, p in qs], "sat": sat, "sat_rule": True,
+                         "saturated": col_chain(name, t, qs, m, sat, ref)})
 
 
 def phase_kernels_tools(rng, rows):
@@ -801,10 +885,10 @@ def phase_sprot(clock_mhz):
     ):
         a = fn()
         ms = cuda_ms(fn)
-        planes = 1 if "fused" in name else cuda_lib.scratch_planes(t, len(idx))
+        temp = ({"scratch_planes": 1, "scratch_bytes": 8 * t.numel()} if "fused" in name else
+                {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], qcap_b)})
         kernel_row(name, replaces, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b,
-                   ms, pms, slots=len(idx), scratch_planes=planes,
-                   scratch_bytes=planes * 8 * t.numel(), pass_offsets=list(offs))
+                   ms, pms, slots=len(idx), pass_offsets=list(offs), **temp)
 
     # Where a query's device time goes: each bucket timed alone (CUDA
     # events), summed by kernel kind, per ladder query; and the batch's.

@@ -24,12 +24,12 @@
 // * sw_cell_batch_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell_batch (_sw_cell_batch_kernel): QB queries
 //   [QB, W] against cell tiles in one launch, out [QB, T, 4096].
-// * sw_col_flat_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
+// * sw_col_launch with slots (rows non-null) replaces
+//   cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
-//   nqp rows each against col tiles in one launch.  The TPU kernel gives
-//   each slot a row range of one VMEM state pool; here the state lives per
-//   subject position, so the pool offsets place nothing (the wrapper
-//   checks them against the contract).
+//   nqp rows each against col tiles in one launch.  As the TPU kernel
+//   gives each slot a row range of one VMEM state pool, each slot's
+//   boundary columns take rows [off, off + nqp) of one pool of rtot rows.
 // * sw_col_fused_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat_fused (_sw_col_flat_fused_kernel): the
 //   same slots walked as one gapless run of rows, with the DP reset to the
@@ -41,57 +41,88 @@
 // * sw_cell_pair_launch replaces tools/pairbench.py score_pair
 //   (_kernel_pair): B1's contract, exact, P consecutive tiles per block.
 //
-// Design (simple and right first; speed is later work).  One thread per
-// subject: neighbouring threads own neighbouring subjects, so each load of
-// x[t, j, :] and of the H/F row is coalesced.  The query streams in blocks
-// of kRows rows; each thread keeps E and H[i][j-1] of its kRows rows in
-// registers and sweeps j over the whole subject.  The H and F of the row
-// above each block live in a scratch row [T, L, NS] in device memory
-// (read, then overwritten with the block's bottom row), so neither the
-// subject length nor the query length is capped.  That scratch row is
-// exactly the col contract's boundary carry: take_init reads the first
-// block's row above from state_in, and emit_state returns the scratch.
-// The substitution scores of a block's kRows rows sit in shared memory as a
-// query profile prof[c][r] = B[q_{i0+r}, c], one 32-byte read per column.
-// Padded query rows and subject positions carry the pad code, whose matrix
-// row is all negative, so they never raise the max.
+// Design of the cell, row, batch and tool kernels (simple and right
+// first; speed is later work).  One thread per subject: neighbouring
+// threads own neighbouring subjects, so each load of x[t, j, :] and of the
+// H/F row is coalesced.  The query streams in blocks of kRows rows; each
+// thread keeps E and H[i][j-1] of its kRows rows in registers and sweeps j
+// over the whole subject.  The H and F of the row above each block live in
+// a scratch row [T, L, NS] in device memory (read, then overwritten with
+// the block's bottom row), so neither the subject length nor the query
+// length is capped.  The substitution scores of a block's kRows rows sit
+// in shared memory as a query profile prof[c][r] = B[q_{i0+r}, c], one
+// 32-byte read per column.  Padded query rows and subject positions carry
+// the pad code, whose matrix row is all negative, so they never raise the
+// max.
 //
 // int16 state (the JAX kernels' exact=False): the arithmetic stays int32
-// in registers; only the scratch row is int16, and every store of it
-// clamps both H and F at sat (<= 32767).  The TPU kernel clamps H after
-// each query row, which keeps its F below sat; here 8 rows live in
-// registers, so an unclamped H can feed F inside a block, and F is clamped
-// too.  The contract holds per subject: a clamped value is one whose true
-// value passed sat, so a subject whose true score is below sat is exact,
-// and one whose score reaches sat returns >= sat (the first DP cell that
-// reaches sat has only unclamped predecessors, and the running max tracks
-// the unclamped registers).  The int32 carry of the col contract stays
-// int32: the first block of an int16 col launch reads it, and the wrapper
-// widens the int16 scratch it emits.
+// in registers; only the stored state is int16, and every store of it
+// clamps H, E and F at sat (<= 32767).  The TPU kernel clamps H after
+// each query row, which keeps its F below sat; here many cells live in
+// registers between stores, so an unclamped H can feed F and E, and those
+// are clamped too.  The contract holds per subject: a value is clamped
+// only where the cell's own H (>= its E and F) reached sat, and the
+// running max tracks the unclamped registers, so a subject whose true
+// score is below sat is exact, and one whose score reaches sat returns
+// >= sat.
 //
 // Bound on the H100 SXM (3.35 TB/s; int32 at 132 SMs x 64 lanes x clock,
-// 16.7 Tops/s at 1.98 GHz): a cell update is 11 int32 operations (3 for E,
-// 3 for F, 4 for H, 1 for the running max) and the inputs are about one
-// byte per subject position, so every contract is bound by operations,
-// by a factor of ~nrows/2 over bytes.  This design moves 16 bytes of
-// scratch per kRows cells (2 B/cell at kRows = 8; 1 B/cell with int16
-// state) besides, and one thread per subject leaves small buckets without
-// enough warps to hide latency; register-tiled wavefronts with DPX
-// instructions (__viaddmax_s32, __vimax3_s32_relu) are the known way to
-// the bound.
+// 16.7 Tops/s at 1.98 GHz): with the DPX instructions a cell update is 5.5
+// int32 operations (below), and the inputs are about one byte per subject
+// position, so every contract is bound by operations, by a factor of
+// ~nrows over bytes.  The one-thread-per-subject kernels move 16 bytes of
+// scratch per kRows cells besides (2 B/cell at kRows = 8; 1 B/cell with
+// int16 state), spend 11 operations a cell, and leave small buckets
+// without enough warps to hide latency.
 //
-// The batch kernels have the same bound: 11 operations per cell of every
-// slot, while the tiles are read once per call.  Each slot still re-reads
-// the tile and moves its own scratch traffic, so a batch saves no bytes
-// per cell; what it buys is blocks.  Cell batch and col flat put slots on
+// The batch kernels have the same bound: 5.5 operations per cell of every
+// slot, while the tiles are read once per call.  Cell batch puts slots on
 // the grid's y axis: blockIdx.y picks one of P scratch planes (P = slots,
 // capped by the wrapper's scratch budget) and scores slots y, y + P, ...
 // on it, so a launch fills P times the blocks of a single query and takes
 // P x 8 bytes per tile char of scratch (the top Swiss-Prot-scale cell
-// bucket [12, 640, 32, 128]: 251.7 MB a plane; the top col tile
-// [1, 5632, 32, 128]: 184.5 MB).  The fused kernel walks its slots one
-// after another on one plane: the blocks and scratch of a single query,
-// for S queries' rows.
+// bucket [12, 640, 32, 128]: 251.7 MB a plane).  The fused col kernel
+// walks its slots one after another on one plane: the blocks and scratch
+// of a single query, for S queries' rows.
+//
+// The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel)
+// are a warp per (slot, subject) register-tiled wavefront, the shape of
+// the reference CUDASW++4.0's DPX-s32 multi-pass kernels.  What bounds the
+// one-thread design at long L is parallelism and scratch: a col tile is
+// 4096 subjects, 32 blocks of one thread each, on 132 SMs, and every 8
+// rows re-read and re-wrote the L-long H/F row.  Here the parallelism
+// comes from the subject's length (> 768 aa in a col bucket), not from the
+// query's (which can be 8 rows): a tile is 4096 warps.  Lane k holds
+// kColRegs consecutive subject columns in registers (code, H + gop and F
+// of the row above); a pass covers kColPass = 32 x kColRegs columns, and a
+// subject of L columns takes ceil(L / kColPass) passes.  Inside a pass the
+// query streams through the warp: lane k scores row i at step i + k,
+// taking H + gop and E of its left column at row i from lane k - 1 by
+// __shfl_up_sync, and the value it took one step earlier as the diagonal.
+// Lane 0 takes the previous pass's boundary column (H, E at the column
+// left of the pass) for row i, and lane 31 produces this pass's: both go
+// through a per-warp column of rows in device memory, one buffer updated
+// in place (the rows are read in 32-row groups one group ahead, before
+// lane 31 rewrites them, and written in 32-row groups gathered from lane
+// 31 by shuffles).  Its traffic is 16 bytes a row per kColPass columns,
+// 0.03 B a cell at kColRegs = 16, against 2 B a cell in the one-thread
+// design; the top col tile at 464 rows needs a 15.2 MB column pair, which
+// L2 holds.  The col carry maps onto the registers: state_in is each
+// column's initial H and F (else H = 0, F = -inf), and emit_state stores
+// them after the pass's last row.  With the substitution matrix in shared
+// memory shifted by -gop (smat[q][c] = B[q][c] - gop, so the diagonal
+// H + gop plus it is H + B), a cell is 5.5 operations: E =
+// __viaddmax_s32(E, gex, Hleft + gop), F = __viaddmax_s32(F, gex,
+// Hup + gop), H = __vimax3_s32_relu(diag + sub, E, F) (two: the add fused
+// into a max with E, then a max with F), H + gop (shared by the next
+// column's E and the next row's F), and the running max, which nvcc takes
+// over two cells in one 3-input max (VIMNMX3); plus the shared-memory
+// lookup.  Columns past L (a partial last pass) take
+// substitution column A, which is -inf: every H there stays below an H
+// of the warp's real cells, so no column mask is needed in the inner
+// loop.  int16 state clamps the boundary column and the emitted carry
+// (int32, clamped) at sat.  kColRegs, kColWarps and kColMinBlocks were
+// chosen on the H100: see their definitions.
 //
 // The manual-staging kernel is the Hopper form of the TPU kernel's copy of
 // tile t+1 started before tile t's compute: a persistent grid (as
@@ -162,11 +193,10 @@ __device__ __forceinline__ void update_column(
 
 // Sweep query rows [i0, i0 + nr) over all L positions of one subject.
 // hsrc/fsrc: the row above (may alias hs/fs); from_zero: the row above is
-// the top of the DP matrix (H = 0, F = -inf).  St: the scratch row's type;
-// Src: the row above's (an int32 carry into an int16 sweep).
-template <bool kFull, typename St = int32_t, typename Src = St>
+// the top of the DP matrix (H = 0, F = -inf).  St: the scratch row's type.
+template <bool kFull, typename St = int32_t>
 __device__ __forceinline__ void sweep_block(
-    const int8_t* __restrict__ x, const Src* hsrc, const Src* fsrc,
+    const int8_t* __restrict__ x, const St* hsrc, const St* fsrc,
     bool from_zero, St* hs, St* fs, const int* prof, int L, int NS, int nr,
     int gop, int gex, int& m, int sat = 0) {
   int e[kRows], hl[kRows];
@@ -206,17 +236,17 @@ __device__ __forceinline__ void sweep_block(
 }
 
 // sweep_block at the block's row count: the full kRows or a ragged tail.
-template <typename St, typename Src>
+template <typename St>
 __device__ __forceinline__ void sweep_rows(
-    const int8_t* __restrict__ x, const Src* hsrc, const Src* fsrc,
+    const int8_t* __restrict__ x, const St* hsrc, const St* fsrc,
     bool from_zero, St* hs, St* fs, const int* prof, int L, int NS, int nr,
     int gop, int gex, int& m, int sat) {
   if (nr == kRows) {
-    sweep_block<true, St, Src>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS,
-                               nr, gop, gex, m, sat);
+    sweep_block<true, St>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr,
+                          gop, gex, m, sat);
   } else {
-    sweep_block<false, St, Src>(x, hsrc, fsrc, from_zero, hs, fs, prof, L,
-                                NS, nr, gop, gex, m, sat);
+    sweep_block<false, St>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr,
+                           gop, gex, m, sat);
   }
 }
 
@@ -236,13 +266,12 @@ __device__ __forceinline__ void build_profile(const int32_t* __restrict__ q,
 
 // One block = kThreads subjects of one tile; the grid is flat over
 // (tile, subject block).  Writes out[t, s] = max H as float.  St: the
-// scratch rows' type (int16 saturates at sat); hin/fin: the int32 carry.
+// scratch rows' type (int16 saturates at sat).
 template <typename St>
 __device__ __forceinline__ void sw_tiles_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ query,
     const int32_t* __restrict__ mat, int A, int L, int NS, int nrows,
-    int gop, int gex, const int32_t* hin, const int32_t* fin, St* hs,
-    St* fs, float* __restrict__ out, int sat) {
+    int gop, int gex, St* hs, St* fs, float* __restrict__ out, int sat) {
   __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
   __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
   const int blocks_per_tile = (NS + kThreads - 1) / kThreads;
@@ -261,22 +290,8 @@ __device__ __forceinline__ void sw_tiles_body(
     }
     __syncthreads();
     if (live) {
-      const bool first = i0 == 0;
-      const bool from_zero = first && hin == nullptr;
-      if constexpr (std::is_same<St, int32_t>::value) {
-        const int32_t* hsrc = first && hin ? hin + base : hs + base;
-        const int32_t* fsrc = first && fin ? fin + base : fs + base;
-        sweep_rows<St, St>(tiles + base, hsrc, fsrc, from_zero, hs + base,
-                           fs + base, prof, L, NS, nr, gop, gex, m, sat);
-      } else if (first && hin) {
-        sweep_rows<St, int32_t>(tiles + base, hin + base, fin + base, false,
-                                hs + base, fs + base, prof, L, NS, nr, gop,
-                                gex, m, sat);
-      } else {
-        sweep_rows<St, St>(tiles + base, hs + base, fs + base, from_zero,
-                           hs + base, fs + base, prof, L, NS, nr, gop, gex, m,
-                           sat);
-      }
+      sweep_rows<St>(tiles + base, hs + base, fs + base, i0 == 0, hs + base,
+                     fs + base, prof, L, NS, nr, gop, gex, m, sat);
     }
   }
   if (live) out[(size_t)t * NS + s] = (float)m;
@@ -293,8 +308,8 @@ __device__ __forceinline__ void run_rows(
     int NS, int gop, int gex, int& m) {
   build_profile(q, nr, smat, prof, A);
   if (!live) return;
-  sweep_rows<int32_t, int32_t>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS,
-                               nr, gop, gex, m, 0);
+  sweep_rows<int32_t>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
+                      gex, m, 0);
 }
 
 // Batch bodies over cell-layout tiles [T, L, 4096] and a query block
@@ -321,7 +336,7 @@ __device__ __forceinline__ BatchBlock batch_block(int T, int L, int32_t* hs,
   return b;
 }
 
-// B4 and B5: slot q runs its nrows[q] rows from the top of the DP matrix.
+// B4: slot q runs its nrows[q] rows from the top of the DP matrix.
 // The block scores slots blockIdx.y, blockIdx.y + gridDim.y, ... one after
 // another on its plane, so a launch of P planes fills P times the blocks of
 // a single-query launch and takes P scratch planes.
@@ -385,40 +400,240 @@ __global__ void __launch_bounds__(kThreads) sw_cell_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
     float* out) {
-  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex,
-                         nullptr, nullptr, hs, fs, out, 0);
+  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hs,
+                         fs, out, 0);
 }
 
 __global__ void __launch_bounds__(kThreads) sw_cell16_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int nrows, int gop, int gex, int16_t* hs, int16_t* fs, float* out,
     int sat) {
-  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex,
-                         nullptr, nullptr, hs, fs, out, sat);
+  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hs,
+                         fs, out, sat);
 }
 
 __global__ void __launch_bounds__(kThreads) sw_row_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int NS, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
     float* out) {
-  sw_tiles_body<int32_t>(tiles, query, mat, A, L, NS, nrows, gop, gex,
-                         nullptr, nullptr, hs, fs, out, 0);
+  sw_tiles_body<int32_t>(tiles, query, mat, A, L, NS, nrows, gop, gex, hs, fs,
+                         out, 0);
 }
 
-__global__ void __launch_bounds__(kThreads) sw_col_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, const int32_t* hin,
-    const int32_t* fin, int32_t* hs, int32_t* fs, float* out) {
-  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hin,
-                         fin, hs, fs, out, 0);
+// ------------------------------------ B3 and B5: the col wavefront
+
+// The constants below were chosen by timing variants against each other
+// with cudasw4_tpu_torch/tools/kernel_ab.py on an H100 (PERF.md).
+//
+// Subject columns a lane holds in registers (R): a pass is 32 x R
+// columns.  The register cost is 3 x R (code, H + gop, F), and the warp's
+// per-step overhead (shuffles, query and boundary traffic) is shared by R
+// cells.  R = 16 divides LC = 128, and 512 divides the top col bucket's
+// L = 5632 and L = 1024.  R = 8 was 10-25% slower; R = 12 as fast on the
+// top col tile and 14% slower at L = 1024; R = 20 (a 640-column pass) 9%
+// faster on the top tile and 12% slower at L = 1024 with uncapped
+// registers, and spills under the cap below.
+constexpr int kColRegs = 16;
+constexpr int kColPass = 32 * kColRegs;
+// Warps (subjects) per block, sharing the shifted substitution matrix: 2
+// and 8 timed within 3% of 4, and 8 was 9% slower on col flat.
+constexpr int kColWarps = 4;
+// Blocks per SM that the col kernels' registers must allow (ptxas caps
+// them at 65536 / (kColMinBlocks x kColWarps x 32) a thread, 102): 20
+// warps an SM to hide the wavefront's dependent chain, 5-13% faster than
+// the 108 registers (16 warps) the compiler takes uncapped; 6 spills and
+// is slower.
+constexpr int kColMinBlocks = 5;
+constexpr unsigned kWarpAll = 0xffffffffu;
+
+// An int32 value of St state as the int32 carry keeps it: as it is, or
+// clamped at sat when St is int16 (no narrowing: F may still be -inf).
+template <typename St>
+__device__ __forceinline__ int clamp_state(int v, int sat) {
+  if constexpr (std::is_same<St, int32_t>::value) {
+    return v;
+  } else {
+    return min(v, sat);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) sw_col16_kernel(
+// One warp scores one subject (x: its codes, stride kCellNS) against query
+// rows q[0, nrows).  smat: [A][A + 1], B - gop and a -inf column A.
+// hin/fin, hout/fout: the subject's carry in and out (stride kCellNS), or
+// null.  th/te: the warp's boundary column of nrows rows (St, clamped at
+// sat for int16), or null when L fits one pass.  Returns the subject's
+// max H, on every lane.
+template <typename St>
+__device__ __forceinline__ int col_warp(
+    const int8_t* __restrict__ x, int L, const int32_t* __restrict__ q,
+    int nrows, const int* smat, int A, int gop, int gex,
+    const int32_t* __restrict__ hin, const int32_t* __restrict__ fin,
+    int32_t* hout, int32_t* fout, St* th, St* te, int sat) {
+  const int lane = threadIdx.x & 31;
+  const int A1 = A + 1;
+  const int npass = (L + kColPass - 1) / kColPass;
+  int m = 0;
+  for (int p = 0; p < npass; ++p) {
+    const bool rd = p > 0, wr = p + 1 < npass;
+    const int jl = p * kColPass + lane * kColRegs;  // the lane's first column
+    int c[kColRegs], hg[kColRegs], f[kColRegs];
+#pragma unroll
+    for (int r = 0; r < kColRegs; ++r) {
+      const int j = jl + r;
+      const size_t o = (size_t)j * kCellNS;
+      const bool in = j < L;
+      c[r] = in ? x[o] : A;
+      hg[r] = (in && hin ? hin[o] : 0) + gop;
+      f[r] = in && fin ? fin[o] : kNeg;
+    }
+    // H + gop of the row above at the pass's left column: lane 0's first
+    // diagonal.  Later rows' diagonals are the values taken a step before.
+    int prev = gop;
+    if (lane == 0 && rd && hin) prev += hin[(size_t)(jl - 1) * kCellNS];
+    int oh = hg[kColRegs - 1], oe = kNeg;  // passed right: H + gop and E
+    int bh = 0, be = kNeg, nh = 0, ne = kNeg;  // boundary groups: now, next
+    int wh = 0, we = 0;  // lane (i & 31) keeps lane 31's row i to store it
+    if (rd && lane < nrows) {
+      nh = th[lane];
+      ne = te[lane];
+    }
+    int qc = lane == 0 && nrows > 0 ? q[0] * A1 : 0;  // this row's smat row
+    for (int s = 0; s < nrows + 31; ++s) {
+      const int i = s - lane;
+      if (rd && (s & 31) == 0) {
+        bh = nh;
+        be = ne;
+        const int r = s + 32 + lane;
+        if (r < nrows) {
+          nh = th[r];
+          ne = te[r];
+        }
+      }
+      int rh = __shfl_up_sync(kWarpAll, oh, 1);
+      int re = __shfl_up_sync(kWarpAll, oe, 1);
+      int lh = 0, le = kNeg;
+      if (rd) {
+        lh = __shfl_sync(kWarpAll, bh, s & 31);
+        le = __shfl_sync(kWarpAll, be, s & 31);
+      }
+      if (lane == 0) {
+        rh = lh + gop;
+        re = le;
+      }
+      int dg = prev;
+      prev = rh;
+      const int qn = (unsigned)(i + 1) < (unsigned)nrows ? q[i + 1] * A1 : 0;
+      if ((unsigned)i < (unsigned)nrows) {
+        const int* srow = smat + qc;
+        int e = re, hl = rh;
+#pragma unroll
+        for (int r = 0; r < kColRegs; ++r) {
+          const int t = dg + srow[c[r]];
+          e = __viaddmax_s32(e, gex, hl);
+          f[r] = __viaddmax_s32(f[r], gex, hg[r]);
+          const int h = __vimax3_s32_relu(t, e, f[r]);
+          m = max(m, h);
+          dg = hg[r];
+          hl = h + gop;
+          hg[r] = hl;
+        }
+        oh = hl;
+        oe = e;
+      }
+      qc = qn;
+      if (wr) {
+        const int gh = __shfl_sync(kWarpAll, oh, 31);
+        const int ge = __shfl_sync(kWarpAll, oe, 31);
+        const int iw = s - 31;  // the row lane 31 has just scored
+        if (iw >= 0) {
+          if (lane == (iw & 31)) {
+            wh = gh;
+            we = ge;
+          }
+          if ((iw & 31) == 31 || iw == nrows - 1) {
+            const int r = (iw & ~31) + lane;
+            if (r <= iw) {
+              th[r] = to_state<St>(wh - gop, sat);
+              te[r] = to_state<St>(we, sat);
+            }
+          }
+        }
+      }
+    }
+    if (hout) {
+#pragma unroll
+      for (int r = 0; r < kColRegs; ++r) {
+        const int j = jl + r;
+        if (j < L) {
+          hout[(size_t)j * kCellNS] = clamp_state<St>(hg[r] - gop, sat);
+          fout[(size_t)j * kCellNS] = clamp_state<St>(f[r], sat);
+        }
+      }
+    }
+    __syncwarp();  // this pass's boundary stores, before the next's loads
+  }
+  return __reduce_max_sync(kWarpAll, m);
+}
+
+// Warp w of the grid's x axis scores subject w % 4096 of tile w / 4096
+// against slot blockIdx.y: rows[slot] rows of queries[slot] (all W rows
+// when rows is null), its boundary column at rows offs[slot] .. (0 when
+// null) of the warp's rtot-row pool.  Writes out[slot, t, s].
+template <typename St>
+__device__ __forceinline__ void sw_col_body(
+    const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ mat, int A, int T, int L, int W, int rtot,
+    int gop, int gex, const int32_t* hin, const int32_t* fin, int32_t* hout,
+    int32_t* fout, St* th, St* te, float* __restrict__ out, int sat) {
+  __shared__ int smat[kMaxAlphabet * (kMaxAlphabet + 1)];
+  const int A1 = A + 1;
+  for (int k = threadIdx.x; k < A * A1; k += blockDim.x) {
+    const int c = k % A1;
+    smat[k] = c < A ? mat[k / A1 * A + c] - gop : kNeg;
+  }
+  __syncthreads();
+  const int w = blockIdx.x * kColWarps + (threadIdx.x >> 5);
+  const int t = w / kCellNS, s = w % kCellNS;
+  const int slot = blockIdx.y;
+  const size_t base = (size_t)t * L * kCellNS + s;
+  const size_t col = (size_t)w * rtot + (offs ? offs[slot] : 0);
+  const int m = col_warp<St>(
+      tiles + base, L, queries + (size_t)slot * W, rows ? rows[slot] : W, smat,
+      A, gop, gex, hin ? hin + base : nullptr, fin ? fin + base : nullptr,
+      hout ? hout + base : nullptr, fout ? fout + base : nullptr,
+      th ? th + col : nullptr, te ? te + col : nullptr, sat);
+  if ((threadIdx.x & 31) == 0) {
+    out[((size_t)slot * T + t) * kCellNS + s] = (float)m;
+  }
+}
+
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, const int32_t* hin,
-    const int32_t* fin, int16_t* hs, int16_t* fs, float* out, int sat) {
-  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hin,
-                         fin, hs, fs, out, sat);
+    int T, int L, int nrows, int gop, int gex, const int32_t* hin,
+    const int32_t* fin, int32_t* hout, int32_t* fout, int32_t* th,
+    int32_t* te, float* out) {
+  sw_col_body<int32_t>(tiles, query, nullptr, nullptr, mat, A, T, L, nrows,
+                       nrows, gop, gex, hin, fin, hout, fout, th, te, out, 0);
+}
+
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col16_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int nrows, int gop, int gex, const int32_t* hin,
+    const int32_t* fin, int32_t* hout, int32_t* fout, int16_t* th,
+    int16_t* te, float* out, int sat) {
+  sw_col_body<int16_t>(tiles, query, nullptr, nullptr, mat, A, T, L, nrows,
+                       nrows, gop, gex, hin, fin, hout, fout, th, te, out,
+                       sat);
+}
+
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* rows,
+    const int32_t* offs, const int32_t* mat, int A, int T, int L, int W,
+    int rtot, int gop, int gex, int32_t* th, int32_t* te, float* out) {
+  sw_col_body<int32_t>(tiles, queries, rows, offs, mat, A, T, L, W, rtot, gop,
+                       gex, nullptr, nullptr, nullptr, nullptr, th, te, out,
+                       0);
 }
 
 // ------------------------------------------------ B8: P tiles per block
@@ -633,14 +848,6 @@ __global__ void __launch_bounds__(kThreads) sw_cell_batch_kernel(
                 out);
 }
 
-__global__ void __launch_bounds__(kThreads) sw_col_flat_kernel(
-    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
-    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
-    int32_t* hs, int32_t* fs, float* out) {
-  sw_batch_body(tiles, queries, nrows, mat, A, T, L, S, W, gop, gex, hs, fs,
-                out);
-}
-
 __global__ void __launch_bounds__(kThreads) sw_col_fused_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* starts,
     const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
@@ -673,22 +880,17 @@ int batch_launch(BatchKernel kernel, const void* tiles, const void* queries,
 
 extern "C" {
 
-// The three single-query launches share one signature.  Each returns
+// The cell and row launches share one signature.  Each returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments outside its contract: NS = 4096 for
-// cell and col tiles, a carry (hin, fin) for the col kernel only, and
-// sat = 0 (exact int32 state) or 0 < sat <= 32767 (int16 state, cell and
-// col only; hs and fs are then int16).  Pointers are device pointers;
-// stream is a cudaStream_t.  Query and tile codes must lie in [0, A),
-// A <= 26.
+// cell tiles, and sat = 0 (exact int32 state) or 0 < sat <= 32767 (int16
+// state, cell only; hs and fs are then int16).  Pointers are device pointers; stream is a cudaStream_t.  Query
+// and tile codes must lie in [0, A), A <= 26.
 
 int sw_cell_launch(const void* tiles, const void* query, const void* mat,
                    int A, int T, int L, int NS, int nrows, int gop, int gex,
-                   const void* hin, const void* fin, void* hs, void* fs,
-                   void* out, int sat, void* stream) {
-  if (NS != 4096 || hin || fin || !sat_ok(sat)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                   void* hs, void* fs, void* out, int sat, void* stream) {
+  if (NS != 4096 || !sat_ok(sat)) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   const unsigned grid = grid_for(T, 4096);
   if (sat) {
@@ -705,34 +907,12 @@ int sw_cell_launch(const void* tiles, const void* query, const void* mat,
 
 int sw_row_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
-                  const void* hin, const void* fin, void* hs, void* fs,
-                  void* out, int sat, void* stream) {
-  if (hin || fin || sat) return (int)cudaErrorInvalidValue;
+                  void* hs, void* fs, void* out, int sat, void* stream) {
+  if (sat) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   sw_row_kernel<<<grid_for(T, NS), kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
       NS, nrows, gop, gex, (int32_t*)hs, (int32_t*)fs, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-int sw_col_launch(const void* tiles, const void* query, const void* mat,
-                  int A, int T, int L, int NS, int nrows, int gop, int gex,
-                  const void* hin, const void* fin, void* hs, void* fs,
-                  void* out, int sat, void* stream) {
-  if (NS != 4096 || !sat_ok(sat)) return (int)cudaErrorInvalidValue;
-  if (T == 0) return 0;
-  const unsigned grid = grid_for(T, 4096);
-  if (sat) {
-    sw_col16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
-        L, nrows, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
-        (int16_t*)hs, (int16_t*)fs, (float*)out, sat);
-  } else {
-    sw_col_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
-        L, nrows, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
-        (int32_t*)hs, (int32_t*)fs, (float*)out);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -770,11 +950,11 @@ int sw_cell_pair_launch(const void* tiles, const void* query, const void* mat,
   return (int)cudaGetLastError();
 }
 
-// The three batch launches share a second signature.  tiles: int8
+// The two batch launches share a second signature.  tiles: int8
 // [T, L, 32, 128]; queries: int32 [S, W]; rows: int32, the slots' row
-// counts [S] (cell batch, col flat) or the slots' first rows and the total
-// [S + 1] (col fused); hs, fs: int32 scratch of planes x [T, L, 32, 128];
-// out: f32 [S, T, 4096].  planes: 1..S, and 1 for the fused kernel.
+// counts [S] (cell batch) or the slots' first rows and the total [S + 1]
+// (col fused); hs, fs: int32 scratch of planes x [T, L, 32, 128]; out:
+// f32 [S, T, 4096].  planes: 1..S, and 1 for the fused kernel.
 
 int sw_cell_batch_launch(const void* tiles, const void* queries,
                          const void* rows, const void* mat, int A, int T,
@@ -782,14 +962,6 @@ int sw_cell_batch_launch(const void* tiles, const void* queries,
                          void* hs, void* fs, void* out, void* stream) {
   return batch_launch(sw_cell_batch_kernel, tiles, queries, rows, mat, A, T,
                       L, S, W, planes, gop, gex, hs, fs, out, stream);
-}
-
-int sw_col_flat_launch(const void* tiles, const void* queries,
-                       const void* rows, const void* mat, int A, int T, int L,
-                       int S, int W, int planes, int gop, int gex, void* hs,
-                       void* fs, void* out, void* stream) {
-  return batch_launch(sw_col_flat_kernel, tiles, queries, rows, mat, A, T, L,
-                      S, W, planes, gop, gex, hs, fs, out, stream);
 }
 
 int sw_col_fused_launch(const void* tiles, const void* queries,
@@ -801,9 +973,61 @@ int sw_col_fused_launch(const void* tiles, const void* queries,
                       S, W, planes, gop, gex, hs, fs, out, stream);
 }
 
+// The col launch has a signature of its own.  tiles: int8 [T, L, 32, 128];
+// queries: int32 [S, W].  With rows non-null it launches col flat (B5):
+// rows, offs are int32 [S], the slots' row counts and the first rows of
+// their boundary columns in a pool of rtot rows, with no carry, exact
+// only.  With rows null it launches col (B3): one slot of W = rtot rows,
+// offs null, and hin, fin (the int32 carry in) and hout, fout (the int32
+// carry out), each shaped as the tiles or null, in pairs; sat as above.
+// th, te: the boundary columns [T * 4096, rtot], int32 (int16 when
+// sat > 0), null allowed when L <= sw_col_pass_columns(); out: f32
+// [S, T, 4096].
+int sw_col_launch(const void* tiles, const void* queries, const void* rows,
+                  const void* offs, const void* mat, int A, int T, int L,
+                  int S, int W, int rtot, int gop, int gex, const void* hin,
+                  const void* fin, void* hout, void* fout, void* th, void* te,
+                  void* out, int sat, void* stream) {
+  const bool flat = rows != nullptr;
+  const bool carry_ok = !hin == !fin && !hout == !fout;
+  const bool slots_ok =
+      flat ? offs && !hin && !hout && !sat && W <= rtot
+           : !offs && S == 1 && W == rtot;
+  if (!carry_ok || !slots_ok || !sat_ok(sat) || S < 1 || S > 65535 ||
+      W < 0 || (L > kColPass && rtot > 0 && !(th && te))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T == 0) return 0;
+  const dim3 grid((unsigned)((long long)T * kCellNS / kColWarps), (unsigned)S);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (flat) {
+    sw_col_flat_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
+        (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
+        (int32_t*)th, (int32_t*)te, (float*)out);
+  } else if (sat) {
+    sw_col16_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)mat, A,
+        T, L, W, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
+        (int32_t*)hout, (int32_t*)fout, (int16_t*)th, (int16_t*)te,
+        (float*)out, sat);
+  } else {
+    sw_col_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)mat, A,
+        T, L, W, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
+        (int32_t*)hout, (int32_t*)fout, (int32_t*)th, (int32_t*)te,
+        (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Query rows per register block (kRows): the fused kernel's slot
 // boundaries must fall on multiples of it.
 int sw_kernel_rows() { return kRows; }
+
+// Subject columns per col pass: a col launch over L > this needs the
+// boundary columns.
+int sw_col_pass_columns() { return kColPass; }
 
 const char* sw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

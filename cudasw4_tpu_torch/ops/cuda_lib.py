@@ -31,24 +31,33 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: The launch functions of the single-query kernels, all with one
-#: signature: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hin, fin,
-#: hs, fs, out, sat, stream.  sat = 0 runs exact int32 state; sat > 0 the
-#: int16 mode (cell and col: ``sw_cell16_kernel``, ``sw_col16_kernel``).
+#: The launch functions of the cell and row kernels, with one signature:
+#: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hs, fs, out, sat,
+#: stream.  sat = 0 runs exact int32 state; sat > 0 the cell kernel's int16
+#: mode (``sw_cell16_kernel``).
 LAUNCHES = {
     "sw_cell_kernel": "sw_cell_launch",
     "sw_row_kernel": "sw_row_launch",
-    "sw_col_kernel": "sw_col_launch",
 }
-_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-#: The launch functions of the batch kernels, with a second signature:
-#: tiles, queries, rows, mat, A, T, L, S, W, planes, gop, gex, hs, fs, out, stream.
+_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
+#: The launch functions of the batch kernels on scratch planes, with a
+#: second signature: tiles, queries, rows, mat, A, T, L, S, W, planes, gop,
+#: gex, hs, fs, out, stream.
 BATCH_LAUNCHES = {
     "sw_cell_batch_kernel": "sw_cell_batch_launch",
-    "sw_col_flat_kernel": "sw_col_flat_launch",
     "sw_col_fused_kernel": "sw_col_fused_launch",
 }
 _BATCH_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#: The launch function of the col wavefront kernels (B3 in both state
+#: modes, B5; col flat when rows is non-null), with a fourth signature:
+#: tiles, queries, rows, offs, mat, A, T, L, S, W, rtot, gop, gex, hin,
+#: fin, hout, fout, th, te, out, sat, stream; th and te are the per-warp
+#: boundary columns (``launch_col``).
+COL_LAUNCHES = {
+    "sw_col_kernel": "sw_col_launch",
+    "sw_col_flat_kernel": "sw_col_launch",
+}
+_COL_SIGNATURE = [_P] * 5 + [_I] * 8 + [_P] * 7 + [_I, _P]
 #: The launch functions of the tool kernels (B7, B8), with a third
 #: signature: tiles, query, mat, A, T, L, nrows, gop, gex, sat, arg, hs,
 #: fs, out, stream; arg is the manual kernel's ring chunk columns or the
@@ -111,13 +120,15 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             for names, sig in ((LAUNCHES, _SIGNATURE), (BATCH_LAUNCHES, _BATCH_SIGNATURE),
+                               (COL_LAUNCHES, _COL_SIGNATURE),
                                (TOOL_LAUNCHES, _TOOL_SIGNATURE)):
                 for name in names.values():
                     fn = getattr(handle, name)
                     fn.argtypes = sig
                     fn.restype = ctypes.c_int
-            handle.sw_kernel_rows.argtypes = []
-            handle.sw_kernel_rows.restype = ctypes.c_int
+            for name in ("sw_kernel_rows", "sw_col_pass_columns"):
+                getattr(handle, name).argtypes = []
+                getattr(handle, name).restype = ctypes.c_int
             handle.sw_error_string.argtypes = [ctypes.c_int]
             handle.sw_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -181,7 +192,8 @@ def check_sat(sat: int) -> int:
     return sat
 
 
-def _query_rows(query, nrows: int, dev) -> None:
+def check_query_rows(query, nrows: int, dev) -> None:
+    """Validate a 1-D int32 query block on ``dev`` holding ``nrows`` rows."""
     require(query, "query", torch.int32, 1, dev)
     if not 0 <= nrows <= query.numel():
         raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
@@ -198,43 +210,101 @@ def _single_io(tiles, query, matrix_flat, params, sat: int, ndim: int):
     require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
     A = alphabet_dim(matrix_flat)
     nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    _query_rows(query, nrows, dev)
+    check_query_rows(query, nrows, dev)
     out = torch.empty((tiles.shape[0], math.prod(tiles.shape[2:])), dtype=torch.float32,
                       device=dev)
     hs = torch.empty(tiles.shape, dtype=torch.int16 if sat else torch.int32, device=dev)
     return A, nrows, gop, gex, out, hs, torch.empty_like(hs)
 
 
-def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, state_in=None, sat: int = 0):
+def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int = 0):
     """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
     and count the launch on the wrapper (``count``).
 
     Checks and allocates as ``_single_io``; raises if the launch reports an
-    error.  ``state_in``: int32 (hrow, frow) shaped as ``tiles``, the row
-    above the first query row.  Returns (scores, (hs, fs)): after the
-    kernel the scratch holds the last query row's H and F.  Never
-    synchronises.
+    error.  Returns the scores.  Never synchronises.
     """
     dev = tiles.device
     A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat,
                                                  tiles.dim())
-    hin = fin = None
-    if state_in is not None:
-        for name, t in zip(("hrow", "frow"), state_in):
-            require(t, name, torch.int32, tiles.dim(), dev)
-            if t.shape != tiles.shape:
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
-        hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
     T, L = tiles.shape[0], tiles.shape[1]
     with torch.cuda.device(dev):
         code = getattr(lib(), LAUNCHES[kernel])(
             tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, out.shape[1], nrows, gop, gex, hin, fin,
+            A, T, L, out.shape[1], nrows, gop, gex,
             hs.data_ptr(), fs.data_ptr(), out.data_ptr(), sat, stream_handle(dev),
         )
     check_launch(code, kernel)
     count(wrapper, not sat)
-    return out, (hs, fs)
+    return out
+
+
+def col_boundary_bytes(T: int, rows: int, sat: int = 0) -> int:
+    """Device bytes of a col launch's boundary columns: H and E for each of
+    the T x 4096 warps' ``rows`` pool rows, int32 (int16 under ``sat``)."""
+    return 2 * T * 4096 * rows * (2 if sat else 4)
+
+
+def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex: int,
+               slots=None, state_in=None, emit_state: bool = False, sat: int = 0):
+    """Launch the col kernel ``kernel`` (a key of COL_LAUNCHES) on the
+    tiles' device and stream, and count the launch on the wrapper
+    (``count``).
+
+    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].  ``slots``:
+    None for the col kernel (one slot running all W rows), or host ints
+    (rows, offs, rtot) for col flat: slot s runs rows[s] rows, its boundary
+    columns at pool rows offs[s] .. of rtot.  ``state_in``: int32 (hrow,
+    frow) shaped as ``tiles``, the row above the first query row;
+    ``emit_state``: also return the last row's (H, F), int32 (clamped at
+    ``sat`` under int16 state).  Allocates the f32 scores [S, T, 4096] and,
+    when L spans more than one pass, the boundary columns
+    (``col_boundary_bytes``); raises if the launch reports an error.
+    Returns (scores, (hout, fout) or None).  Never synchronises.
+    """
+    dev = tiles.device
+    require(tiles, "tiles", torch.int8, 4, dev)
+    require(queries, "queries", torch.int32, 2, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    T, L = tiles.shape[0], tiles.shape[1]
+    S, W = queries.shape
+    rows_dev = offs_dev = None
+    rtot = W
+    if slots is not None:
+        rows, offs, rtot = slots
+        rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
+        offs_dev = to_device(np.asarray(offs, dtype=np.int32), dev)
+    hin = fin = None
+    if state_in is not None:
+        for name, t in zip(("hrow", "frow"), state_in):
+            require(t, name, torch.int32, 4, dev)
+            if t.shape != tiles.shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
+        hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
+    out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
+    state = None
+    if emit_state:
+        state = (torch.empty(tiles.shape, dtype=torch.int32, device=dev),
+                 torch.empty(tiles.shape, dtype=torch.int32, device=dev))
+    th = te = None
+    if L > lib().sw_col_pass_columns() and rtot > 0:
+        th = torch.empty((T * 4096, rtot), dtype=torch.int16 if sat else torch.int32, device=dev)
+        te = torch.empty_like(th)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        code = getattr(lib(), COL_LAUNCHES[kernel])(
+            tiles.data_ptr(), queries.data_ptr(), ptr(rows_dev), ptr(offs_dev),
+            matrix_flat.data_ptr(), A, T, L, S, W, rtot, gop, gex, hin, fin,
+            *(ptr(t) for t in state or (None, None)), ptr(th), ptr(te), out.data_ptr(), sat,
+            stream_handle(dev),
+        )
+    check_launch(code, kernel)
+    count(wrapper, not sat)
+    return out, state
 
 
 def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int, arg: int):
@@ -267,7 +337,7 @@ def launch_batch(wrapper, kernel: str, tiles, queries, rows, matrix_flat,
     tiles' device and stream, and count the launch on ``wrapper.launches``.
 
     ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W]; ``rows``:
-    host ints, the slots' row counts (cell batch, col flat) or the slots'
+    host ints, the slots' row counts (cell batch) or the slots'
     first rows and the total (col fused), copied to the device without
     blocking.  Allocates the f32 scores [S, T, 4096] and ``planes`` int32
     H/F scratch planes shaped as ``tiles``; raises if the launch reports an

@@ -94,7 +94,7 @@ def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
         cuda_lib.count(score_bucket_cell, exact, plain=True)
         return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
     return cuda_lib.launch(score_bucket_cell, "sw_cell_kernel", tiles, query, matrix_flat,
-                           params, sat=sat_state(exact) or 0)[0]
+                           params, sat=sat_state(exact) or 0)
 
 
 score_bucket_cell.launches = score_bucket_cell.launches16 = 0

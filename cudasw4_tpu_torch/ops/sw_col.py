@@ -47,8 +47,9 @@ FLAT_QUANT = 128
 COL_FUSE_MIN_S = int(os.environ.get("CUDASW4_TPU_TORCH_COL_FUSE_MIN_S", 0))
 
 #: Device-memory budget for one tile group's carry state (bottom-row H and
-#: F, 8 bytes per tile char).  Buckets whose carry would exceed it run the
-#: query-chunk loop one tile group at a time.
+#: F, 8 bytes per tile char) and the col kernel's boundary columns (H and E
+#: of each subject per query row).  Buckets whose state would exceed it run
+#: the query-chunk loop one tile group at a time (``col_group_tiles``).
 COL_CARRY_TEMP_BYTES = 1 << 30
 
 
@@ -101,12 +102,13 @@ def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
         cuda_lib.count(score_bucket_col, exact, plain=True)
         return score_bucket_col_plain(tiles, query, matrix_flat, params, state_in, emit_state,
                                       exact)
-    out, state = cuda_lib.launch(score_bucket_col, "sw_col_kernel", tiles, query,
-                                 matrix_flat, params, state_in,
-                                 sat=sw_cell.sat_state(exact) or 0)
-    if not emit_state:
-        return out
-    return out, tuple(s.to(torch.int32) for s in state)  # int16 scratch widens
+    nq_pad, gop, gex = _params(params)
+    cuda_lib.check_query_rows(query, nq_pad, tiles.device)
+    out, state = cuda_lib.launch_col(
+        score_bucket_col, "sw_col_kernel", tiles, query[:nq_pad].view(1, nq_pad), matrix_flat,
+        gop, gex, state_in=state_in, emit_state=emit_state, sat=sw_cell.sat_state(exact) or 0,
+    )
+    return (out[0], state) if emit_state else out[0]
 
 
 score_bucket_col.launches = score_bucket_col.launches16 = 0
@@ -130,13 +132,27 @@ def pad_query_chunk(codes, unroll: int | None = None, pad: int | None = None):
     return qpad, padded_rows(nq, unroll)
 
 
+def col_group_tiles(T: int, L: int, rows: int, nchunks: int, budget: int,
+                    exact: bool = True) -> int:
+    """Tiles per group of ``score_bucket_col_any_query``: all T for a
+    single chunk; else as many as keep one group's device state within
+    ``budget``: its carry (H and F, 8 bytes a tile char) and the col
+    kernel's boundary columns (H and E of each subject for ``rows`` query
+    rows, int32, int16 when not ``exact``).  At least one."""
+    if nchunks == 1:
+        return max(1, T)
+    per_tile = 8 * L * G * NSL + cuda_lib.col_boundary_bytes(1, rows, 0 if exact else 1)
+    return max(1, min(T, budget // per_tile))
+
+
 def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
                                unroll: int | None = None, pad: int | None = None,
                                temp_bytes: int | None = None, exact: bool = True):
     """Score a col bucket against a query of any length: NQC-row chunks
-    with the H/F carry between them, tiles in groups whose carry fits
-    ``temp_bytes`` (default COL_CARRY_TEMP_BYTES); ``exact=False`` runs
-    every chunk with int16 state.
+    with the H/F carry between them, tiles in groups whose carry and
+    boundary columns fit ``temp_bytes`` (default COL_CARRY_TEMP_BYTES;
+    ``col_group_tiles``); ``exact=False`` runs every chunk with int16
+    state.
 
     ``codes``: encoded query (host array).  Returns f32 [T, 4096] on the
     tiles' device.  Each group runs its whole chunk loop before the next
@@ -152,10 +168,9 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
         qpad, nq_pad = pad_query_chunk(chunk, unroll, pad=pad)
         qps.append((cuda_lib.to_device(qpad, dev), (nq_pad, gop, gex, 0)))
 
-    T, L, g, nsl = tiles.shape
+    T, L = tiles.shape[0], tiles.shape[1]
     budget = COL_CARRY_TEMP_BYTES if temp_bytes is None else temp_bytes
-    per_tile_state = 2 * L * g * nsl * 4
-    tc = max(1, T) if len(chunks) == 1 else max(1, min(T, budget // per_tile_state))
+    tc = col_group_tiles(T, L, max(p[1][0] for p in qps), len(chunks), budget, exact)
     parts = []
     for t0 in range(0, T, tc):
         sub = tiles[t0 : t0 + tc]
@@ -239,10 +254,10 @@ def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None):
     if tiles.device.type == "cpu":
         score_bucket_col_flat.plain_calls += 1
         return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
-    return cuda_lib.launch_batch(
-        score_bucket_col_flat, "sw_col_flat_kernel", tiles, queries, nqps, matrix_flat,
-        int(params[1]), int(params[2]), cuda_lib.scratch_planes(tiles, len(nqps)),
-    )
+    return cuda_lib.launch_col(
+        score_bucket_col_flat, "sw_col_flat_kernel", tiles, queries, matrix_flat,
+        int(params[1]), int(params[2]), slots=(nqps, offs, rtot),
+    )[0]
 
 
 score_bucket_col_flat.launches = 0

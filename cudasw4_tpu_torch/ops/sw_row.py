@@ -37,7 +37,7 @@ def score_bucket_row(tiles, query, matrix_flat, params):
     if tiles.device.type == "cpu":
         score_bucket_row.plain_calls += 1
         return score_bucket_row_plain(tiles, query, matrix_flat, params)
-    return cuda_lib.launch(score_bucket_row, "sw_row_kernel", tiles, query, matrix_flat, params)[0]
+    return cuda_lib.launch(score_bucket_row, "sw_row_kernel", tiles, query, matrix_flat, params)
 
 
 score_bucket_row.launches = 0

@@ -5,8 +5,9 @@ in turns.
 
 Each round runs A, B, B, A, every run in a fresh process that builds its
 checkout's kernels (``cuda_lib.lib()``) and times the cell, row and col
-kernels on the same seeded inputs (and the batch kernels, where the
-checkout has them): CUDA events, the mean of 5 launches after one warm-up.  Prints one JSON line per run, with the card's name and
+kernels (col also in int16 state) on the same seeded inputs, and the
+batch kernels: CUDA events, the mean of 5 launches after one warm-up.
+Prints one JSON line per run, with the card's name and
 power limit, then a summary line with each kernel's median per checkout.
 Needs CUDA.
 """
@@ -20,12 +21,15 @@ import subprocess
 import sys
 
 #: (kernel, tiles shape, query rows): the main-path shapes of the
-#: Swiss-Prot-scale database's largest buckets with the 464-aa query, and
+#: Swiss-Prot-scale database's largest buckets with the 464-aa query, the
+#: top col bucket with the 144-aa query and in int16 state ("col16"), and
 #: one full col chunk.
 CASES = (
     ("cell", (12, 640, 32, 128), 464),
     ("row", (11, 48, 128), 464),
     ("col", (1, 5632, 32, 128), 464),
+    ("col", (1, 5632, 32, 128), 144),
+    ("col16", (1, 5632, 32, 128), 464),
     ("col", (2, 1024, 32, 128), 3072),
 )
 
@@ -52,15 +56,14 @@ def _child(tree: str) -> dict:
     out = {}
     for kind, shape, nq in CASES:
         t = _tiles(rng, shape, cfg.pad_code)
-        q = np.full(max(nq, 8192 if kind != "col" else 3072), cfg.pad_code, np.int32)
+        q = np.full(max(nq, 3072 if kind.startswith("col") else 8192), cfg.pad_code, np.int32)
         q[:nq] = rng.integers(0, 20, size=nq)
         q = torch.as_tensor(q).cuda()
         p = (nq, cfg.gop, cfg.gex, nq)
         fn = {"cell": sw_cell.score_bucket_cell, "row": sw_row.score_bucket_row,
-              "col": sw_col.score_bucket_col}[kind]
+              "col": sw_col.score_bucket_col,
+              "col16": lambda *a: sw_col.score_bucket_col(*a, exact=False)}[kind]
         out[f"{kind} {list(shape)} x{nq}"] = _ms(fn, t, q, m, p)
-    if not hasattr(sw_cell, "score_bucket_cell_batch"):
-        return out
     for name, shape, rows in (("cell_batch", (12, 640, 32, 128), BATCH14),
                               ("col_flat", (1, 5632, 32, 128), WIDEST_PASS[0]),
                               ("col_fused", (1, 5632, 32, 128), WIDEST_PASS[0])):

@@ -120,6 +120,81 @@ def test_col_kernel_carry_equals_plain(dev, mat):
     assert torch.equal(s3.cpu(), s2w)
 
 
+#: The col kernel's edges: (tiles shape, real rows of each query chunk).
+#: At its pass of 512 columns (cuda_lib.lib().sw_col_pass_columns()), L=128
+#: is one partial pass, L=1664 three full passes and a partial one (the
+#: carry over two chunks), and chunks of 8 and 3 rows run nq_pad = 8 over
+#: two full passes.
+COL_EDGES = [
+    ((1, 128, 32, 128), (13,)),
+    ((1, 1664, 32, 128), (40, 21)),
+    ((2, 1024, 32, 128), (8, 3)),
+]
+
+
+@pytest.mark.parametrize("sat", [None, 30])
+@pytest.mark.parametrize("case", range(len(COL_EDGES)))
+def test_col_kernel_edges_equal_plain(dev, monkeypatch, case, sat):
+    """The col wavefront at its edges against the plain version on the
+    card, chunk by chunk with the carry: exact state, scores and both
+    carried rows equal; int16 state at a lowered SAT, the scores so far
+    under the SAT rule and the carried rows equal on subjects below it."""
+    if sat is not None:
+        monkeypatch.setattr(sw_cell, "SAT", sat)
+    shape, lens = COL_EDGES[case]
+    rng = np.random.default_rng(30 + case)
+    cfg = make_scoring_config("blosum62_full" if case % 2 else "blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    t = torch.as_tensor(_tiles(rng, shape, pad, shape[0] * 4096 - 7, A)).to(dev)
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    exact = sat is None
+    st = st_w = st_x = best = None
+    for k, n in enumerate(lens):
+        nq_pad = max(8, -(-n // 8) * 8)
+        q = torch.as_tensor(_query(rng, n, nq_pad, pad, A)).to(dev)
+        p = (nq_pad, cfg.gop, cfg.gex, 0)
+        emit = k + 1 < len(lens)
+        kw = {"emit_state": emit, "exact": exact}
+        got = sw_col.score_bucket_col(t, q, m, p, state_in=st, take_init=st is not None, **kw)
+        want = sw_col.score_bucket_col_plain(t, q, m, p, state_in=st_w, **kw)
+        ex = sw_col.score_bucket_col_plain(t, q, m, p, state_in=st_x, emit_state=emit)
+        if emit:
+            (got, st), (want, st_w), (ex, st_x) = got, want, ex
+        step = (got, want, ex)
+        best = step if best is None else tuple(map(torch.maximum, best, step))
+        if exact:
+            assert torch.equal(got, want), f"chunk {k} scores"
+            assert not emit or all(torch.equal(a, b) for a, b in zip(st, st_w)), f"chunk {k} carry"
+            continue
+        assert bool(sw_cell.sat_match(best[0], best[1]).all()), f"chunk {k} vs plain int16"
+        assert bool(sw_cell.sat_match(best[0], best[2]).all()), f"chunk {k} vs exact"
+        if emit:
+            assert all(s.dtype == torch.int32 for s in st)
+            assert _sat_lanes_equal(st, [s.cpu() for s in st_w], best[2].cpu(), sat)
+
+
+def test_col_flat_unequal_slots_equal_plain(dev):
+    """B5 on one pass of slots of 8, 1000 and 3072 rows, each in its own
+    range of the boundary pool, over two full subject passes and a partial
+    one; the plain version runs on the card."""
+    from cudasw4_tpu_torch.ops import col_flat_plan
+
+    rng = np.random.default_rng(36)
+    lens = (8, 1000, 3072)
+    tiles, q, m, cfg = _batch_inputs(rng, "blosum62", (1, 1152, 32, 128), lens, 3072)
+    rtot = 128 + 1024 + 3072
+    (plan,) = col_flat_plan(lens, rtot=rtot)
+    offs = tuple(o for _, o in sorted(plan))
+    params = (0, cfg.gop, cfg.gex, 0, *lens)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    want = sw_col.score_bucket_col_flat_plain(t, qd, md, params)
+    before = sw_col.score_bucket_col_flat.launches
+    got = sw_col.score_bucket_col_flat(t, qd, md, params, offs, rtot=rtot)
+    torch.cuda.synchronize()
+    assert sw_col.score_bucket_col_flat.launches == before + 1
+    assert torch.equal(got, want)
+
+
 def test_col_any_query_tile_groups_match_oracle(dev, monkeypatch):
     """A query of three NQC chunks, one-tile groups, against the scalar
     oracle on a sample of subjects."""

@@ -162,6 +162,38 @@ def test_col_any_query_equals_pallas_any_query(col_geometry):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def test_col_group_tiles_counts_boundary_columns(col_geometry):
+    """The tile-group plan of score_bucket_col_any_query counts the col
+    kernel's boundary columns (H and E per subject and query row, int32,
+    int16 under int16 state) beside the carry: a budget of two tiles'
+    carry alone gives one-tile groups.  With it the scores still equal the
+    JAX package's, whose budget counts the carry alone (one group of two
+    tiles)."""
+    T, L, rows = 2, 32, 24
+    carry, cols = 8 * L * 4096, 8 * 4096 * rows
+    assert sw_col.col_group_tiles(T, L, rows, 1, 1) == T
+    assert sw_col.col_group_tiles(T, L, rows, 2, 1) == 1
+    assert sw_col.col_group_tiles(T, L, rows, 2, 2 * carry) == 1
+    assert sw_col.col_group_tiles(T, L, rows, 2, 2 * (carry + cols)) == 2
+    assert sw_col.col_group_tiles(T, L, rows, 2, 2 * carry + cols, exact=False) == 2
+    assert sw_col.col_group_tiles(T, L, rows, 2, 2 * carry + cols) == 1
+
+    rng = np.random.default_rng(27)
+    cfg = jax_scoring("blosum62_full")
+    tiles = _tiles(rng, (T, L, 32, 128), 25, T * 4096 - 9)
+    codes = rng.integers(0, 25, size=41).astype(np.int8)
+    m = _mat(cfg)
+    want = sw_pallas_col.score_bucket_col_any_query(
+        jnp.asarray(tiles), codes, jnp.asarray(m), cfg.gop, cfg.gex,
+        unroll=8, interpret=True, exact=True, pad=25, temp_bytes=2 * carry,
+    )
+    got = sw_col.score_bucket_col_any_query(
+        torch.as_tensor(tiles), codes, torch.as_tensor(m), cfg.gop, cfg.gex,
+        unroll=8, pad=25, temp_bytes=2 * carry,
+    )
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("nq", [1, 8, 13, 3072])
 @pytest.mark.parametrize("mat", MATS)
 def test_query_padding_equals_jax(mat, nq):
