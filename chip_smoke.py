@@ -18,9 +18,13 @@ non-zero:
    chunks with the int32 carry, and at its edges) against their plain
    versions and the exact
    scores under the SAT rule (``sw_cell.sat_match``), at the default SAT
-   and at one that most subjects reach; the manual-staging kernel (both
-   modes) and the pair kernel (P = 2, 4) against the cell kernel's plain
-   version, timed beside it.
+   and at one that most subjects reach; every (G, R) instance of the cell
+   kernels on one tile (CELL_LS: subjects of L, L - 1 and 1 residues,
+   empty lanes; nq = 1, 8, 9, 464; int16 under the SAT rule), B4 on
+   unequal slots with 0-row and 1-row ones (1, 3 and 14 slots), and B1
+   int16 with a matrix that s16x2 lanes cannot hold; the manual-staging
+   kernel (both modes) and the pair kernel (P = 2, 4) against the cell
+   kernel's plain version, timed beside it.
 3. golden:  the port's makedb and align --tsv --top 10 on the golden
    fixtures, byte for byte against golden_top10.tsv and
    golden_top10_full.tsv.
@@ -37,7 +41,9 @@ non-zero:
    3 (its counters show the fused kernel) gives the same scores; the
    batch and the singles are timed on the same queries; device time by
    kernel kind per ladder query and for the batch; and the card's idle
-   share over the 20-query scan from a torch.profiler trace.
+   share over the 20-query scan from a torch.profiler trace; every cell
+   bucket with the 464-aa query in both state modes (its (G, R), ms,
+   bound and share); the align's peak device memory.
 5. state16: align --dpx on the 20 queries (singles in int16 state), TSV
    equal to the exact run's; again with SAT lowered to the median top
    score, so that real tiles flag and are re-scored; a planted 3,100-W
@@ -389,10 +395,110 @@ def phase_kernels(clock_mhz):
         rows.append({"check": "B5 col flat, unequal slots", "mat": mat, "shape": list(shape),
                      "slot_rows": lens, "pool_offsets": list(offs), "rtot": rtot, "equal": True})
         phase_kernels_state16(mat, cfg, m, rng, rows)
+    phase_kernels_cell(rng, rows)
     phase_kernels_tools(rng, rows)
     for r in rows:
         emit({"phase": "kernels", **r})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
+
+
+#: Phase 2's cell lengths: every multiple of 16 up to CELL_MAX_L = 768
+#: (the 16-step edges, which hold the default ladder's cell lengths),
+#: which reach every (G, R) instance (G x R = L, or 16 more past 576); 37
+#: and 300 (G x R > L); and 896, past the largest instance (the col
+#: wavefront's passes).
+CELL_LS = (*range(16, 769, 16), 37, 300, 896)
+#: B4's slot cases in phase 2: one slot, three with a 0-row and a 1-row
+#: one, fourteen unequal ones; at these lengths.
+CELL_BATCH_SLOTS = ((37,), (0, 1, 200), (144, 0, 1, 9, 33, 64, 8, 100, 7, 1, 250, 16, 71, 0))
+CELL_BATCH_LS = (64, 256, 296, 640, 768, 896)
+
+
+def edge_lanes(t, pad, rng):
+    """In place on cell tiles on the card: lanes 0-5 of tile 0 hold
+    subjects of L, L - 1, 1, L, 1 and L - 1 residues (both halves of the
+    int16 kernel's subject pairs); the last 100 lanes are empty."""
+    x = t.view(t.shape[0], t.shape[1], 4096)
+    L = x.shape[1]
+    for lane, n in enumerate((L, L - 1, 1, L, 1, L - 1)):
+        x[0, :, lane] = torch.as_tensor(rng.integers(0, pad, size=L).astype(np.int8)).cuda()
+        x[0, n:, lane] = pad
+    x[-1, :, -100:] = pad
+
+
+def phase_kernels_cell(rng, rows):
+    """Every (G, R) instance of the cell kernels against the plain version
+    on one tile (CELL_LS): B1 at nq = 1, 8, 9 and 464, exact; B1 int16 at
+    464 rows under the SAT rule against the plain int16 and the exact
+    scores, at the default SAT and at one that most subjects reach; the
+    alphabet alternates by length, and the classic one takes the default
+    SAT and 464 rows at every length.  Then B4 on unequal slots
+    (CELL_BATCH_SLOTS x CELL_BATCH_LS, both alphabets), and B1 int16 with
+    a matrix whose scores no s16x2 lane could hold (the int32 routine)."""
+    from cudasw4_tpu_torch import make_scoring_config
+    from cudasw4_tpu_torch.ops import sw_cell
+
+    names = ("blosum62", "blosum62_full")
+    cfgs = [make_scoring_config(n) for n in names]
+    mats = [torch.as_tensor(c.matrix.astype(np.int32).reshape(-1)).cuda() for c in cfgs]
+    default = sw_cell.SAT
+    shapes, saturated = [], 0
+    for k, L in enumerate(CELL_LS):
+        for a in sorted({0, k % 2}):
+            cfg, m = cfgs[a], mats[a]
+            A, pad = cfg.alphabet_size, cfg.pad_code
+            t, _ = random_tiles(rng, (1, L, 32, 128), A, pad)
+            edge_lanes(t, pad, rng)
+            q = query_block(rng, 464, 512, A, pad)
+            for nq in (1, 8, 9, 464) if a == k % 2 else (464,):
+                p = (nq, cfg.gop, cfg.gex, -(-nq // 8) * 8)
+                want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+                check(torch.equal(sw_cell.score_bucket_cell(t, q, m, p), want),
+                      f"B1 L={L} {names[a]} nq={nq}: kernel != plain")
+            for sat in (default, lowered_sat(want)) if a == k % 2 else (default,):
+                sw_cell.SAT = sat
+                try:
+                    got = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+                    check_sat_rule(f"B1 int16 L={L} {names[a]}", got,
+                                   sw_cell.score_bucket_cell_plain(t, q, m, p, exact=False), sat)
+                    check_sat_rule(f"B1 int16 L={L} {names[a]} vs exact", got, want, sat)
+                finally:
+                    sw_cell.SAT = default
+                saturated += int((want >= sat).sum())
+        shapes.append([L, *(sw_cell.cell_shape(L) or ("col", "passes"))])
+    rows.append({"check": "B1 cell and B1 int16, every (G, R) instance", "shapes": shapes,
+                 "nq": [1, 8, 9, 464], "equal": True, "sat_rule": True,
+                 "saturated_at_lowered_sat": saturated})
+    for a, cfg in enumerate(cfgs):
+        A, pad = cfg.alphabet_size, cfg.pad_code
+        for L in CELL_BATCH_LS:
+            t, _ = random_tiles(rng, (2, L, 32, 128), A, pad)
+            edge_lanes(t, pad, rng)
+            for lens in CELL_BATCH_SLOTS:
+                qs = torch.stack([query_block(rng, n, 256, A, pad) for n in lens])
+                p = (0, cfg.gop, cfg.gex, 0, *lens)
+                got = sw_cell.score_bucket_cell_batch(t, qs, mats[a], p)
+                check(torch.equal(got, sw_cell.score_bucket_cell_batch_plain(t, qs, mats[a], p)),
+                      f"B4 L={L} {names[a]} slots {lens}: kernel != plain")
+        rows.append({"check": "B4 cell batch, unequal slots", "mat": names[a],
+                     "L": list(CELL_BATCH_LS), "slot_rows": [list(x) for x in CELL_BATCH_SLOTS],
+                     "equal": True})
+    cfg = cfgs[0]
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    t, _ = random_tiles(rng, (1, 64, 32, 128), A, pad)
+    q = query_block(rng, 9, 64, A, pad)
+    t.view(64, 4096)[:9, 0] = q[:9].to(torch.int8)  # subject 0 holds the query
+    m = mats[0] * 1000
+    p = (9, cfg.gop, cfg.gex, 16)
+    want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+    check(int(want.max()) > 32767, "the scaled matrix does not pass the int16 range")
+    got = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+    check_sat_rule("B1 int16 with an unproven fit", got, want, default)
+    check_sat_rule("B1 int16 with an unproven fit, vs plain int16", got,
+                   sw_cell.score_bucket_cell_plain(t, q, m, p, exact=False), default)
+    rows.append({"check": "B1 int16, unproven fit (blosum62 x 1000): the int32 routine",
+                 "max_score": int(want.max()), "sat_rule": True,
+                 "equal_to_exact": bool(torch.equal(got, want))})
 
 
 def lowered_sat(scores) -> int:
@@ -834,9 +940,11 @@ def phase_sprot(clock_mhz):
             ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw))
             pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p, **kw), reps=1)
             # int16 state: its launches come from the align --dpx run.
+            extra = ({"cell_shape": list(sw_cell.cell_shape(t.shape[1])), "scratch_bytes": 0}
+                     if kind == "cell" else {})
             kernel_row(kname if exact else kname.replace("_kernel", "16_kernel"), replaces,
                        counts[kind][0] if exact else None, tuple(t.shape), nrows, len(mid), i,
-                       a, b, ms, pms, state="int32" if exact else "int16")
+                       a, b, ms, pms, state="int32" if exact else "int16", **extra)
             if kind == "cell" and exact:
                 cell_args, cell_want, cell_pms = (i, t, q, p), b, pms
 
@@ -862,10 +970,9 @@ def phase_sprot(clock_mhz):
     a = sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params)
     b, pms = timed(lambda: sw_cell.score_bucket_cell_batch_plain(t, qdev, eng._matrix_flat, params))
     ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params))
-    planes = cuda_lib.scratch_planes(t, S)
     kernel_row("sw_cell_batch_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:343",
                counts["cell_batch"][0], tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a, b,
-               ms, pms, slots=S, scratch_planes=planes, scratch_bytes=planes * 8 * t.numel())
+               ms, pms, slots=S, cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
     del a, b
     widest = max(plan, key=len)
     idx = [slot for slot, _ in widest]
@@ -889,6 +996,21 @@ def phase_sprot(clock_mhz):
                 {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], qcap_b)})
         kernel_row(name, replaces, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b,
                    ms, pms, slots=len(idx), pass_offsets=list(offs), **temp)
+
+    # Every cell bucket with the 464-aa query, both state modes: its
+    # (G, R), time, bound and share of the bound.
+    cell_buckets = []
+    for k, (t, b) in enumerate(zip(eng._bucket_tiles, eng.packed.buckets)):
+        if b.kernel != "cell":
+            continue
+        line = {"L": b.L, "tiles": int(t.shape[0]), "cell_shape": list(sw_cell.cell_shape(b.L)),
+                "real_share": int(b.lengths.sum()) / t.numel()}
+        for exact, state in ((True, "int32"), (False, "int16")):
+            ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, qm, eng._matrix_flat, prm, exact=exact))
+            real = len(mid) * int(b.lengths.sum())
+            b_ms, _ = bound(real, t.numel() + 4 * len(mid) + 4 * t.shape[0] * 4096, clock_mhz, state)
+            line[state] = {"ms": ms, "bound_ms": b_ms, "share": b_ms / ms}
+        cell_buckets.append(line)
 
     # Where a query's device time goes: each bucket timed alone (CUDA
     # events), summed by kernel kind, per ladder query; and the batch's.
@@ -940,6 +1062,8 @@ def phase_sprot(clock_mhz):
         "batch14_col_share": batch_by_kind["col"] / sum(batch_by_kind.values()),
         "batch14_peak_device_bytes_above_db": batch_peak,
         "bucket_ms_by_kind": breakdown,
+        "cell_share_by_query": {n: v.get("cell", 0.0) / sum(v.values()) for n, v in breakdown.items()},
+        "cell_buckets_464": cell_buckets,
         "profiled_20_queries": profiled,
         "align_run_seconds": t_align, "makedb_seconds": t_makedb, "fasta_seconds": t_fasta,
         "align_peak_device_bytes": align_peak,

@@ -13,7 +13,7 @@
 //   score_bucket_pallas_cell (_sw_cell_kernel, _run_query_sweeps): one
 //   query against cell tiles [T, L, 32, 128], a pure reshape of
 //   [T, L, 4096].  Exact int32 state (sw_cell_kernel) or, with sat > 0,
-//   int16 state saturating at sat (sw_cell16_kernel).
+//   the int16 contract (sw_cell16_kernel, whose scores are exact).
 // * sw_row_launch replaces cudasw4_tpu/ops/sw_pallas.py score_bucket_pallas
 //   (_sw_kernel): one query against row tiles [T, L, NS], int32 only.
 // * sw_col_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
@@ -21,9 +21,10 @@
 //   cell layout at long L, with the optional int32 H/F carry in and out
 //   between query chunks; int32 state (sw_col_kernel) or int16
 //   (sw_col16_kernel).
-// * sw_cell_batch_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
-//   score_bucket_pallas_cell_batch (_sw_cell_batch_kernel): QB queries
-//   [QB, W] against cell tiles in one launch, out [QB, T, 4096].
+// * sw_cell_launch with rows non-null replaces
+//   cudasw4_tpu/ops/sw_pallas_cell.py score_bucket_pallas_cell_batch
+//   (_sw_cell_batch_kernel): QB queries [QB, W] against cell tiles in one
+//   launch, out [QB, T, 4096] (sw_cell_batch_kernel).
 // * sw_col_launch with slots (rows non-null) replaces
 //   cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
@@ -41,49 +42,67 @@
 // * sw_cell_pair_launch replaces tools/pairbench.py score_pair
 //   (_kernel_pair): B1's contract, exact, P consecutive tiles per block.
 //
-// Design of the cell, row, batch and tool kernels (simple and right
-// first; speed is later work).  One thread per subject: neighbouring
-// threads own neighbouring subjects, so each load of x[t, j, :] and of the
-// H/F row is coalesced.  The query streams in blocks of kRows rows; each
-// thread keeps E and H[i][j-1] of its kRows rows in registers and sweeps j
-// over the whole subject.  The H and F of the row above each block live in
-// a scratch row [T, L, NS] in device memory (read, then overwritten with
-// the block's bottom row), so neither the subject length nor the query
-// length is capped.  The substitution scores of a block's kRows rows sit
-// in shared memory as a query profile prof[c][r] = B[q_{i0+r}, c], one
-// 32-byte read per column.  Padded query rows and subject positions carry
-// the pad code, whose matrix row is all negative, so they never raise the
-// max.
+// The cell kernels (sw_cell_kernel, sw_cell16_kernel, sw_cell_batch_kernel)
+// are single-pass register-tiled group wavefronts, the shape of the
+// reference CUDASW++4.0's short-subject kernels.  A cell tile's L is at
+// most CELL_MAX_L = 768, so a group of G lanes (8, 16 or 32 of a warp)
+// holds a whole subject in registers: lane k keeps R consecutive columns
+// (code, H + gop and F of the row above), G x R >= L, picked per L from
+// the instances of CELL_SHAPES (ops/sw_cell.py cell_shape).  The query
+// streams through the group as through a col warp: lane k scores row i
+// at step i + k, taking H + gop and E of its left column from lane k - 1
+// by a width-G __shfl_up_sync and the value it took a step earlier as the
+// diagonal; lane 0's left column is the matrix edge.  There is no pass
+// boundary, no carry and no scratch: a cell kernel reads each tile byte
+// once and writes its scores.  Columns past L read the -inf column A of
+// the shifted table, so no column mask is needed.  The arithmetic is the
+// col kernel's (below): 5.5 DPX operations a cell plus one shared-memory
+// lookup.  B4 runs the same routine with slots on the grid's y axis, each
+// slot its own row count; B1 int16 runs two subjects a group in s16x2
+// lanes (the tile's subjects s and s + 1, one 16-bit load a column), with
+// __viaddmax_s16x2 and __vimax_s16x2_relu and one lookup a column pair in
+// a pairwise table [A][(A + 1)^2] of both shifted scores.  In a cell
+// bucket no H passes min(L, nq) x max B (11,520 at L = 768 and max B =
+// 15), so those lanes never wrap and the int16 scores are exact, which
+// meets the SAT rule at any SAT; where the launcher cannot prove the fit
+// for the matrix and gaps, the kernel runs the int32 routine.  Tiles with
+// L beyond the largest instance go to the col kernels (ops/sw_cell.py).
 //
-// int16 state (the JAX kernels' exact=False): the arithmetic stays int32
-// in registers; only the stored state is int16, and every store of it
-// clamps H, E and F at sat (<= 32767).  The TPU kernel clamps H after
-// each query row, which keeps its F below sat; here many cells live in
-// registers between stores, so an unclamped H can feed F and E, and those
-// are clamped too.  The contract holds per subject: a value is clamped
-// only where the cell's own H (>= its E and F) reached sat, and the
-// running max tracks the unclamped registers, so a subject whose true
-// score is below sat is exact, and one whose score reaches sat returns
-// >= sat.
+// The row, fused batch and tool kernels are the first slice's simple
+// design: one thread per subject, neighbouring threads owning neighbouring
+// subjects, so each load of x[t, j, :] and of the H/F row is coalesced.
+// The query streams in blocks of kRows rows; each thread keeps E and
+// H[i][j-1] of its kRows rows in registers and sweeps j over the whole
+// subject.  The H and F of the row above each block live in a scratch row
+// [T, L, NS] in device memory (read, then overwritten with the block's
+// bottom row), so neither the subject length nor the query length is
+// capped.  The substitution scores of a block's kRows rows sit in shared
+// memory as a query profile prof[c][r] = B[q_{i0+r}, c], one 32-byte read
+// per column.  Padded query rows and subject positions carry the pad code,
+// whose matrix row is all negative, so they never raise the max.
+//
+// int16 state (the JAX kernels' exact=False) in the manual-staging and col
+// kernels: the arithmetic stays int32 in registers; only the stored state
+// is int16, and every store of it clamps H, E and F at sat (<= 32767).
+// The TPU kernel clamps H after each query row, which keeps its F below
+// sat; here many cells live in registers between stores, so an unclamped
+// H can feed F and E, and those are clamped too.  The contract holds per
+// subject: a value is clamped only where the cell's own H (>= its E and
+// F) reached sat, and the running max tracks the unclamped registers, so
+// a subject whose true score is below sat is exact, and one whose score
+// reaches sat returns >= sat.
 //
 // Bound on the H100 SXM (3.35 TB/s; int32 at 132 SMs x 64 lanes x clock,
 // 16.7 Tops/s at 1.98 GHz): with the DPX instructions a cell update is 5.5
-// int32 operations (below), and the inputs are about one byte per subject
-// position, so every contract is bound by operations, by a factor of
-// ~nrows over bytes.  The one-thread-per-subject kernels move 16 bytes of
-// scratch per kRows cells besides (2 B/cell at kRows = 8; 1 B/cell with
-// int16 state), spend 11 operations a cell, and leave small buckets
-// without enough warps to hide latency.
-//
-// The batch kernels have the same bound: 5.5 operations per cell of every
-// slot, while the tiles are read once per call.  Cell batch puts slots on
-// the grid's y axis: blockIdx.y picks one of P scratch planes (P = slots,
-// capped by the wrapper's scratch budget) and scores slots y, y + P, ...
-// on it, so a launch fills P times the blocks of a single query and takes
-// P x 8 bytes per tile char of scratch (the top Swiss-Prot-scale cell
-// bucket [12, 640, 32, 128]: 251.7 MB a plane).  The fused col kernel
-// walks its slots one after another on one plane: the blocks and scratch
-// of a single query, for S queries' rows.
+// int32 operations (below; two cells an operation in s16x2 lanes), and
+// the inputs are about one byte per subject position, so every contract
+// is bound by operations, by a factor of ~nrows over bytes.  The
+// one-thread-per-subject kernels move 16 bytes of scratch per kRows cells
+// besides (2 B/cell at kRows = 8; 1 B/cell with int16 state), spend 11
+// operations a cell, and leave small buckets without enough warps to hide
+// latency.  The fused col kernel walks its slots one after another on one
+// scratch plane: the blocks and scratch of a single query, for S queries'
+// rows.
 //
 // The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel)
 // are a warp per (slot, subject) register-tiled wavefront, the shape of
@@ -264,14 +283,12 @@ __device__ __forceinline__ void build_profile(const int32_t* __restrict__ q,
   __syncthreads();
 }
 
-// One block = kThreads subjects of one tile; the grid is flat over
-// (tile, subject block).  Writes out[t, s] = max H as float.  St: the
-// scratch rows' type (int16 saturates at sat).
-template <typename St>
+// B2: one block = kThreads subjects of one row tile; the grid is flat
+// over (tile, subject block).  Writes out[t, s] = max H as float.
 __device__ __forceinline__ void sw_tiles_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ query,
     const int32_t* __restrict__ mat, int A, int L, int NS, int nrows,
-    int gop, int gex, St* hs, St* fs, float* __restrict__ out, int sat) {
+    int gop, int gex, int32_t* hs, int32_t* fs, float* __restrict__ out) {
   __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
   __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
   const int blocks_per_tile = (NS + kThreads - 1) / kThreads;
@@ -290,8 +307,9 @@ __device__ __forceinline__ void sw_tiles_body(
     }
     __syncthreads();
     if (live) {
-      sweep_rows<St>(tiles + base, hs + base, fs + base, i0 == 0, hs + base,
-                     fs + base, prof, L, NS, nr, gop, gex, m, sat);
+      sweep_rows<int32_t>(tiles + base, hs + base, fs + base, i0 == 0,
+                          hs + base, fs + base, prof, L, NS, nr, gop, gex, m,
+                          0);
     }
   }
   if (live) out[(size_t)t * NS + s] = (float)m;
@@ -312,9 +330,10 @@ __device__ __forceinline__ void run_rows(
                       gex, m, 0);
 }
 
-// Batch bodies over cell-layout tiles [T, L, 4096] and a query block
-// [S, W]; out is [S, T, 4096].  A block owns kThreads subjects of one tile
-// (blockIdx.x) and one H/F scratch plane (blockIdx.y) of [T, L, 4096].
+// The fused batch body over cell-layout tiles [T, L, 4096] and a query
+// block [S, W]; out is [S, T, 4096].  A block owns kThreads subjects of
+// one tile (blockIdx.x) and an H/F scratch plane of [T, L, 4096]
+// (blockIdx.y, which the fused launch keeps at 0: one plane).
 constexpr int kCellNS = 4096;
 
 struct BatchBlock {
@@ -334,32 +353,6 @@ __device__ __forceinline__ BatchBlock batch_block(int T, int L, int32_t* hs,
   b.h = hs + plane + b.base;
   b.f = fs + plane + b.base;
   return b;
-}
-
-// B4: slot q runs its nrows[q] rows from the top of the DP matrix.
-// The block scores slots blockIdx.y, blockIdx.y + gridDim.y, ... one after
-// another on its plane, so a launch of P planes fills P times the blocks of
-// a single-query launch and takes P scratch planes.
-__device__ __forceinline__ void sw_batch_body(
-    const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
-    const int32_t* __restrict__ nrows, const int32_t* __restrict__ mat,
-    int A, int T, int L, int S, int W, int gop, int gex, int32_t* hs,
-    int32_t* fs, float* __restrict__ out) {
-  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
-  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
-  const BatchBlock b = batch_block(T, L, hs, fs);
-  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
-  for (int q = blockIdx.y; q < S; q += gridDim.y) {
-    const int32_t* qrow = queries + (size_t)q * W;
-    const int n = nrows[q];
-    int m = 0;
-    for (int i0 = 0; i0 < n; i0 += kRows) {
-      run_rows(qrow + i0, min(kRows, n - i0), smat, prof, A, true,
-               tiles + b.base, b.h, b.f, i0 == 0, b.h, b.f, L, kCellNS, gop,
-               gex, m);
-    }
-    out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
-  }
 }
 
 // B6: one scratch plane; the block walks the slots' rows concatenated
@@ -396,28 +389,11 @@ __device__ __forceinline__ void sw_fused_body(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) sw_cell_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
-    float* out) {
-  sw_tiles_body<int32_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hs,
-                         fs, out, 0);
-}
-
-__global__ void __launch_bounds__(kThreads) sw_cell16_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, int16_t* hs, int16_t* fs, float* out,
-    int sat) {
-  sw_tiles_body<int16_t>(tiles, query, mat, A, L, 4096, nrows, gop, gex, hs,
-                         fs, out, sat);
-}
-
 __global__ void __launch_bounds__(kThreads) sw_row_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int L, int NS, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
     float* out) {
-  sw_tiles_body<int32_t>(tiles, query, mat, A, L, NS, nrows, gop, gex, hs, fs,
-                         out, 0);
+  sw_tiles_body(tiles, query, mat, A, L, NS, nrows, gop, gex, hs, fs, out);
 }
 
 // ------------------------------------ B3 and B5: the col wavefront
@@ -840,14 +816,6 @@ unsigned grid_for(int T, int NS) {
 // sat: 0 for exact int32 state, else the int16 state's ceiling.
 bool sat_ok(int sat) { return sat >= 0 && sat <= 32767; }
 
-__global__ void __launch_bounds__(kThreads) sw_cell_batch_kernel(
-    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
-    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
-    int32_t* hs, int32_t* fs, float* out) {
-  sw_batch_body(tiles, queries, nrows, mat, A, T, L, S, W, gop, gex, hs, fs,
-                out);
-}
-
 __global__ void __launch_bounds__(kThreads) sw_col_fused_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* starts,
     const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
@@ -856,23 +824,313 @@ __global__ void __launch_bounds__(kThreads) sw_col_fused_kernel(
                 out);
 }
 
-typedef void (*BatchKernel)(const int8_t*, const int32_t*, const int32_t*,
-                            const int32_t*, int, int, int, int, int, int, int,
-                            int32_t*, int32_t*, float*);
+// ----------------------------- B1 and B4: the single-pass cell wavefront
 
-int batch_launch(BatchKernel kernel, const void* tiles, const void* queries,
-                 const void* rows, const void* mat, int A, int T, int L,
-                 int S, int W, int planes, int gop, int gex, void* hs,
-                 void* fs, void* out, void* stream) {
-  if (T == 0 || S == 0) return 0;
-  if (planes < 1 || planes > S || planes > 65535) {
-    return (int)cudaErrorInvalidValue;
+// The (G, R) instances of the cell kernels: a group of G lanes scores one
+// subject (int32 lanes) or two (s16x2 lanes), lane k holding the subject
+// columns [k R, k R + R).  ops/sw_cell.py CELL_SHAPES is the table that
+// picks one for each L (the least G x R >= L, then the least G); the two
+// lists agree (a CUDA test reads this one through sw_cell_shapes).  G = 8
+// up to L = 256, G = 16 up to 576, G = 32 above: every multiple of 16 up
+// to 768 is G x R, or 16 short of it past 576.  Chosen on the H100 with
+// kernel_ab.py (PERF.md): at L = 320-576, G = 16 with twice the registers
+// a lane ran 4-8% faster than G = 32 (a shorter fill and drain of the
+// wavefront, half the per-step overhead a cell); at L = 128-256, G = 8 as
+// fast as or faster than 16 and 32; a one-tile bucket at L = 64 gains a
+// little from larger groups (more threads).  Past R = 36 an instance
+// needs more than 168 registers (cell_min_blocks), two blocks an SM
+// without spills, and at L = 640, G = 32 (R = 20) ran 5% faster than
+// G = 16 (R = 40).
+#define CELL_SHAPES(X)                                                    \
+  X(8, 2) X(8, 4) X(8, 6) X(8, 8) X(8, 10) X(8, 12) X(8, 14) X(8, 16)     \
+  X(8, 18) X(8, 20) X(8, 22) X(8, 24) X(8, 26) X(8, 28) X(8, 30)          \
+  X(8, 32) X(16, 17) X(16, 18) X(16, 19) X(16, 20) X(16, 21) X(16, 22)    \
+  X(16, 23) X(16, 24) X(16, 25) X(16, 26) X(16, 27) X(16, 28) X(16, 29)   \
+  X(16, 30) X(16, 31) X(16, 32) X(16, 33) X(16, 34) X(16, 35) X(16, 36)   \
+  X(32, 19) X(32, 20) X(32, 21) X(32, 22) X(32, 23) X(32, 24)
+
+constexpr int kCellThreads = 128;  // threads a block of the cell kernels
+// Blocks an SM that an instance's registers must allow: its state is 3 R
+// registers (code, H + gop and F of the row above), and ptxas took up to
+// max(3 R + 40, 4 R + 24) in all (-Xptxas -v).  Without a floor it spilled
+// a few bytes in some instances (72-96 registers) rather than take the
+// next register step; under a floor of 3 R + 40 it spilled at R = 39-42
+// (three blocks an SM, which ran 13% faster at R = 40 than two without
+// spills).
+template <int R>
+constexpr int cell_min_blocks() {
+  return 65536 / (kCellThreads * (((R < 16 ? 3 * R + 40 : 4 * R + 24) + 7) / 8 * 8));
+}
+// The -inf stand-in of s16x2 lanes: it survives adding a gap penalty.
+constexpr int kNeg16 = -(1 << 14);
+
+// The lane arithmetic of cell_group.  V: a lane's DP value; code(): the
+// column's code at byte offset o of the subject (the -inf column A past
+// L); sub(): the shifted substitution score of the column in the query
+// row's table row.
+//
+// Exact int32 lanes: one subject a group.
+struct LaneS32 {
+  using V = int;
+  static constexpr int kNegInf = kNeg;
+  __device__ static V splat(int v) { return v; }
+  __device__ static int code(const int8_t* x, size_t o, bool in, int A) {
+    return in ? x[o] : A;
   }
-  const dim3 grid(grid_for(T, kCellNS), (unsigned)planes);
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
-      (const int32_t*)mat, A, T, L, S, W, gop, gex, (int32_t*)hs,
-      (int32_t*)fs, (float*)out);
+  __device__ static V sub(const int* srow, int c) { return srow[c]; }
+  __device__ static V addmax(V a, V b, V c) { return __viaddmax_s32(a, b, c); }
+  __device__ static V cell(V dg, V sb, V e, V f) {
+    return __vimax3_s32_relu(dg + sb, e, f);
+  }
+  __device__ static V plus(V a, V b) { return a + b; }
+  __device__ static V vmax(V a, V b) { return max(a, b); }
+};
+
+// s16x2 lanes: the tile's subjects s (low halfword) and s + 1 (high) in
+// one value, two cells an operation.  A column's code is the index of its
+// code pair, c0 (A + 1) + c1, in the pairwise table, whose entries hold
+// both shifted scores: one lookup a column pair.  (Two lookups in the
+// [A][A + 1] table joined by a byte permute, with two codes a column in
+// registers, took 1.34 times as long at [12, 640] x 464; PERF.md.)
+struct LaneS16 {
+  using V = unsigned;
+  static constexpr int kNegInf = kNeg16;
+  __device__ static V splat(int v) { return ((unsigned)v & 0xffffu) * 0x10001u; }
+  __device__ static int code(const int8_t* x, size_t o, bool in, int A) {
+    if (!in) return A * (A + 1) + A;
+    const unsigned w = *reinterpret_cast<const uint16_t*>(x + o);
+    return (int)(w & 0xffu) * (A + 1) + (int)(w >> 8);
+  }
+  __device__ static V sub(const int* srow, int c) { return srow[c]; }
+  __device__ static V addmax(V a, V b, V c) { return __viaddmax_s16x2(a, b, c); }
+  __device__ static V cell(V dg, V sb, V e, V f) {
+    return __vimax_s16x2_relu(__viaddmax_s16x2(dg, sb, e), f);
+  }
+  // a + b, as max(a + b, -inf): the DPX add of s16x2 lanes.
+  __device__ static V plus(V a, V b) {
+    return __viaddmax_s16x2(a, b, splat(kNeg16));
+  }
+  __device__ static V vmax(V a, V b) { return __vimax_s16x2_relu(a, b); }
+};
+
+// The shifted substitution score B[q][c] - gop, neg in column A.
+__device__ __forceinline__ int shifted(const int32_t* __restrict__ mat, int A,
+                                       int q, int c, int gop, int neg) {
+  return c < A ? mat[q * A + c] - gop : neg;
+}
+
+// Fill tab, every thread of the block: [A][A + 1] shifted scores, or with
+// kPair the pairwise table [A][(A + 1)^2] of both halfwords.
+template <bool kPair>
+__device__ __forceinline__ void load_cell_table(
+    int* tab, const int32_t* __restrict__ mat, int A, int gop, int neg) {
+  const int A1 = A + 1, row = kPair ? A1 * A1 : A1;
+  for (int k = threadIdx.x; k < A * row; k += blockDim.x) {
+    const int q = k / row, c = k % row;
+    if (kPair) {
+      const unsigned lo = shifted(mat, A, q, c / A1, gop, neg);
+      const unsigned hi = shifted(mat, A, q, c % A1, gop, neg);
+      tab[k] = (int)((lo & 0xffffu) | (hi << 16));
+    } else {
+      tab[k] = shifted(mat, A, q, c, gop, neg);
+    }
+  }
+}
+
+// A group of G lanes sweeps query rows q[0, nrows) over one subject (x:
+// its codes, stride kCellNS; two subjects for s16x2 lanes) of L <= G x R
+// columns in one pass.  Lane k holds columns [k R, k R + R) in registers
+// (code, H + gop and F of the row above) and scores row i at step i + k,
+// taking H + gop and E of its left column from lane k - 1 with a width-G
+// shuffle and the value it took a step earlier as its diagonal; lane 0's
+// left column is the matrix edge (H = 0, E = -inf) at every row.  tab:
+// the substitution table, qstride entries a query code.  Returns the
+// group's max H, on every lane of the group.
+template <int G, int R, class P>
+__device__ __forceinline__ typename P::V cell_group(
+    const int8_t* __restrict__ x, int L, const int32_t* __restrict__ q,
+    int nrows, const int* tab, int qstride, int A, int gop, int gex) {
+  using V = typename P::V;
+  const int k = threadIdx.x & (G - 1);
+  const V vgop = P::splat(gop), vgex = P::splat(gex);
+  const V vneg = P::splat(P::kNegInf);
+  int c[R];
+  V hg[R], f[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = k * R + r;
+    c[r] = P::code(x, (size_t)j * kCellNS, j < L, A);
+    hg[r] = vgop;
+    f[r] = vneg;
+  }
+  V prev = vgop, oh = vgop, oe = vneg, m = P::splat(0);
+  int qc = k == 0 && nrows > 0 ? q[0] * qstride : 0;  // this row's tab row
+  for (int s = 0; s < nrows + G - 1; ++s) {
+    const int i = s - k;
+    V rh = __shfl_up_sync(kWarpAll, oh, 1, G);
+    V re = __shfl_up_sync(kWarpAll, oe, 1, G);
+    if (k == 0) {
+      rh = vgop;
+      re = vneg;
+    }
+    V dg = prev;
+    prev = rh;
+    const int qn =
+        (unsigned)(i + 1) < (unsigned)nrows ? q[i + 1] * qstride : 0;
+    if ((unsigned)i < (unsigned)nrows) {
+      const int* srow = tab + qc;
+      V e = re, hl = rh;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        e = P::addmax(e, vgex, hl);
+        f[r] = P::addmax(f[r], vgex, hg[r]);
+        const V h = P::cell(dg, P::sub(srow, c[r]), e, f[r]);
+        m = P::vmax(m, h);
+        dg = hg[r];
+        hl = P::plus(h, vgop);
+        hg[r] = hl;
+      }
+      oh = hl;
+      oe = e;
+    }
+    qc = qn;
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    m = P::vmax(m, __shfl_xor_sync(kWarpAll, m, o, G));
+  }
+  return m;
+}
+
+// B1 and B4: group g of the grid's x axis scores subject g % 4096 of tile
+// g / 4096 against query rows q[0, nrows), in int32 lanes; out: the
+// slot's scores [T, 4096].
+template <int G, int R>
+__device__ __forceinline__ void cell_body(
+    const int8_t* __restrict__ tiles, const int32_t* __restrict__ q,
+    int nrows, const int32_t* __restrict__ mat, int A, int L, int gop,
+    int gex, float* __restrict__ out) {
+  __shared__ int tab[kMaxAlphabet * (kMaxAlphabet + 1)];
+  load_cell_table<false>(tab, mat, A, gop, kNeg);
+  __syncthreads();
+  const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
+  const int m = cell_group<G, R, LaneS32>(
+      tiles + g / kCellNS * L * kCellNS + g % kCellNS, L, q, nrows, tab,
+      A + 1, A, gop, gex);
+  if ((threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
+}
+
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, float* out) {
+  cell_body<G, R>(tiles, query, nrows, mat, A, L, gop, gex, out);
+}
+
+// B4: slot blockIdx.y runs its nrows[slot] rows of queries[slot]; a slot
+// of 0 rows scores 0.
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell_batch_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
+    const int32_t* mat, int A, int T, int L, int W, int gop, int gex,
+    float* out) {
+  const int slot = blockIdx.y;
+  cell_body<G, R>(tiles, queries + (size_t)slot * W, nrows[slot], mat, A, L,
+                  gop, gex, out + (size_t)slot * T * kCellNS);
+}
+
+// B1 int16: group g scores the subject pair (2 (g % 2048), + 1) of tile
+// g / 2048 in s16x2 lanes.  In a cell bucket no H passes
+// min(L, nrows) x max B, so the lanes never wrap and the scores are exact
+// (which meets the SAT rule at any SAT).  bmax: the largest substitution
+// score for which the launcher proved that (cell16_bmax); a matrix with a
+// larger score, or one below -8192, runs the pair through the int32
+// routine, one subject after the other.  The dynamic shared memory holds
+// the pairwise table (40.7 KB at A = 21, 75.8 KB at A = 26), which is
+// larger than the int32 routine's.
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell16_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, int bmax, float* out) {
+  extern __shared__ int tab[];
+  int fits = 1;
+  for (int k = threadIdx.x; k < A * A; k += blockDim.x) {
+    fits &= mat[k] >= -8192 && mat[k] <= bmax;
+  }
+  fits = __syncthreads_and(fits);
+  if (fits) {
+    load_cell_table<true>(tab, mat, A, gop, kNeg16);
+  } else {
+    load_cell_table<false>(tab, mat, A, gop, kNeg);
+  }
+  __syncthreads();
+  const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
+  const size_t o = g / (kCellNS / 2) * kCellNS + g % (kCellNS / 2) * 2;
+  const int8_t* x = tiles + o / kCellNS * L * kCellNS + o % kCellNS;
+  int m0, m1;
+  if (fits) {
+    const unsigned m = cell_group<G, R, LaneS16>(
+        x, L, query, nrows, tab, (A + 1) * (A + 1), A, gop, gex);
+    m0 = (int16_t)(m & 0xffffu);
+    m1 = (int16_t)(m >> 16);
+  } else {
+    m0 = cell_group<G, R, LaneS32>(x, L, query, nrows, tab, A + 1, A, gop, gex);
+    m1 = cell_group<G, R, LaneS32>(x + 1, L, query, nrows, tab, A + 1, A, gop,
+                                   gex);
+  }
+  if ((threadIdx.x & (G - 1)) == 0) {
+    out[o] = (float)m0;
+    out[o + 1] = (float)m1;
+  }
+}
+
+// The largest substitution score with which s16x2 lanes cannot wrap: every
+// H is at most min(L, nrows) x max B <= 32767, and with gop, gex in
+// [-8192, 0] and every score >= -8192 no sum falls below -32768.  Below
+// -8192 (no matrix fits) when the gaps are out of that range.
+int cell16_bmax(int L, int nrows, int gop, int gex) {
+  if (gop > 0 || gex > 0 || gop < -8192 || gex < -8192) return -8193;
+  const int n = L < nrows ? L : nrows;
+  const int b = 32767 / (n > 1 ? n : 1);
+  return b < 16383 ? b : 16383;
+}
+
+struct CellArgs {
+  const int8_t* tiles;
+  const int32_t* queries;
+  const int32_t* rows;
+  const int32_t* mat;
+  int A, T, L, S, W, gop, gex, sat;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <int G, int R>
+int cell_launch_at(const CellArgs& a) {
+  const long long threads = (long long)a.T * kCellNS * G;
+  if (a.rows) {
+    const dim3 grid((unsigned)(threads / kCellThreads), (unsigned)a.S);
+    sw_cell_batch_kernel<G, R><<<grid, kCellThreads, 0, a.stream>>>(
+        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
+        a.out);
+  } else if (a.sat) {
+    const int A1 = a.A + 1, smem = a.A * A1 * A1 * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        sw_cell16_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    sw_cell16_kernel<G, R>
+        <<<(unsigned)(threads / 2 / kCellThreads), kCellThreads, smem,
+           a.stream>>>(a.tiles, a.queries, a.mat, a.A, a.L, a.W, a.gop,
+                       a.gex, cell16_bmax(a.L, a.W, a.gop, a.gex), a.out);
+  } else {
+    sw_cell_kernel<G, R>
+        <<<(unsigned)(threads / kCellThreads), kCellThreads, 0, a.stream>>>(
+            a.tiles, a.queries, a.mat, a.A, a.L, a.W, a.gop, a.gex, a.out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -880,31 +1138,55 @@ int batch_launch(BatchKernel kernel, const void* tiles, const void* queries,
 
 extern "C" {
 
-// The cell and row launches share one signature.  Each returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for arguments outside its contract: NS = 4096 for
-// cell tiles, and sat = 0 (exact int32 state) or 0 < sat <= 32767 (int16
-// state, cell only; hs and fs are then int16).  Pointers are device pointers; stream is a cudaStream_t.  Query
-// and tile codes must lie in [0, A), A <= 26.
-
-int sw_cell_launch(const void* tiles, const void* query, const void* mat,
-                   int A, int T, int L, int NS, int nrows, int gop, int gex,
-                   void* hs, void* fs, void* out, int sat, void* stream) {
-  if (NS != 4096 || !sat_ok(sat)) return (int)cudaErrorInvalidValue;
-  if (T == 0) return 0;
-  const unsigned grid = grid_for(T, 4096);
-  if (sat) {
-    sw_cell16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
-        L, nrows, gop, gex, (int16_t*)hs, (int16_t*)fs, (float*)out, sat);
-  } else {
-    sw_cell_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A,
-        L, nrows, gop, gex, (int32_t*)hs, (int32_t*)fs, (float*)out);
+// Each launch function returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for arguments outside its contract.
+// Pointers are device pointers; stream is a cudaStream_t.  Query and tile
+// codes must lie in [0, A), A <= 26; sat = 0 is exact int32 state, and
+// 0 < sat <= 32767 int16 state.
+//
+// The cell launch (B1 in both state modes, B4).  tiles: int8
+// [T, L, 32, 128]; queries: int32 [S, W]; out: f32 [S, T, 4096]; (G, R):
+// an instance of CELL_SHAPES with G x R >= L.  With rows null it launches
+// B1: one query of W rows (S = 1), sw_cell_kernel, or sw_cell16_kernel
+// for sat > 0.  With rows non-null it launches B4, sw_cell_batch_kernel:
+// rows int32 [S], the slots' row counts (each <= W), exact only.  No
+// scratch: the cell kernels keep the whole DP row in registers.
+int sw_cell_launch(const void* tiles, const void* queries, const void* rows,
+                   const void* mat, int A, int T, int L, int S, int W,
+                   int gop, int gex, int G, int R, int sat, void* out,
+                   void* stream) {
+  if (!sat_ok(sat) || (rows ? sat != 0 : S != 1) || S < 1 || S > 65535 ||
+      W < 0 || L < 0 || G * R < L) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (T == 0) return 0;
+  const CellArgs a{(const int8_t*)tiles, (const int32_t*)queries,
+                   (const int32_t*)rows, (const int32_t*)mat, A, T, L, S, W,
+                   gop, gex, sat, (float*)out, (cudaStream_t)stream};
+#define CELL_CASE(g, r) \
+  if (G == g && R == r) return cell_launch_at<g, r>(a);
+  CELL_SHAPES(CELL_CASE)
+#undef CELL_CASE
+  return (int)cudaErrorInvalidValue;  // not an instance
 }
 
+// The cell kernels' (G, R) instances: writes up to cap / 2 pairs to out
+// and returns their count.
+int sw_cell_shapes(int* out, int cap) {
+  int n = 0;
+#define CELL_PUT(g, r)      \
+  if (2 * n + 1 < cap) {    \
+    out[2 * n] = g;         \
+    out[2 * n + 1] = r;     \
+  }                         \
+  ++n;
+  CELL_SHAPES(CELL_PUT)
+#undef CELL_PUT
+  return n;
+}
+
+// The row launch: row tiles [T, L, NS], int32 scratch hs, fs shaped as
+// the tiles, out f32 [T, NS]; exact only.
 int sw_row_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
                   void* hs, void* fs, void* out, int sat, void* stream) {
@@ -950,27 +1232,21 @@ int sw_cell_pair_launch(const void* tiles, const void* query, const void* mat,
   return (int)cudaGetLastError();
 }
 
-// The two batch launches share a second signature.  tiles: int8
-// [T, L, 32, 128]; queries: int32 [S, W]; rows: int32, the slots' row
-// counts [S] (cell batch) or the slots' first rows and the total [S + 1]
-// (col fused); hs, fs: int32 scratch of planes x [T, L, 32, 128]; out:
-// f32 [S, T, 4096].  planes: 1..S, and 1 for the fused kernel.
-
-int sw_cell_batch_launch(const void* tiles, const void* queries,
-                         const void* rows, const void* mat, int A, int T,
-                         int L, int S, int W, int planes, int gop, int gex,
-                         void* hs, void* fs, void* out, void* stream) {
-  return batch_launch(sw_cell_batch_kernel, tiles, queries, rows, mat, A, T,
-                      L, S, W, planes, gop, gex, hs, fs, out, stream);
-}
-
+// The fused col launch (B6).  tiles: int8 [T, L, 32, 128]; queries: int32
+// [S, W]; starts: int32 [S + 1], the slots' first rows in one gapless run
+// and the total; hs, fs: one int32 scratch plane shaped as the tiles; out:
+// f32 [S, T, 4096].
 int sw_col_fused_launch(const void* tiles, const void* queries,
-                        const void* rows, const void* mat, int A, int T,
-                        int L, int S, int W, int planes, int gop, int gex,
-                        void* hs, void* fs, void* out, void* stream) {
-  if (planes != 1) return (int)cudaErrorInvalidValue;
-  return batch_launch(sw_col_fused_kernel, tiles, queries, rows, mat, A, T, L,
-                      S, W, planes, gop, gex, hs, fs, out, stream);
+                        const void* starts, const void* mat, int A, int T,
+                        int L, int S, int W, int gop, int gex, void* hs,
+                        void* fs, void* out, void* stream) {
+  if (T == 0 || S == 0) return 0;
+  sw_col_fused_kernel<<<grid_for(T, kCellNS), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)starts,
+      (const int32_t*)mat, A, T, L, S, W, gop, gex, (int32_t*)hs,
+      (int32_t*)fs, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 // The col launch has a signature of its own.  tiles: int8 [T, L, 32, 128];

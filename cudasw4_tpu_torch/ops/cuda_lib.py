@@ -31,23 +31,24 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: The launch functions of the cell and row kernels, with one signature:
-#: tiles, query, mat, A, T, L, NS, nrows, gop, gex, hs, fs, out, sat,
-#: stream.  sat = 0 runs exact int32 state; sat > 0 the cell kernel's int16
-#: mode (``sw_cell16_kernel``).
-LAUNCHES = {
-    "sw_cell_kernel": "sw_cell_launch",
-    "sw_row_kernel": "sw_row_launch",
-}
+#: The launch function of the row kernel, with one signature: tiles,
+#: query, mat, A, T, L, NS, nrows, gop, gex, hs, fs, out, sat, stream
+#: (sat must be 0: the row kernel is exact only).
+LAUNCHES = {"sw_row_kernel": "sw_row_launch"}
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
-#: The launch functions of the batch kernels on scratch planes, with a
-#: second signature: tiles, queries, rows, mat, A, T, L, S, W, planes, gop,
-#: gex, hs, fs, out, stream.
-BATCH_LAUNCHES = {
-    "sw_cell_batch_kernel": "sw_cell_batch_launch",
-    "sw_col_fused_kernel": "sw_col_fused_launch",
+#: The launch function of the cell group kernels (B1 in both state modes,
+#: B4), with a fifth signature: tiles, queries, rows, mat, A, T, L, S, W,
+#: gop, gex, G, R, sat, out, stream (``launch_cell``).
+CELL_LAUNCHES = {
+    "sw_cell_kernel": "sw_cell_launch",
+    "sw_cell_batch_kernel": "sw_cell_launch",
 }
-_BATCH_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
+#: The launch function of the fused col kernel on its one scratch plane,
+#: with a second signature: tiles, queries, starts, mat, A, T, L, S, W,
+#: gop, gex, hs, fs, out, stream.
+BATCH_LAUNCHES = {"sw_col_fused_kernel": "sw_col_fused_launch"}
+_BATCH_SIGNATURE = [_P] * 4 + [_I] * 7 + [_P] * 4
 #: The launch function of the col wavefront kernels (B3 in both state
 #: modes, B5; col flat when rows is non-null), with a fourth signature:
 #: tiles, queries, rows, offs, mat, A, T, L, S, W, rtot, gop, gex, hin,
@@ -67,11 +68,6 @@ TOOL_LAUNCHES = {
     "sw_pair_kernel": "sw_cell_pair_launch",
 }
 _TOOL_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
-
-#: Device-memory budget for the H/F scratch planes of one batch launch
-#: (8 bytes per tile char each); the plane count, and with it the blocks
-#: in flight, is capped to fit it.
-BATCH_SCRATCH_BYTES = 4 << 30
 
 _lock = threading.Lock()
 _lib = None
@@ -119,7 +115,8 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for names, sig in ((LAUNCHES, _SIGNATURE), (BATCH_LAUNCHES, _BATCH_SIGNATURE),
+            for names, sig in ((LAUNCHES, _SIGNATURE), (CELL_LAUNCHES, _CELL_SIGNATURE),
+                               (BATCH_LAUNCHES, _BATCH_SIGNATURE),
                                (COL_LAUNCHES, _COL_SIGNATURE),
                                (TOOL_LAUNCHES, _TOOL_SIGNATURE)):
                 for name in names.values():
@@ -129,6 +126,8 @@ def lib() -> ctypes.CDLL:
             for name in ("sw_kernel_rows", "sw_col_pass_columns"):
                 getattr(handle, name).argtypes = []
                 getattr(handle, name).restype = ctypes.c_int
+            handle.sw_cell_shapes.argtypes = [_P, _I]
+            handle.sw_cell_shapes.restype = ctypes.c_int
             handle.sw_error_string.argtypes = [ctypes.c_int]
             handle.sw_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -217,22 +216,67 @@ def _single_io(tiles, query, matrix_flat, params, sat: int, ndim: int):
     return A, nrows, gop, gex, out, hs, torch.empty_like(hs)
 
 
-def launch(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int = 0):
+def launch(wrapper, kernel: str, tiles, query, matrix_flat, params):
     """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
-    and count the launch on the wrapper (``count``).
+    and count the launch on ``wrapper.launches``.
 
     Checks and allocates as ``_single_io``; raises if the launch reports an
     error.  Returns the scores.  Never synchronises.
     """
     dev = tiles.device
-    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat,
+    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, 0,
                                                  tiles.dim())
     T, L = tiles.shape[0], tiles.shape[1]
     with torch.cuda.device(dev):
         code = getattr(lib(), LAUNCHES[kernel])(
             tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
             A, T, L, out.shape[1], nrows, gop, gex,
-            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), sat, stream_handle(dev),
+            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), 0, stream_handle(dev),
+        )
+    check_launch(code, kernel)
+    count(wrapper, True)
+    return out
+
+
+def cell_shapes() -> list[tuple[int, int]]:
+    """The (G, R) instances the kernel library was built with."""
+    buf = (ctypes.c_int * 256)()
+    n = lib().sw_cell_shapes(ctypes.cast(buf, ctypes.c_void_p), len(buf))
+    return [(buf[2 * k], buf[2 * k + 1]) for k in range(n)]
+
+
+def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex: int,
+                rows, shape, sat: int = 0):
+    """Launch the cell group kernel ``kernel`` (a key of CELL_LAUNCHES) at
+    the instance ``shape`` = (G, R) on the tiles' device and stream, and
+    count the launch on the wrapper (``count``).
+
+    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].
+    ``rows``: an int, the one query's rows (S = 1; sw_cell_kernel, or
+    sw_cell16_kernel for ``sat`` > 0), or host ints, the slots' row counts
+    (sw_cell_batch_kernel, exact), copied to the device without blocking.
+    Allocates only the f32 scores [S, T, 4096]: the kernels keep the DP in
+    registers.  Raises if the launch reports an error.  Never synchronises.
+    """
+    dev = tiles.device
+    require(tiles, "tiles", torch.int8, 4, dev)
+    require(queries, "queries", torch.int32, 2, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    T, L = tiles.shape[0], tiles.shape[1]
+    S, W = queries.shape
+    rows_dev = None
+    if isinstance(rows, int):
+        if S != 1 or rows != W:
+            raise ValueError(f"one query of {rows} rows, got a block of {tuple(queries.shape)}")
+    else:
+        rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
+    out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = getattr(lib(), CELL_LAUNCHES[kernel])(
+            tiles.data_ptr(), queries.data_ptr(),
+            None if rows_dev is None else rows_dev.data_ptr(), matrix_flat.data_ptr(),
+            A, T, L, S, W, gop, gex, *shape, sat, out.data_ptr(), stream_handle(dev),
         )
     check_launch(code, kernel)
     count(wrapper, not sat)
@@ -324,23 +368,15 @@ def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: in
     return out
 
 
-def scratch_planes(tiles: torch.Tensor, slots: int) -> int:
-    """H/F scratch planes for a batch launch of ``slots`` slots: one per
-    slot, as many as BATCH_SCRATCH_BYTES holds, at least one."""
-    per_plane = 8 * tiles.numel()
-    return max(1, min(slots, BATCH_SCRATCH_BYTES // max(1, per_plane)))
-
-
-def launch_batch(wrapper, kernel: str, tiles, queries, rows, matrix_flat,
-                 gop: int, gex: int, planes: int):
+def launch_batch(wrapper, kernel: str, tiles, queries, starts, matrix_flat,
+                 gop: int, gex: int):
     """Launch the batch kernel ``kernel`` (a key of BATCH_LAUNCHES) on the
     tiles' device and stream, and count the launch on ``wrapper.launches``.
 
-    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W]; ``rows``:
-    host ints, the slots' row counts (cell batch) or the slots'
-    first rows and the total (col fused), copied to the device without
-    blocking.  Allocates the f32 scores [S, T, 4096] and ``planes`` int32
-    H/F scratch planes shaped as ``tiles``; raises if the launch reports an
+    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W]; ``starts``:
+    host ints, the slots' first rows and the total, copied to the device
+    without blocking.  Allocates the f32 scores [S, T, 4096] and one int32
+    H/F scratch plane shaped as ``tiles``; raises if the launch reports an
     error.  Never synchronises.
     """
     dev = tiles.device
@@ -350,14 +386,14 @@ def launch_batch(wrapper, kernel: str, tiles, queries, rows, matrix_flat,
     A = alphabet_dim(matrix_flat)
     T, L = tiles.shape[0], tiles.shape[1]
     S, W = queries.shape
-    rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
+    starts_dev = to_device(np.asarray(starts, dtype=np.int32), dev)
     out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
-    hs = torch.empty((planes, *tiles.shape), dtype=torch.int32, device=dev)
+    hs = torch.empty(tiles.shape, dtype=torch.int32, device=dev)
     fs = torch.empty_like(hs)
     with torch.cuda.device(dev):
         code = getattr(lib(), BATCH_LAUNCHES[kernel])(
-            tiles.data_ptr(), queries.data_ptr(), rows_dev.data_ptr(),
-            matrix_flat.data_ptr(), A, T, L, S, W, planes, gop, gex,
+            tiles.data_ptr(), queries.data_ptr(), starts_dev.data_ptr(),
+            matrix_flat.data_ptr(), A, T, L, S, W, gop, gex,
             hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
         )
     check_launch(code, kernel)

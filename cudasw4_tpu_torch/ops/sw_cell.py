@@ -6,14 +6,21 @@ exact int32 or int16 state), the same with the tiles staged by hand
 
 The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
 ``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_tiles.cu (its
-note gives the design and the bound on the H100).  The wrappers launch
-them for CUDA tensors and take their plain versions only for CPU tensors.
+note gives the design and the bound on the H100).  The cell, int16 and
+batch kernels are single-pass group wavefronts, one instance per (G, R) of
+CELL_SHAPES, picked for the tiles' L by ``cell_shape``; tiles longer than
+the largest instance take the col wavefront's passes (``sw_col_kernel``,
+``sw_col16_kernel``, ``sw_col_flat_kernel``) on the same layout.  The
+wrappers launch them for CUDA tensors and take their plain versions only
+for CPU tensors.
 Each counts its launches and plain calls per mode (``launches`` and
 ``plain_calls`` for exact state, ``launches16`` and ``plain_calls16`` for
 int16 state).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -38,9 +45,30 @@ QCAP = 8192
 #: without col buckets (with them, the col kernel's NQC caps it).
 QCAP_BATCH = 8192
 
-#: Query-row granule: the register block of the kernel and the padding
-#: granule of the col kernel's row counts.
+#: Query-row granule: the JAX kernels' unroll, which the cell batch
+#: contract keeps (L a multiple of it), the padding granule of the col
+#: kernel's row counts, and the register block of the row kernel.
 DEFAULT_UNROLL = 8
+
+#: The (G, R) instances of the cell group kernels (csrc/sw_tiles.cu,
+#: CELL_SHAPES): a group of G lanes scores one subject (two in the int16
+#: kernel's s16x2 lanes), each lane holding R consecutive subject columns
+#: in registers.  G = 8 up to L = 256, G = 16 up to 576, G = 32 above
+#: (chosen on the H100, PERF.md): every multiple of 16 up to CELL_MAX_L =
+#: 768 is G x R of one of them, or 16 short of one past 576.
+CELL_SHAPES = (
+    *((8, r) for r in range(2, 33, 2)),
+    *((16, r) for r in range(17, 37)),
+    *((32, r) for r in range(19, 25)),
+)
+
+
+def cell_shape(L: int) -> tuple[int, int] | None:
+    """The (G, R) instance that scores cell tiles of L positions in one
+    pass: the least G x R >= L, then the least G.  None past the largest
+    instance (768 columns): such tiles take the col wavefront's passes."""
+    fits = [(g * r, g, r) for g, r in CELL_SHAPES if g * r >= L]
+    return min(fits)[1:] if fits else None
 
 
 #: Ring chunk of the manual-staging kernel, in subject positions: a stripe
@@ -86,15 +114,24 @@ def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
 
     ``tiles``: int8 [T, L, 32, 128]; ``query``: int32 [>= nq], padded with
     the pad code; ``matrix_flat``: int32 [A*A]; ``params``: host ints
-    (nq, gop, gex, _).  Codes must lie in [0, A).  ``exact=False``: int16
-    state saturating at SAT (see ``sat_match``).
+    (nq, gop, gex, _).  Codes must lie in [0, A).  ``exact=False``: the
+    int16 contract, saturating at SAT (see ``sat_match``); the card's
+    s16x2 kernel returns the exact scores, which meet it.
     """
     _cell_tiles(tiles)
     if tiles.device.type == "cpu":
         cuda_lib.count(score_bucket_cell, exact, plain=True)
         return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
-    return cuda_lib.launch(score_bucket_cell, "sw_cell_kernel", tiles, query, matrix_flat,
-                           params, sat=sat_state(exact) or 0)
+    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
+    cuda_lib.check_query_rows(query, nq, tiles.device)
+    sat = sat_state(exact) or 0
+    q = query[:nq].view(1, nq)
+    shape = cell_shape(tiles.shape[1])
+    if shape is None:
+        return cuda_lib.launch_col(score_bucket_cell, "sw_col_kernel", tiles, q, matrix_flat,
+                                   gop, gex, sat=sat)[0][0]
+    return cuda_lib.launch_cell(score_bucket_cell, "sw_cell_kernel", tiles, q, matrix_flat,
+                                gop, gex, nq, shape, sat)[0]
 
 
 score_bucket_cell.launches = score_bucket_cell.launches16 = 0
@@ -163,10 +200,15 @@ def score_bucket_cell_batch(tiles, queries, matrix_flat, params):
     if tiles.device.type == "cpu":
         score_bucket_cell_batch.plain_calls += 1
         return score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params)
-    return cuda_lib.launch_batch(
-        score_bucket_cell_batch, "sw_cell_batch_kernel", tiles, queries, nqs,
-        matrix_flat, int(params[1]), int(params[2]), cuda_lib.scratch_planes(tiles, QB),
-    )
+    gop, gex = int(params[1]), int(params[2])
+    shape = cell_shape(tiles.shape[1])
+    if shape is None:  # each slot's boundary columns in its own pool range
+        offs = list(itertools.accumulate(nqs, initial=0))[:-1]
+        slots = (nqs, offs, max(W, sum(nqs)))
+        return cuda_lib.launch_col(score_bucket_cell_batch, "sw_col_flat_kernel", tiles,
+                                   queries, matrix_flat, gop, gex, slots=slots)[0]
+    return cuda_lib.launch_cell(score_bucket_cell_batch, "sw_cell_batch_kernel", tiles,
+                                queries, matrix_flat, gop, gex, nqs, shape)
 
 
 score_bucket_cell_batch.launches = 0

@@ -283,7 +283,7 @@ def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
     starts = [0, *itertools.accumulate(nqps)]
     return cuda_lib.launch_batch(
         score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, starts,
-        matrix_flat, int(params[1]), int(params[2]), 1,
+        matrix_flat, int(params[1]), int(params[2]),
     )
 
 

@@ -1,31 +1,51 @@
-"""Time the single-query kernels of two checkouts of the port on one card,
-in turns.
+"""Time the kernels of two checkouts of the port on one card, in turns, and
+compare their machine code.
 
     python3 -m cudasw4_tpu_torch.tools.kernel_ab DIR_A DIR_B [--rounds N]
+    python3 -m cudasw4_tpu_torch.tools.kernel_ab --sweep DIR
 
 Each round runs A, B, B, A, every run in a fresh process that builds its
 checkout's kernels (``cuda_lib.lib()``) and times the cell, row and col
-kernels (col also in int16 state) on the same seeded inputs, and the
-batch kernels: CUDA events, the mean of 5 launches after one warm-up.
-Prints one JSON line per run, with the card's name and
-power limit, then a summary line with each kernel's median per checkout.
-Needs CUDA.
+kernels (cell and col also in int16 state), the manual-staging and pair
+kernels, and the batch kernels on the same seeded inputs: CUDA events,
+the mean of 5 launches after one warm-up.  Prints one JSON line per run,
+with the card's name and power limit, then a summary line with each
+kernel's median per checkout, then one line naming the kernels whose SASS
+(``cuobjdump -sass`` of the two libraries, the anonymous namespace's
+hashed names stripped) is identical in both checkouts and those whose
+SASS differs.
+
+``--sweep`` times, in one checkout, every (G, R) instance of the cell
+kernels that its library holds (``cuda_lib.cell_shapes``) with G x R equal
+to each L of SWEEP_LS, exact and int16, at the main path's tile counts
+with the 464-aa query; one JSON line.  Needs CUDA.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 
 #: (kernel, tiles shape, query rows): the main-path shapes of the
-#: Swiss-Prot-scale database's largest buckets with the 464-aa query, the
-#: top col bucket with the 144-aa query and in int16 state ("col16"), and
-#: one full col chunk.
+#: Swiss-Prot-scale database's buckets with the 464-aa query (the cell
+#: buckets of L = 64, 128, 256 and the largest, 640, at their tile counts;
+#: the largest row and col buckets), the largest cell bucket in int16
+#: state ("cell16") and through the manual-staging and pair (P = 2)
+#: kernels, the top col bucket with the 144-aa query and in int16 state
+#: ("col16"), and one full col chunk.
 CASES = (
     ("cell", (12, 640, 32, 128), 464),
+    ("cell", (1, 64, 32, 128), 464),
+    ("cell", (5, 128, 32, 128), 464),
+    ("cell", (12, 256, 32, 128), 464),
+    ("cell16", (12, 640, 32, 128), 464),
+    ("manual", (12, 640, 32, 128), 464),
+    ("pair", (12, 640, 32, 128), 464),
     ("row", (11, 48, 128), 464),
     ("col", (1, 5632, 32, 128), 464),
     ("col", (1, 5632, 32, 128), 144),
@@ -39,6 +59,10 @@ CASES = (
 BATCH14 = (144, 189, 222, 375, 464, 567, 657, 729, 850, 1000, 1500, 2005, 2504, 3005)
 WIDEST_PASS = ((736, 664, 376, 224, 192, 144), (0, 768, 1536, 1920, 2176, 2432))
 
+#: The sweep's cell lengths, each with its Swiss-Prot-scale tile count.
+SWEEP_LS = ((64, 1), (128, 5), (256, 12), (320, 20), (384, 16), (512, 9), (640, 12),
+            (768, 7))
+
 
 def _child(tree: str) -> dict:
     sys.path.insert(0, tree)
@@ -47,13 +71,14 @@ def _child(tree: str) -> dict:
 
     from cudasw4_tpu_torch import make_scoring_config
     from cudasw4_tpu_torch.ops import cuda_lib, sw_cell, sw_col, sw_row
+    from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     assert cuda_lib.__file__.startswith(tree), cuda_lib.__file__
     cuda_lib.lib()
     cfg = make_scoring_config("blosum62")
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
     rng = np.random.default_rng(1)
-    out = {}
+    out = {"library": str(cuda_lib.library_path())}
     for kind, shape, nq in CASES:
         t = _tiles(rng, shape, cfg.pad_code)
         q = np.full(max(nq, 3072 if kind.startswith("col") else 8192), cfg.pad_code, np.int32)
@@ -61,6 +86,9 @@ def _child(tree: str) -> dict:
         q = torch.as_tensor(q).cuda()
         p = (nq, cfg.gop, cfg.gex, nq)
         fn = {"cell": sw_cell.score_bucket_cell, "row": sw_row.score_bucket_row,
+              "cell16": lambda *a: sw_cell.score_bucket_cell(*a, exact=False),
+              "manual": sw_cell.score_bucket_cell_manual,
+              "pair": lambda *a: score_pair(*a, P=2),
               "col": sw_col.score_bucket_col,
               "col16": lambda *a: sw_col.score_bucket_col(*a, exact=False)}[kind]
         out[f"{kind} {list(shape)} x{nq}"] = _ms(fn, t, q, m, p)
@@ -81,6 +109,51 @@ def _child(tree: str) -> dict:
             args, fn = (t, q, m, p), sw_col.score_bucket_col_flat_fused
         out[f"{name} {list(shape)} x{sum(rows)}"] = _ms(fn, *args)
     return out
+
+
+def _sweep(tree: str) -> dict:
+    """Milliseconds of every compiled cell instance (G, R) with G x R = L,
+    for each (L, T) of SWEEP_LS, exact and int16, with the 464-aa query."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    from cudasw4_tpu_torch import make_scoring_config
+    from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
+
+    cfg = make_scoring_config("blosum62")
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    rng = np.random.default_rng(1)
+    q = np.full((1, 464), cfg.pad_code, np.int32)
+    q[0] = rng.integers(0, 20, size=464)
+    q = torch.as_tensor(q).cuda()
+    shapes = cuda_lib.cell_shapes()
+    out = {}
+    for L, T in SWEEP_LS:
+        t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
+        for g, r in shapes:
+            if g * r != L:
+                continue
+            for sat in (0, sw_cell.SAT):
+                out[f"L={L} T={T} G={g} R={r} {'int16' if sat else 'int32'}"] = _ms(
+                    cuda_lib.launch_cell, sw_cell.score_bucket_cell, "sw_cell_kernel", t, q, m,
+                    cfg.gop, cfg.gex, 464, (g, r), sat)
+    return out
+
+
+def _sass(lib: str) -> dict:
+    """Kernel -> SASS text of a built library, keyed by the mangled name
+    from the kernel's own name on (the anonymous namespace's part differs
+    between builds), with the code addresses stripped."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True)
+    kernels = {}
+    for part in res.stdout.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        key = re.search(r"\d+(sw_\w*?_kernel.*)$", name.strip())
+        kernels[key.group(1) if key else name.strip()] = re.sub(r"/\*[0-9a-f]{4,}\*/", "", body)
+    return kernels
 
 
 def _tiles(rng, shape, pad):
@@ -116,6 +189,9 @@ def main(argv=None) -> int:
     if argv and argv[0] == "--child":
         print(json.dumps(_child(argv[1])), flush=True)
         return 0
+    if argv and argv[0] == "--sweep-child":
+        print(json.dumps(_sweep(argv[1])), flush=True)
+        return 0
     rounds = 1
     if "--rounds" in argv:
         i = argv.index("--rounds")
@@ -124,11 +200,19 @@ def main(argv=None) -> int:
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    argv = [os.path.abspath(tree) for tree in argv]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    if len(argv) == 2 and argv[0] == "--sweep":
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sweep-child", os.path.abspath(argv[1])],
+            capture_output=True, text=True, check=True,
+        )
+        print(json.dumps({"card": card, "sweep_ms": json.loads(res.stdout.strip().splitlines()[-1])}),
+              flush=True)
+        return 0
+    argv = [os.path.abspath(tree) for tree in argv]
     runs = {tree: [] for tree in argv}
     for _ in range(rounds):
         for tree in (argv[0], argv[1], argv[1], argv[0]):
@@ -142,9 +226,14 @@ def main(argv=None) -> int:
             runs[tree].append(times)
             print(json.dumps({"tree": tree, "card": card, "ms": times}), flush=True)
     print(json.dumps({"card": card, "median_ms": {
-        tree: {k: statistics.median(r[k] for r in rs if k in r) for k in rs[0]}
+        tree: {k: statistics.median(r[k] for r in rs if k in r) for k in rs[0] if k != "library"}
         for tree, rs in runs.items()
     }}), flush=True)
+    a, b = (_sass(runs[tree][0]["library"]) for tree in argv)
+    same = sorted(k for k in a if k in b and a[k] == b[k])
+    print(json.dumps({"sass_identical": same,
+                      "sass_differs_or_new": sorted(set(a) ^ set(b) | {k for k in a if k in b and a[k] != b[k]})}),
+          flush=True)
     return 0
 
 

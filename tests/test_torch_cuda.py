@@ -68,6 +68,106 @@ def test_cell_kernel_equals_plain(dev, mat):
     assert torch.equal(got.cpu(), want)
 
 
+def _edge_lanes(tiles, pad, rng):
+    """In place on int8 [T, L, 32, 128] tiles: lanes 0-5 of tile 0 hold
+    subjects of L, L - 1, 1, L, 1 and L - 1 residues (both halves of the
+    int16 kernel's subject pairs), the last 100 lanes are empty."""
+    x = tiles.view(tiles.shape[0], tiles.shape[1], 4096)
+    L = x.shape[1]
+    for lane, n in enumerate((L, L - 1, 1, L, 1, L - 1)):
+        x[0, :, lane] = torch.as_tensor(rng.integers(0, pad, size=L).astype(np.int8))
+        x[0, max(n, 0):, lane] = pad
+    x[-1, :, -100:] = pad
+
+
+#: Cell lengths: the default ladder's cell buckets and a sample of the
+#: 16-step edges (G x R = L, or 16 more past 576: 752), lengths that are
+#: no multiple of 16 (G x R > L), and one past the largest instance (896:
+#: the col wavefront's passes).
+CELL_LS = [64, 80, 96, 112, 128, 160, 192, 224, 256, 320, 384, 448, 512, 640, 768,
+           16, 48, 144, 208, 272, 304, 400, 752, 37, 300, 896]
+
+
+@pytest.mark.parametrize("L", CELL_LS)
+def test_cell_kernels_equal_plain_at_every_shape(dev, monkeypatch, L):
+    """B1 at nq = 1, 7, 8, 9 and 464 equal to the plain version, and B1
+    int16 under the SAT rule against the plain int16 and exact scores at
+    the default SAT and a lowered one, on subjects of L, L - 1 and 1
+    residues and empty lanes; the alphabets alternate by case.  The plain
+    version runs on the card."""
+    k = CELL_LS.index(L)
+    rng = np.random.default_rng(40 + k)
+    cfg = make_scoring_config(MATS[k % 2])
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    T = 2 if L <= 256 else 1
+    t = torch.as_tensor(_tiles(rng, (T, L, 32, 128), pad, T * 4096, A))
+    _edge_lanes(t, pad, rng)
+    t = t.to(dev)
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    q = torch.as_tensor(_query(rng, 464, 512, pad, A)).to(dev)
+    for nq in (1, 7, 8, 9, 464):
+        p = (nq, cfg.gop, cfg.gex, -(-nq // 8) * 8)
+        want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+        assert torch.equal(sw_cell.score_bucket_cell(t, q, m, p), want), f"nq={nq}"
+    p = (464, cfg.gop, cfg.gex, 464)
+    for sat in SATS:
+        monkeypatch.setattr(sw_cell, "SAT", sat)
+        before = sw_cell.score_bucket_cell.launches16
+        got = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+        assert sw_cell.score_bucket_cell.launches16 == before + 1
+        assert bool(sw_cell.sat_match(got, sw_cell.score_bucket_cell_plain(t, q, m, p, exact=False)).all())
+        assert bool(sw_cell.sat_match(got, want).all()), f"SAT={sat} vs exact"
+
+
+@pytest.mark.parametrize("L", [64, 300, 768])
+def test_cell_kernels_long_queries_equal_plain(dev, L):
+    """B1 and B1 int16 at nq = 3072 and at a query of QCAP + 9 rows in a
+    block of 2 x QCAP; the plain version runs on the card."""
+    rng = np.random.default_rng(50 + L)
+    cfg = make_scoring_config("blosum62_full" if L == 300 else "blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    t = torch.as_tensor(_tiles(rng, (1, L, 32, 128), pad, 4096 - 50, A))
+    _edge_lanes(t, pad, rng)
+    t = t.to(dev)
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    for nq, cap in ((3072, 3072), (sw_cell.QCAP + 9, 2 * sw_cell.QCAP)):
+        q = torch.as_tensor(_query(rng, nq, cap, pad, A)).to(dev)
+        p = (nq, cfg.gop, cfg.gex, nq)
+        want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+        assert torch.equal(sw_cell.score_bucket_cell(t, q, m, p), want), f"nq={nq}"
+        got16 = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+        assert bool(sw_cell.sat_match(got16, want).all()), f"int16 nq={nq}"
+
+
+def test_cell16_unproven_fit_runs_int32(dev):
+    """A matrix whose scores could carry an s16x2 lane past 32767
+    (blosum62 x 1000 over 9 rows): the int16 kernel runs the int32
+    routine, counted as an int16 launch, and its scores meet the SAT rule
+    against the exact ones (they are exact)."""
+    rng = np.random.default_rng(26)
+    cfg = make_scoring_config("blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    tiles = _tiles(rng, (1, 64, 32, 128), pad, 4096 - 9, A)
+    qh = _query(rng, 9, 64, pad, A)
+    tiles.reshape(64, 4096)[:9, 0] = qh[:9]  # subject 0 holds the query
+    t = torch.as_tensor(tiles).to(dev)
+    m = torch.as_tensor((cfg.matrix.astype(np.int32) * 1000).reshape(-1)).to(dev)
+    q = torch.as_tensor(qh).to(dev)
+    p = (9, cfg.gop, cfg.gex, 16)
+    want = sw_cell.score_bucket_cell_plain(t, q, m, p)
+    assert int(want.max()) > 32767
+    before = sw_cell.score_bucket_cell.launches16
+    got = sw_cell.score_bucket_cell(t, q, m, p, exact=False)
+    assert sw_cell.score_bucket_cell.launches16 == before + 1
+    assert torch.equal(got, want)
+    assert bool(sw_cell.sat_match(got, want).all())
+
+
+def test_cell_shape_table_matches_the_library(dev):
+    """The instances built into the kernel library are sw_cell.CELL_SHAPES."""
+    assert cuda_lib.cell_shapes() == list(sw_cell.CELL_SHAPES)
+
+
 @pytest.mark.parametrize("mat", MATS)
 @pytest.mark.parametrize("L,NS", [(37, 128), (40, 256)])
 def test_row_kernel_equals_plain(dev, mat, L, NS):
@@ -265,26 +365,32 @@ def _batch_inputs(rng, mat, shape, lengths, W):
 #: Slot lengths: one slot, and eight with an empty one and real lengths
 #: that are not multiples of 8 (their padded rows are walked).
 BATCH_LENGTHS = {"S1": (37,), "S8": (13, 0, 40, 7, 21, 64, 1, 30)}
+#: The cell batch's slot cases: those, three slots with a 0-row and a
+#: 1-row one, and fourteen unequal slots.
+CELL_BATCH_LENGTHS = {**BATCH_LENGTHS, "S3": (0, 1, 57),
+                      "S14": (144, 0, 1, 9, 33, 64, 8, 100, 7, 1, 250, 16, 71, 0)}
 
 
-@pytest.mark.parametrize("planes_budget", [None, 1])
-@pytest.mark.parametrize("slots", sorted(BATCH_LENGTHS))
+@pytest.mark.parametrize("L", [64, 296, 896])
+@pytest.mark.parametrize("slots", sorted(CELL_BATCH_LENGTHS))
 @pytest.mark.parametrize("mat", MATS)
-def test_cell_batch_kernel_equals_plain(dev, monkeypatch, mat, slots, planes_budget):
-    """All slots on their own scratch planes, and (budget of one byte)
-    all slots one after another on one plane."""
-    if planes_budget is not None:
-        monkeypatch.setattr(cuda_lib, "BATCH_SCRATCH_BYTES", planes_budget)
+def test_cell_batch_kernel_equals_plain(dev, mat, slots, L):
+    """B4 at a G x R = L instance (64), one with G x R > L (296: 16 x 19),
+    and past the largest instance (896: the col wavefront's passes), each
+    slot its own row count; the plain version runs on the card."""
     rng = np.random.default_rng(16)
-    lengths = BATCH_LENGTHS[slots]
-    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, 64, 32, 128), lengths, 64)
+    lengths = CELL_BATCH_LENGTHS[slots]
+    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, L, 32, 128), lengths, 256)
+    _edge_lanes(tiles, cfg.pad_code, rng)
     params = (0, cfg.gop, cfg.gex, 0, *lengths)
-    want = sw_cell.score_bucket_cell_batch_plain(tiles, q, m, params)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    want = sw_cell.score_bucket_cell_batch_plain(t, qd, md, params)
     before = sw_cell.score_bucket_cell_batch.launches
-    got = sw_cell.score_bucket_cell_batch(tiles.to(dev), q.to(dev), m.to(dev), params)
+    got = sw_cell.score_bucket_cell_batch(t, qd, md, params)
     torch.cuda.synchronize()
     assert sw_cell.score_bucket_cell_batch.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, want)
+    assert not bool(got[[k for k, n in enumerate(lengths) if n == 0]].any())
 
 
 @pytest.mark.parametrize("slots", sorted(BATCH_LENGTHS))

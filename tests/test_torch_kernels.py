@@ -243,3 +243,30 @@ def test_plain_path_counts_and_cpu_dispatch():
     sw_row.score_bucket_row(torch.full((1, 8, 128), 20, dtype=torch.int8), q, m, (4, -11, -1, 8))
     assert sw_row.score_bucket_row.launches == before[0]
     assert sw_row.score_bucket_row.plain_calls == before[1] + 1
+
+
+def test_cell_shape_table_covers_every_cell_length():
+    """``sw_cell.cell_shape`` gives every multiple of 16 up to CELL_MAX_L
+    (the 16-step edges, which hold the default ladder's cell lengths) a
+    listed (G, R) instance with G dividing 32 and G x R >= L: the default
+    ladder's lengths exactly, the others exactly up to 576 and at most 16
+    columns short past it; every instance serves one of them.  Any other
+    L up to 768 wastes fewer than 16 columns (32 past 576), and tiles past
+    768 get none (they take the col wavefront's passes)."""
+    from cudasw4_tpu_torch.db.packing import CELL_MAX_L, DEFAULT_BUCKET_EDGES
+
+    assert len(set(sw_cell.CELL_SHAPES)) == len(sw_cell.CELL_SHAPES)
+    used = set()
+    for L in range(16, CELL_MAX_L + 1, 16):
+        g, r = sw_cell.cell_shape(L)
+        used.add((g, r))
+        assert (g, r) in sw_cell.CELL_SHAPES and 32 % g == 0 and g * r >= L
+        assert g * r - L <= (16 if L > 576 else 0)
+        if L in DEFAULT_BUCKET_EDGES:
+            assert g * r == L
+    assert used == set(sw_cell.CELL_SHAPES)
+    for L in range(1, CELL_MAX_L + 1):
+        g, r = sw_cell.cell_shape(L)
+        assert 0 <= g * r - L < (32 if L > 576 else 16)
+    assert sw_cell.cell_shape(CELL_MAX_L) == (32, 24)
+    assert sw_cell.cell_shape(CELL_MAX_L + 1) is None
