@@ -11,7 +11,9 @@ non-zero:
 2. kernels: each kernel (cell, row, col with its carry, cell batch, col
    flat, col fused) against its plain PyTorch version on the card, exact
    equality of the integer scores, both alphabets; kernel, plain and
-   bound times.  The col kernel also at its edges (COL_EDGES: one partial
+   bound times.  The row kernel on both of its routes (ROW_SHAPES: the
+   cell group routine up to L = 768, each line with its (G, R), and the
+   col wavefront past it, with a query past NQC rows in tile groups).  The col kernel also at its edges (COL_EDGES: one partial
    pass, a partial last pass over three chunks with the carry, nq_pad =
    8), scores and carried rows, and col flat on one pass of slots of 8,
    1000 and 3072 rows.  The int16 modes of cell and col (col over two
@@ -43,7 +45,8 @@ non-zero:
    kernel kind per ladder query and for the batch; and the card's idle
    share over the 20-query scan from a torch.profiler trace; every cell
    bucket with the 464-aa query in both state modes (its (G, R), ms,
-   bound and share); the align's peak device memory.
+   bound and share); the align's peak device memory, and the flat and
+   fused batches' peaks above what is live before them.
 5. state16: align --dpx on the 20 queries (singles in int16 state), TSV
    equal to the exact run's; again with SAT lowered to the median top
    score, so that real tiles flag and are re-scored; a planted 3,100-W
@@ -278,7 +281,7 @@ def phase_kernels(clock_mhz):
     rows = []
 
     def record(name, mat, shape, nq, real_nq, real_chars, got, want, ms, plain_ms,
-               extra_bytes=0, slots=1):
+               extra_bytes=0, slots=1, **extra):
         check(torch.equal(got, want), f"{name} {mat} {shape}: kernel != plain")
         real, padded = cell_counts(shape, nq, real_nq, real_chars)
         out_bytes = slots * shape[0] * int(np.prod(shape[2:])) * 4
@@ -287,7 +290,7 @@ def phase_kernels(clock_mhz):
             "check": name, "mat": mat, "shape": list(shape), "nq": nq, "equal": True,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "cells_real": real, "cells_padded": padded,
-            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6,
+            "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6, **extra,
         })
 
     for mat in ("blosum62", "blosum62_full"):
@@ -304,8 +307,7 @@ def phase_kernels(clock_mhz):
             ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, q, m, p))
             pms = cuda_ms(lambda: sw_cell.score_bucket_cell_plain(t, q, m, p), reps=1)
             record("B1 cell", mat, shape, 464, 464, real_chars, got, want, ms, pms)
-        row_shapes = [(16, 512, 128)] + ([(4, 2304, 128)] if mat == "blosum62" else [])
-        for shape in row_shapes:
+        for shape in ROW_SHAPES[: None if mat == "blosum62" else 3]:
             t, real_chars = random_tiles(rng, shape, A, pad)
             q = query_block(rng, 464, sw_cell.QCAP, A, pad)
             p = (464, cfg.gop, cfg.gex, 464)
@@ -313,7 +315,22 @@ def phase_kernels(clock_mhz):
             want = sw_row.score_bucket_row_plain(t, q, m, p)
             ms = cuda_ms(lambda: sw_row.score_bucket_row(t, q, m, p))
             pms = cuda_ms(lambda: sw_row.score_bucket_row_plain(t, q, m, p), reps=1)
-            record("B2 row", mat, shape, 464, 464, real_chars, got, want, ms, pms)
+            route, cell, groups, pool = sw_row.row_route(*shape, 464)
+            record("B2 row", mat, shape, 464, 464, real_chars, got, want, ms, pms,
+                   route=route, cell_shape=cell and list(cell), pool_bytes=pool)
+        # B2's col route with a query past NQC rows, in one-tile groups.
+        shape = (3, 1100, 128)
+        t, _ = random_tiles(rng, shape, A, pad)
+        nq = sw_col.NQC + 28
+        q = query_block(rng, nq, nq, A, pad)
+        p = (nq, cfg.gop, cfg.gex, nq)
+        before = sw_row.score_bucket_row.launches
+        got = sw_row.score_bucket_row(t, q, m, p, temp_bytes=1)
+        check(sw_row.score_bucket_row.launches == before + 3, "B2 one-tile groups: launches != 3")
+        check(torch.equal(got, sw_row.score_bucket_row_plain(t, q, m, p)),
+              f"B2 col route {mat} nq={nq}, one-tile groups: kernel != plain")
+        rows.append({"check": "B2 row, col route, one-tile groups", "mat": mat,
+                     "shape": list(shape), "nq": nq, "launches": 3, "equal": True})
 
         # B3: a 5478-aa query over L=1024 col tiles: two NQC chunks with
         # the H/F carry, each chunk and its carried state against the
@@ -402,6 +419,11 @@ def phase_kernels(clock_mhz):
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
 
+#: Phase 2's row buckets: the Swiss-Prot-scale database's largest (L = 48),
+#: cell-route ones at (8, 6) and (16, 32), and col-route ones past the
+#: largest cell instance (L = 784, 256 lanes; L = 2304, full passes); the
+#: full-blosum alphabet takes the first three.
+ROW_SHAPES = ((11, 48, 128), (16, 512, 128), (3, 784, 256), (4, 2304, 128))
 #: Phase 2's cell lengths: every multiple of 16 up to CELL_MAX_L = 768
 #: (the 16-step edges, which hold the default ladder's cell lengths),
 #: which reach every (G, R) instance (G x R = L, or 16 more past 576); 37
@@ -877,7 +899,11 @@ def phase_sprot(clock_mhz):
         reset_counts()
         fused_results = eng.scan_batch(group)
         fused_counts = read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live_bytes = torch.cuda.memory_allocated()  # the database and the flat batch's scores
         fused_scores = eng.batch_slot_scores(group)
+        fused_peak = torch.cuda.max_memory_allocated() - live_bytes
     finally:
         sw_col.COL_FUSE_MIN_S = 0
     n_fused_passes = sum(1 for p in plan if len(p) >= 3)
@@ -905,7 +931,7 @@ def phase_sprot(clock_mhz):
         err = float((got - want).abs().max())
         check(err == 0.0, f"{name} differs from plain at the main-path shape {tuple(shape)}")
         real, padded = cell_counts(shape, nrows, real_rows, int(eng.packed.buckets[bucket].lengths.sum()))
-        nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * 4096
+        nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * int(np.prod(shape[2:]))
         b_ms, by = bound(real, nbytes, clock_mhz, state)
         kernels.append({
             "name": name, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
@@ -940,8 +966,13 @@ def phase_sprot(clock_mhz):
             ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw))
             pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p, **kw), reps=1)
             # int16 state: its launches come from the align --dpx run.
-            extra = ({"cell_shape": list(sw_cell.cell_shape(t.shape[1])), "scratch_bytes": 0}
-                     if kind == "cell" else {})
+            extra = {}
+            if kind == "cell":
+                extra = {"cell_shape": list(sw_cell.cell_shape(t.shape[1])), "scratch_bytes": 0}
+            elif kind == "row":
+                route, cell, _, pool = sw_row.row_route(*t.shape, len(mid))
+                extra = {"row_route": route, "cell_shape": cell and list(cell),
+                         "scratch_bytes": pool}
             kernel_row(kname if exact else kname.replace("_kernel", "16_kernel"), replaces,
                        counts[kind][0] if exact else None, tuple(t.shape), nrows, len(mid), i,
                        a, b, ms, pms, state="int32" if exact else "int16", **extra)
@@ -992,8 +1023,8 @@ def phase_sprot(clock_mhz):
     ):
         a = fn()
         ms = cuda_ms(fn)
-        temp = ({"scratch_planes": 1, "scratch_bytes": 8 * t.numel()} if "fused" in name else
-                {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], qcap_b)})
+        pool_rows = sum(pcol[4:]) if "fused" in name else qcap_b
+        temp = {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], pool_rows)}
         kernel_row(name, replaces, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b,
                    ms, pms, slots=len(idx), pass_offsets=list(offs), **temp)
 
@@ -1061,6 +1092,7 @@ def phase_sprot(clock_mhz):
         "batch14_ms_by_kind": batch_by_kind,
         "batch14_col_share": batch_by_kind["col"] / sum(batch_by_kind.values()),
         "batch14_peak_device_bytes_above_db": batch_peak,
+        "fused_batch14_peak_device_bytes_above_db": fused_peak,
         "bucket_ms_by_kind": breakdown,
         "cell_share_by_query": {n: v.get("cell", 0.0) / sum(v.values()) for n, v in breakdown.items()},
         "cell_buckets_464": cell_buckets,

@@ -15,7 +15,9 @@
 //   [T, L, 4096].  Exact int32 state (sw_cell_kernel) or, with sat > 0,
 //   the int16 contract (sw_cell16_kernel, whose scores are exact).
 // * sw_row_launch replaces cudasw4_tpu/ops/sw_pallas.py score_bucket_pallas
-//   (_sw_kernel): one query against row tiles [T, L, NS], int32 only.
+//   (_sw_kernel): one query against row tiles [T, L, NS], int32 only; up
+//   to the largest cell instance (L <= 768) on the cell group routine
+//   (sw_row_kernel), past it on the col wavefront (sw_row_col_kernel).
 // * sw_col_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col (_sw_col_kernel): one query chunk against the
 //   cell layout at long L, with the optional int32 H/F carry in and out
@@ -31,10 +33,13 @@
 //   nqp rows each against col tiles in one launch.  As the TPU kernel
 //   gives each slot a row range of one VMEM state pool, each slot's
 //   boundary columns take rows [off, off + nqp) of one pool of rtot rows.
-// * sw_col_fused_launch replaces cudasw4_tpu/ops/sw_pallas_col.py
-//   score_bucket_pallas_col_flat_fused (_sw_col_flat_fused_kernel): the
-//   same slots walked as one gapless run of rows, with the DP reset to the
-//   top of the matrix at each slot boundary and the slot's max flushed.
+// * sw_col_launch with gapless starts (rows null, offs non-null) replaces
+//   cudasw4_tpu/ops/sw_pallas_col.py score_bucket_pallas_col_flat_fused
+//   (_sw_col_flat_fused_kernel): the same slots packed without gaps, the
+//   DP restarting at each slot (sw_col_fused_kernel).  The TPU kernel
+//   walks the packed rows as one run; here each (slot, subject) warp runs
+//   its slot's rows from the top of the matrix, its boundary columns at
+//   the slot's pool rows [starts[s], starts[s + 1]).
 // * sw_cell_manual_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell_manual (_sw_cell_kernel_manual): B1's
 //   contract with the tiles staged by hand through a 2-deep ring in shared
@@ -42,8 +47,8 @@
 // * sw_cell_pair_launch replaces tools/pairbench.py score_pair
 //   (_kernel_pair): B1's contract, exact, P consecutive tiles per block.
 //
-// The cell kernels (sw_cell_kernel, sw_cell16_kernel, sw_cell_batch_kernel)
-// are single-pass register-tiled group wavefronts, the shape of the
+// The cell kernels (sw_cell_kernel, sw_cell16_kernel, sw_cell_batch_kernel,
+// and the row kernel up to L = 768) are single-pass register-tiled group wavefronts, the shape of the
 // reference CUDASW++4.0's short-subject kernels.  A cell tile's L is at
 // most CELL_MAX_L = 768, so a group of G lanes (8, 16 or 32 of a warp)
 // holds a whole subject in registers: lane k keeps R consecutive columns
@@ -67,14 +72,16 @@
 // meets the SAT rule at any SAT; where the launcher cannot prove the fit
 // for the matrix and gaps, the kernel runs the int32 routine.  Tiles with
 // L beyond the largest instance go to the col kernels (ops/sw_cell.py).
+// The row kernel (sw_row_kernel) is B1's routine at a code stride of NS
+// in place of 4096: group g scores subject g % NS of row tile g / NS.
 //
-// The row, fused batch and tool kernels are the first slice's simple
+// The two tool kernels (manual staging, pair) are the first slice's simple
 // design: one thread per subject, neighbouring threads owning neighbouring
 // subjects, so each load of x[t, j, :] and of the H/F row is coalesced.
 // The query streams in blocks of kRows rows; each thread keeps E and
 // H[i][j-1] of its kRows rows in registers and sweeps j over the whole
 // subject.  The H and F of the row above each block live in a scratch row
-// [T, L, NS] in device memory (read, then overwritten with the block's
+// [T, L, 4096] in device memory (read, then overwritten with the block's
 // bottom row), so neither the subject length nor the query length is
 // capped.  The substitution scores of a block's kRows rows sit in shared
 // memory as a query profile prof[c][r] = B[q_{i0+r}, c], one 32-byte read
@@ -97,16 +104,16 @@
 // int32 operations (below; two cells an operation in s16x2 lanes), and
 // the inputs are about one byte per subject position, so every contract
 // is bound by operations, by a factor of ~nrows over bytes.  The
-// one-thread-per-subject kernels move 16 bytes of scratch per kRows cells
-// besides (2 B/cell at kRows = 8; 1 B/cell with int16 state), spend 11
-// operations a cell, and leave small buckets without enough warps to hide
-// latency.  The fused col kernel walks its slots one after another on one
-// scratch plane: the blocks and scratch of a single query, for S queries'
-// rows.
+// one-thread-per-subject tool kernels move 16 bytes of scratch per kRows
+// cells besides (2 B/cell at kRows = 8; 1 B/cell with int16 state), spend
+// 11 operations a cell, and leave small buckets without enough warps to
+// hide latency.
 //
-// The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel)
-// are a warp per (slot, subject) register-tiled wavefront, the shape of
-// the reference CUDASW++4.0's DPX-s32 multi-pass kernels.  What bounds the
+// The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel,
+// sw_col_fused_kernel, and the row kernel past L = 768, sw_row_col_kernel,
+// at a code stride of NS) are a warp per (slot, subject) register-tiled
+// wavefront, the shape of the reference CUDASW++4.0's DPX-s32 multi-pass
+// kernels.  What bounds the
 // one-thread design at long L is parallelism and scratch: a col tile is
 // 4096 subjects, 32 blocks of one thread each, on 132 SMs, and every 8
 // rows re-read and re-wrote the L-long H/F row.  Here the parallelism
@@ -170,6 +177,7 @@ constexpr int kMaxAlphabet = 26;
 constexpr int kRows = 8;      // query rows per register block
 constexpr int kCols = 8;      // subject positions loaded ahead per step
 constexpr int kThreads = 128; // subjects per block
+constexpr int kCellNS = 4096; // subjects per cell tile: [T, L, 32, 128]
 
 // A stored state value: int32 as it is; int16 clamped at sat.
 template <typename St>
@@ -283,120 +291,21 @@ __device__ __forceinline__ void build_profile(const int32_t* __restrict__ q,
   __syncthreads();
 }
 
-// B2: one block = kThreads subjects of one row tile; the grid is flat
-// over (tile, subject block).  Writes out[t, s] = max H as float.
-__device__ __forceinline__ void sw_tiles_body(
-    const int8_t* __restrict__ tiles, const int32_t* __restrict__ query,
-    const int32_t* __restrict__ mat, int A, int L, int NS, int nrows,
-    int gop, int gex, int32_t* hs, int32_t* fs, float* __restrict__ out) {
-  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
-  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
-  const int blocks_per_tile = (NS + kThreads - 1) / kThreads;
-  const int t = blockIdx.x / blocks_per_tile;
-  const int s = (blockIdx.x % blocks_per_tile) * kThreads + threadIdx.x;
-  const bool live = s < NS;
-  const size_t base = (size_t)t * L * NS + s;
-  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
-  int m = 0;
-  for (int i0 = 0; i0 < nrows; i0 += kRows) {
-    const int nr = min(kRows, nrows - i0);
-    __syncthreads();  // smat is loaded; the previous profile is consumed
-    for (int k = threadIdx.x; k < A * kRows; k += blockDim.x) {
-      const int c = k / kRows, r = k % kRows;
-      prof[k] = r < nr ? smat[query[i0 + r] * A + c] : 0;
-    }
-    __syncthreads();
-    if (live) {
-      sweep_rows<int32_t>(tiles + base, hs + base, fs + base, i0 == 0,
-                          hs + base, fs + base, prof, L, NS, nr, gop, gex, m,
-                          0);
-    }
-  }
-  if (live) out[(size_t)t * NS + s] = (float)m;
-}
-
 // Build the substitution profile of the query rows q[0, nr) and sweep them
 // over this thread's subject.  Every thread of the block calls it: it
 // synchronises.  hsrc/fsrc: the row above; from_zero: that row is the top
 // of the DP matrix (H = 0, F = -inf).
 __device__ __forceinline__ void run_rows(
     const int32_t* __restrict__ q, int nr, const int* smat, int* prof, int A,
-    bool live, const int8_t* __restrict__ x, const int32_t* hsrc,
-    const int32_t* fsrc, bool from_zero, int32_t* hs, int32_t* fs, int L,
-    int NS, int gop, int gex, int& m) {
+    const int8_t* __restrict__ x, const int32_t* hsrc, const int32_t* fsrc,
+    bool from_zero, int32_t* hs, int32_t* fs, int L, int NS, int gop, int gex,
+    int& m) {
   build_profile(q, nr, smat, prof, A);
-  if (!live) return;
   sweep_rows<int32_t>(x, hsrc, fsrc, from_zero, hs, fs, prof, L, NS, nr, gop,
                       gex, m, 0);
 }
 
-// The fused batch body over cell-layout tiles [T, L, 4096] and a query
-// block [S, W]; out is [S, T, 4096].  A block owns kThreads subjects of
-// one tile (blockIdx.x) and an H/F scratch plane of [T, L, 4096]
-// (blockIdx.y, which the fused launch keeps at 0: one plane).
-constexpr int kCellNS = 4096;
-
-struct BatchBlock {
-  int t, s;
-  size_t base;  // offset of this thread's subject in a [T, L, 4096] array
-  int32_t* h;   // this thread's column of its block's scratch plane
-  int32_t* f;
-};
-
-__device__ __forceinline__ BatchBlock batch_block(int T, int L, int32_t* hs,
-                                                  int32_t* fs) {
-  BatchBlock b;
-  b.t = blockIdx.x / (kCellNS / kThreads);
-  b.s = (blockIdx.x % (kCellNS / kThreads)) * kThreads + threadIdx.x;
-  b.base = (size_t)b.t * L * kCellNS + b.s;
-  const size_t plane = (size_t)blockIdx.y * T * L * kCellNS;
-  b.h = hs + plane + b.base;
-  b.f = fs + plane + b.base;
-  return b;
-}
-
-// B6: one scratch plane; the block walks the slots' rows concatenated
-// without gaps, rows [starts[q], starts[q + 1]) being slot q's.  At a slot's
-// first row the row above is reset to H = 0, F = -inf (from_zero); where a
-// slot ends its maximum is flushed to out and the running max restarts.
-// Slot boundaries must fall on kRows-row block starts: every slot's row
-// count is a multiple of kRows (the wrapper checks it).
-__device__ __forceinline__ void sw_fused_body(
-    const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
-    const int32_t* __restrict__ starts, const int32_t* __restrict__ mat,
-    int A, int T, int L, int S, int W, int gop, int gex, int32_t* hs,
-    int32_t* fs, float* __restrict__ out) {
-  __shared__ int smat[kMaxAlphabet * kMaxAlphabet];
-  __shared__ __align__(16) int prof[kMaxAlphabet * kRows];
-  const BatchBlock b = batch_block(T, L, hs, fs);
-  for (int k = threadIdx.x; k < A * A; k += blockDim.x) smat[k] = mat[k];
-  const int total = starts[S];
-  int q = 0, m = 0;
-  for (int i = 0; i < total; i += kRows) {
-    while (i >= starts[q + 1]) {  // slot q (maybe empty) ends here
-      out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
-      m = 0;
-      ++q;
-    }
-    const int r = i - starts[q];  // row within slot q
-    run_rows(queries + (size_t)q * W + r, min(kRows, starts[q + 1] - i), smat,
-             prof, A, true, tiles + b.base, b.h, b.f, r == 0, b.h, b.f, L,
-             kCellNS, gop, gex, m);
-  }
-  for (; q < S; ++q) {
-    out[((size_t)q * T + b.t) * kCellNS + b.s] = (float)m;
-    m = 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) sw_row_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int NS, int nrows, int gop, int gex, int32_t* hs, int32_t* fs,
-    float* out) {
-  sw_tiles_body(tiles, query, mat, A, L, NS, nrows, gop, gex, hs, fs, out);
-}
-
-// ------------------------------------ B3 and B5: the col wavefront
+// ------------------------------- B3, B5 and B6: the col wavefront
 
 // The constants below were chosen by timing variants against each other
 // with cudasw4_tpu_torch/tools/kernel_ab.py on an H100 (PERF.md).
@@ -433,17 +342,17 @@ __device__ __forceinline__ int clamp_state(int v, int sat) {
   }
 }
 
-// One warp scores one subject (x: its codes, stride kCellNS) against query
-// rows q[0, nrows).  smat: [A][A + 1], B - gop and a -inf column A.
-// hin/fin, hout/fout: the subject's carry in and out (stride kCellNS), or
-// null.  th/te: the warp's boundary column of nrows rows (St, clamped at
+// One warp scores one subject (x: its codes, stride apart: 4096 in a cell
+// tile, NS in a row tile) against query rows q[0, nrows).  smat:
+// [A][A + 1], B - gop and a -inf column A.  hin/fin, hout/fout: the
+// subject's carry in and out (the same stride), or null.  th/te: the warp's boundary column of nrows rows (St, clamped at
 // sat for int16), or null when L fits one pass.  Returns the subject's
 // max H, on every lane.
 template <typename St>
 __device__ __forceinline__ int col_warp(
-    const int8_t* __restrict__ x, int L, const int32_t* __restrict__ q,
-    int nrows, const int* smat, int A, int gop, int gex,
-    const int32_t* __restrict__ hin, const int32_t* __restrict__ fin,
+    const int8_t* __restrict__ x, int L, int stride,
+    const int32_t* __restrict__ q, int nrows, const int* smat, int A, int gop,
+    int gex, const int32_t* __restrict__ hin, const int32_t* __restrict__ fin,
     int32_t* hout, int32_t* fout, St* th, St* te, int sat) {
   const int lane = threadIdx.x & 31;
   const int A1 = A + 1;
@@ -456,7 +365,7 @@ __device__ __forceinline__ int col_warp(
 #pragma unroll
     for (int r = 0; r < kColRegs; ++r) {
       const int j = jl + r;
-      const size_t o = (size_t)j * kCellNS;
+      const size_t o = (size_t)j * stride;
       const bool in = j < L;
       c[r] = in ? x[o] : A;
       hg[r] = (in && hin ? hin[o] : 0) + gop;
@@ -465,7 +374,7 @@ __device__ __forceinline__ int col_warp(
     // H + gop of the row above at the pass's left column: lane 0's first
     // diagonal.  Later rows' diagonals are the values taken a step before.
     int prev = gop;
-    if (lane == 0 && rd && hin) prev += hin[(size_t)(jl - 1) * kCellNS];
+    if (lane == 0 && rd && hin) prev += hin[(size_t)(jl - 1) * stride];
     int oh = hg[kColRegs - 1], oe = kNeg;  // passed right: H + gop and E
     int bh = 0, be = kNeg, nh = 0, ne = kNeg;  // boundary groups: now, next
     int wh = 0, we = 0;  // lane (i & 31) keeps lane 31's row i to store it
@@ -541,8 +450,8 @@ __device__ __forceinline__ int col_warp(
       for (int r = 0; r < kColRegs; ++r) {
         const int j = jl + r;
         if (j < L) {
-          hout[(size_t)j * kCellNS] = clamp_state<St>(hg[r] - gop, sat);
-          fout[(size_t)j * kCellNS] = clamp_state<St>(f[r], sat);
+          hout[(size_t)j * stride] = clamp_state<St>(hg[r] - gop, sat);
+          fout[(size_t)j * stride] = clamp_state<St>(f[r], sat);
         }
       }
     }
@@ -554,8 +463,10 @@ __device__ __forceinline__ int col_warp(
 // Warp w of the grid's x axis scores subject w % 4096 of tile w / 4096
 // against slot blockIdx.y: rows[slot] rows of queries[slot] (all W rows
 // when rows is null), its boundary column at rows offs[slot] .. (0 when
-// null) of the warp's rtot-row pool.  Writes out[slot, t, s].
-template <typename St>
+// null) of the warp's rtot-row pool.  With kStarts, offs holds the slots'
+// gapless starts [S + 1] and slot s runs offs[s + 1] - offs[s] rows.
+// Writes out[slot, t, s].
+template <typename St, bool kStarts = false>
 __device__ __forceinline__ void sw_col_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
     const int32_t* __restrict__ rows, const int32_t* __restrict__ offs,
@@ -575,7 +486,8 @@ __device__ __forceinline__ void sw_col_body(
   const size_t base = (size_t)t * L * kCellNS + s;
   const size_t col = (size_t)w * rtot + (offs ? offs[slot] : 0);
   const int m = col_warp<St>(
-      tiles + base, L, queries + (size_t)slot * W, rows ? rows[slot] : W, smat,
+      tiles + base, L, kCellNS, queries + (size_t)slot * W,
+      kStarts ? offs[slot + 1] - offs[slot] : rows ? rows[slot] : W, smat,
       A, gop, gex, hin ? hin + base : nullptr, fin ? fin + base : nullptr,
       hout ? hout + base : nullptr, fout ? fout + base : nullptr,
       th ? th + col : nullptr, te ? te + col : nullptr, sat);
@@ -612,6 +524,19 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat_ker
                        0);
 }
 
+// B6: col flat with the slots' pool rows packed without gaps, starts[s] ..
+// starts[s + 1] being slot s's.  Each (slot, subject) warp starts at the
+// top of the DP matrix, so the slots' boundaries need not fall anywhere in
+// particular: a slot's reads and writes of the pool stay inside its rows.
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_fused_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* starts,
+    const int32_t* mat, int A, int T, int L, int W, int rtot, int gop,
+    int gex, int32_t* th, int32_t* te, float* out) {
+  sw_col_body<int32_t, true>(tiles, queries, nullptr, starts, mat, A, T, L, W,
+                             rtot, gop, gex, nullptr, nullptr, nullptr,
+                             nullptr, th, te, out, 0);
+}
+
 // ------------------------------------------------ B8: P tiles per block
 
 // Block b owns lanes (b % 32) * 128 .. + 127 of tiles (b / 32) * P .. + P - 1
@@ -629,9 +554,9 @@ __global__ void __launch_bounds__(kThreads) sw_pair_kernel(
     const size_t base = (size_t)t * L * kCellNS + s;
     int m = 0;
     for (int i0 = 0; i0 < nrows; i0 += kRows) {
-      run_rows(query + i0, min(kRows, nrows - i0), smat, prof, A, true,
-               tiles + base, hs + base, fs + base, i0 == 0, hs + base,
-               fs + base, L, kCellNS, gop, gex, m);
+      run_rows(query + i0, min(kRows, nrows - i0), smat, prof, A, tiles + base,
+               hs + base, fs + base, i0 == 0, hs + base, fs + base, L,
+               kCellNS, gop, gex, m);
     }
     out[(size_t)t * kCellNS + s] = (float)m;
   }
@@ -809,22 +734,10 @@ int manual_launch(const void* tiles, const void* query, const void* mat,
   return (int)cudaGetLastError();
 }
 
-unsigned grid_for(int T, int NS) {
-  return (unsigned)((long long)T * ((NS + kThreads - 1) / kThreads));
-}
-
 // sat: 0 for exact int32 state, else the int16 state's ceiling.
 bool sat_ok(int sat) { return sat >= 0 && sat <= 32767; }
 
-__global__ void __launch_bounds__(kThreads) sw_col_fused_kernel(
-    const int8_t* tiles, const int32_t* queries, const int32_t* starts,
-    const int32_t* mat, int A, int T, int L, int S, int W, int gop, int gex,
-    int32_t* hs, int32_t* fs, float* out) {
-  sw_fused_body(tiles, queries, starts, mat, A, T, L, S, W, gop, gex, hs, fs,
-                out);
-}
-
-// ----------------------------- B1 and B4: the single-pass cell wavefront
+// ------------------------- B1, B2 and B4: the single-pass cell wavefront
 
 // The (G, R) instances of the cell kernels: a group of G lanes scores one
 // subject (int32 lanes) or two (s16x2 lanes), lane k holding the subject
@@ -938,8 +851,8 @@ __device__ __forceinline__ void load_cell_table(
 }
 
 // A group of G lanes sweeps query rows q[0, nrows) over one subject (x:
-// its codes, stride kCellNS; two subjects for s16x2 lanes) of L <= G x R
-// columns in one pass.  Lane k holds columns [k R, k R + R) in registers
+// its codes, stride apart: 4096 in a cell tile, NS in a row tile; two
+// subjects for s16x2 lanes) of L <= G x R columns in one pass.  Lane k holds columns [k R, k R + R) in registers
 // (code, H + gop and F of the row above) and scores row i at step i + k,
 // taking H + gop and E of its left column from lane k - 1 with a width-G
 // shuffle and the value it took a step earlier as its diagonal; lane 0's
@@ -948,8 +861,9 @@ __device__ __forceinline__ void load_cell_table(
 // group's max H, on every lane of the group.
 template <int G, int R, class P>
 __device__ __forceinline__ typename P::V cell_group(
-    const int8_t* __restrict__ x, int L, const int32_t* __restrict__ q,
-    int nrows, const int* tab, int qstride, int A, int gop, int gex) {
+    const int8_t* __restrict__ x, int L, int stride,
+    const int32_t* __restrict__ q, int nrows, const int* tab, int qstride,
+    int A, int gop, int gex) {
   using V = typename P::V;
   const int k = threadIdx.x & (G - 1);
   const V vgop = P::splat(gop), vgex = P::splat(gex);
@@ -959,7 +873,7 @@ __device__ __forceinline__ typename P::V cell_group(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = k * R + r;
-    c[r] = P::code(x, (size_t)j * kCellNS, j < L, A);
+    c[r] = P::code(x, (size_t)j * stride, j < L, A);
     hg[r] = vgop;
     f[r] = vneg;
   }
@@ -1015,8 +929,8 @@ __device__ __forceinline__ void cell_body(
   __syncthreads();
   const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
   const int m = cell_group<G, R, LaneS32>(
-      tiles + g / kCellNS * L * kCellNS + g % kCellNS, L, q, nrows, tab,
-      A + 1, A, gop, gex);
+      tiles + g / kCellNS * L * kCellNS + g % kCellNS, L, kCellNS, q, nrows,
+      tab, A + 1, A, gop, gex);
   if ((threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
 }
 
@@ -1073,18 +987,62 @@ __launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell16_kernel(
   int m0, m1;
   if (fits) {
     const unsigned m = cell_group<G, R, LaneS16>(
-        x, L, query, nrows, tab, (A + 1) * (A + 1), A, gop, gex);
+        x, L, kCellNS, query, nrows, tab, (A + 1) * (A + 1), A, gop, gex);
     m0 = (int16_t)(m & 0xffffu);
     m1 = (int16_t)(m >> 16);
   } else {
-    m0 = cell_group<G, R, LaneS32>(x, L, query, nrows, tab, A + 1, A, gop, gex);
-    m1 = cell_group<G, R, LaneS32>(x + 1, L, query, nrows, tab, A + 1, A, gop,
-                                   gex);
+    m0 = cell_group<G, R, LaneS32>(x, L, kCellNS, query, nrows, tab, A + 1, A,
+                                   gop, gex);
+    m1 = cell_group<G, R, LaneS32>(x + 1, L, kCellNS, query, nrows, tab, A + 1,
+                                   A, gop, gex);
   }
   if ((threadIdx.x & (G - 1)) == 0) {
     out[o] = (float)m0;
     out[o + 1] = (float)m1;
   }
+}
+
+// B2 up to the largest instance: group g scores subject g % NS of row tile
+// g / NS (codes NS apart) against query rows q[0, nrows) and writes out[g],
+// the [T, NS] scores.  A group past the last subject (T x NS need not fill
+// the last block) scores the last subject again and writes nothing, so
+// that every lane of its warp reaches the full-mask shuffles.
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_row_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int NS, int nrows, int gop, int gex, float* out) {
+  __shared__ int tab[kMaxAlphabet * (kMaxAlphabet + 1)];
+  load_cell_table<false>(tab, mat, A, gop, kNeg);
+  __syncthreads();
+  const size_t n = (size_t)T * NS;
+  const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
+  const size_t gs = g < n ? g : n - 1;
+  const int m = cell_group<G, R, LaneS32>(tiles + gs / NS * L * NS + gs % NS,
+                                          L, NS, query, nrows, tab, A + 1, A,
+                                          gop, gex);
+  if (g < n && (threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
+}
+
+// B2 past the largest cell instance: warp w scores subject w % NS of row
+// tile w / NS in col passes (codes NS apart), its boundary column at pool
+// rows w * nrows .. of th/te, and writes out[w].  A warp past the last
+// subject leaves as a whole after the block's one barrier.
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_row_col_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int NS, int nrows, int gop, int gex, int32_t* th,
+    int32_t* te, float* out) {
+  __shared__ int smat[kMaxAlphabet * (kMaxAlphabet + 1)];
+  load_cell_table<false>(smat, mat, A, gop, kNeg);
+  __syncthreads();
+  const size_t w = (size_t)blockIdx.x * kColWarps + (threadIdx.x >> 5);
+  if (w >= (size_t)T * NS) return;
+  const size_t col = w * nrows;
+  const int m = col_warp<int32_t>(
+      tiles + w / NS * L * NS + w % NS, L, NS, query, nrows, smat, A, gop, gex,
+      nullptr, nullptr, nullptr, nullptr, th ? th + col : nullptr,
+      te ? te + col : nullptr, 0);
+  if ((threadIdx.x & 31) == 0) out[w] = (float)m;
 }
 
 // The largest substitution score with which s16x2 lanes cannot wrap: every
@@ -1131,6 +1089,40 @@ int cell_launch_at(const CellArgs& a) {
         <<<(unsigned)(threads / kCellThreads), kCellThreads, 0, a.stream>>>(
             a.tiles, a.queries, a.mat, a.A, a.L, a.W, a.gop, a.gex, a.out);
   }
+  return (int)cudaGetLastError();
+}
+
+// The instance that scores L columns in one pass, as ops/sw_cell.py
+// cell_shape picks it: the least G x R >= L, then the least G.  False past
+// the largest instance.
+bool cell_pick(int L, int& G, int& R) {
+  G = R = 0;
+#define CELL_PICK(g, r)                                                   \
+  if (g * r >= L && (!G || g * r < G * R || (g * r == G * R && g < G))) { \
+    G = g;                                                                \
+    R = r;                                                                \
+  }
+  CELL_SHAPES(CELL_PICK)
+#undef CELL_PICK
+  return G != 0;
+}
+
+struct RowArgs {
+  const int8_t* tiles;
+  const int32_t* query;
+  const int32_t* mat;
+  int A, T, L, NS, nrows, gop, gex;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <int G, int R>
+int row_launch_at(const RowArgs& a) {
+  const long long threads = (long long)a.T * a.NS * G;
+  sw_row_kernel<G, R>
+      <<<(unsigned)((threads + kCellThreads - 1) / kCellThreads), kCellThreads,
+         0, a.stream>>>(a.tiles, a.query, a.mat, a.A, a.T, a.L, a.NS, a.nrows,
+                        a.gop, a.gex, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -1185,16 +1177,36 @@ int sw_cell_shapes(int* out, int cap) {
   return n;
 }
 
-// The row launch: row tiles [T, L, NS], int32 scratch hs, fs shaped as
-// the tiles, out f32 [T, NS]; exact only.
+// The row launch (B2): row tiles [T, L, NS], out f32 [T, NS]; exact only.
+// Up to the largest cell instance it launches sw_row_kernel at the
+// instance for L (cell_pick), with no scratch; past it sw_row_col_kernel,
+// whose boundary columns th, te are int32 [T * NS, nrows] (null allowed
+// when L <= sw_col_pass_columns() or nrows is 0).
 int sw_row_launch(const void* tiles, const void* query, const void* mat,
                   int A, int T, int L, int NS, int nrows, int gop, int gex,
-                  void* hs, void* fs, void* out, int sat, void* stream) {
-  if (sat) return (int)cudaErrorInvalidValue;
+                  void* th, void* te, void* out, int sat, void* stream) {
+  if (sat || T < 0 || L < 0 || NS < 1 || nrows < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (T == 0) return 0;
-  sw_row_kernel<<<grid_for(T, NS), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)tiles, (const int32_t*)query, (const int32_t*)mat, A, L,
-      NS, nrows, gop, gex, (int32_t*)hs, (int32_t*)fs, (float*)out);
+  const RowArgs a{(const int8_t*)tiles, (const int32_t*)query,
+                  (const int32_t*)mat, A, T, L, NS, nrows, gop, gex,
+                  (float*)out, (cudaStream_t)stream};
+  int G, R;
+  if (cell_pick(L, G, R)) {
+#define ROW_CASE(g, r) \
+  if (G == g && R == r) return row_launch_at<g, r>(a);
+    CELL_SHAPES(ROW_CASE)
+#undef ROW_CASE
+  }
+  if (L > kColPass && nrows > 0 && !(th && te)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long warps = (long long)T * NS;
+  sw_row_col_kernel<<<(unsigned)((warps + kColWarps - 1) / kColWarps),
+                      kColWarps * 32, 0, a.stream>>>(
+      a.tiles, a.query, a.mat, A, T, L, NS, nrows, gop, gex, (int32_t*)th,
+      (int32_t*)te, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -1232,43 +1244,28 @@ int sw_cell_pair_launch(const void* tiles, const void* query, const void* mat,
   return (int)cudaGetLastError();
 }
 
-// The fused col launch (B6).  tiles: int8 [T, L, 32, 128]; queries: int32
-// [S, W]; starts: int32 [S + 1], the slots' first rows in one gapless run
-// and the total; hs, fs: one int32 scratch plane shaped as the tiles; out:
-// f32 [S, T, 4096].
-int sw_col_fused_launch(const void* tiles, const void* queries,
-                        const void* starts, const void* mat, int A, int T,
-                        int L, int S, int W, int gop, int gex, void* hs,
-                        void* fs, void* out, void* stream) {
-  if (T == 0 || S == 0) return 0;
-  sw_col_fused_kernel<<<grid_for(T, kCellNS), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)starts,
-      (const int32_t*)mat, A, T, L, S, W, gop, gex, (int32_t*)hs,
-      (int32_t*)fs, (float*)out);
-  return (int)cudaGetLastError();
-}
-
 // The col launch has a signature of its own.  tiles: int8 [T, L, 32, 128];
 // queries: int32 [S, W].  With rows non-null it launches col flat (B5):
 // rows, offs are int32 [S], the slots' row counts and the first rows of
 // their boundary columns in a pool of rtot rows, with no carry, exact
-// only.  With rows null it launches col (B3): one slot of W = rtot rows,
-// offs null, and hin, fin (the int32 carry in) and hout, fout (the int32
-// carry out), each shaped as the tiles or null, in pairs; sat as above.
-// th, te: the boundary columns [T * 4096, rtot], int32 (int16 when
-// sat > 0), null allowed when L <= sw_col_pass_columns(); out: f32
+// only.  With rows null and offs non-null it launches col fused (B6): offs
+// is int32 [S + 1], the slots' gapless starts in a pool of rtot =
+// offs[S] rows, slot s running offs[s + 1] - offs[s] <= W rows; no carry,
+// exact only.  With both null it launches col (B3): one slot of W = rtot
+// rows, and hin, fin (the int32 carry in) and hout, fout (the int32 carry
+// out), each shaped as the tiles or null, in pairs; sat as above.  th, te:
+// the boundary columns [T * 4096, rtot], int32 (int16 when sat > 0), null
+// allowed when L <= sw_col_pass_columns() or rtot is 0; out: f32
 // [S, T, 4096].
 int sw_col_launch(const void* tiles, const void* queries, const void* rows,
                   const void* offs, const void* mat, int A, int T, int L,
                   int S, int W, int rtot, int gop, int gex, const void* hin,
                   const void* fin, void* hout, void* fout, void* th, void* te,
                   void* out, int sat, void* stream) {
-  const bool flat = rows != nullptr;
   const bool carry_ok = !hin == !fin && !hout == !fout;
   const bool slots_ok =
-      flat ? offs && !hin && !hout && !sat && W <= rtot
-           : !offs && S == 1 && W == rtot;
+      rows || offs ? offs && !hin && !hout && !sat && (!rows || W <= rtot)
+                   : S == 1 && W == rtot;
   if (!carry_ok || !slots_ok || !sat_ok(sat) || S < 1 || S > 65535 ||
       W < 0 || (L > kColPass && rtot > 0 && !(th && te))) {
     return (int)cudaErrorInvalidValue;
@@ -1276,11 +1273,16 @@ int sw_col_launch(const void* tiles, const void* queries, const void* rows,
   if (T == 0) return 0;
   const dim3 grid((unsigned)((long long)T * kCellNS / kColWarps), (unsigned)S);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (flat) {
+  if (rows) {
     sw_col_flat_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
         (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
         (int32_t*)th, (int32_t*)te, (float*)out);
+  } else if (offs) {
+    sw_col_fused_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)offs,
+        (const int32_t*)mat, A, T, L, W, rtot, gop, gex, (int32_t*)th,
+        (int32_t*)te, (float*)out);
   } else if (sat) {
     sw_col16_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)mat, A,
@@ -1296,10 +1298,6 @@ int sw_col_launch(const void* tiles, const void* queries, const void* rows,
   }
   return (int)cudaGetLastError();
 }
-
-// Query rows per register block (kRows): the fused kernel's slot
-// boundaries must fall on multiples of it.
-int sw_kernel_rows() { return kRows; }
 
 // Subject columns per col pass: a col launch over L > this needs the
 // boundary columns.

@@ -32,8 +32,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: The launch function of the row kernel, with one signature: tiles,
-#: query, mat, A, T, L, NS, nrows, gop, gex, hs, fs, out, sat, stream
-#: (sat must be 0: the row kernel is exact only).
+#: query, mat, A, T, L, NS, nrows, gop, gex, th, te, out, sat, stream
+#: (sat must be 0: the row kernel is exact only; th and te are the col
+#: route's per-warp boundary columns, ``launch_row``).
 LAUNCHES = {"sw_row_kernel": "sw_row_launch"}
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
 #: The launch function of the cell group kernels (B1 in both state modes,
@@ -44,19 +45,16 @@ CELL_LAUNCHES = {
     "sw_cell_batch_kernel": "sw_cell_launch",
 }
 _CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
-#: The launch function of the fused col kernel on its one scratch plane,
-#: with a second signature: tiles, queries, starts, mat, A, T, L, S, W,
-#: gop, gex, hs, fs, out, stream.
-BATCH_LAUNCHES = {"sw_col_fused_kernel": "sw_col_fused_launch"}
-_BATCH_SIGNATURE = [_P] * 4 + [_I] * 7 + [_P] * 4
 #: The launch function of the col wavefront kernels (B3 in both state
-#: modes, B5; col flat when rows is non-null), with a fourth signature:
+#: modes, B5, B6; col flat when rows is non-null, col fused when rows is
+#: null and offs holds the gapless starts), with a fourth signature:
 #: tiles, queries, rows, offs, mat, A, T, L, S, W, rtot, gop, gex, hin,
 #: fin, hout, fout, th, te, out, sat, stream; th and te are the per-warp
 #: boundary columns (``launch_col``).
 COL_LAUNCHES = {
     "sw_col_kernel": "sw_col_launch",
     "sw_col_flat_kernel": "sw_col_launch",
+    "sw_col_fused_kernel": "sw_col_launch",
 }
 _COL_SIGNATURE = [_P] * 5 + [_I] * 8 + [_P] * 7 + [_I, _P]
 #: The launch functions of the tool kernels (B7, B8), with a third
@@ -116,16 +114,14 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             for names, sig in ((LAUNCHES, _SIGNATURE), (CELL_LAUNCHES, _CELL_SIGNATURE),
-                               (BATCH_LAUNCHES, _BATCH_SIGNATURE),
                                (COL_LAUNCHES, _COL_SIGNATURE),
                                (TOOL_LAUNCHES, _TOOL_SIGNATURE)):
                 for name in names.values():
                     fn = getattr(handle, name)
                     fn.argtypes = sig
                     fn.restype = ctypes.c_int
-            for name in ("sw_kernel_rows", "sw_col_pass_columns"):
-                getattr(handle, name).argtypes = []
-                getattr(handle, name).restype = ctypes.c_int
+            handle.sw_col_pass_columns.argtypes = []
+            handle.sw_col_pass_columns.restype = ctypes.c_int
             handle.sw_cell_shapes.argtypes = [_P, _I]
             handle.sw_cell_shapes.restype = ctypes.c_int
             handle.sw_error_string.argtypes = [ctypes.c_int]
@@ -198,14 +194,14 @@ def check_query_rows(query, nrows: int, dev) -> None:
         raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
 
 
-def _single_io(tiles, query, matrix_flat, params, sat: int, ndim: int):
-    """Checks and buffers of a single-query launch: device, dtype and
-    contiguity of ``tiles`` (``ndim`` dims) and ``matrix_flat``, the
-    ``params[0]`` query rows within the query block; allocates the f32
-    scores [T, NS] and the H/F scratch shaped as ``tiles`` (int32, or int16
-    for ``sat`` > 0).  Returns (A, nrows, gop, gex, out, hs, fs)."""
+def _single_io(tiles, query, matrix_flat, params, sat: int):
+    """Checks and buffers of a tool launch: device, dtype and contiguity of
+    cell ``tiles`` and ``matrix_flat``, the ``params[0]`` query rows within
+    the query block; allocates the f32 scores [T, 4096] and the H/F
+    scratch shaped as ``tiles`` (int32, or int16 for ``sat`` > 0).
+    Returns (A, nrows, gop, gex, out, hs, fs)."""
     dev = tiles.device
-    require(tiles, "tiles", torch.int8, ndim, dev)
+    require(tiles, "tiles", torch.int8, 4, dev)
     require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
     A = alphabet_dim(matrix_flat)
     nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
@@ -216,24 +212,35 @@ def _single_io(tiles, query, matrix_flat, params, sat: int, ndim: int):
     return A, nrows, gop, gex, out, hs, torch.empty_like(hs)
 
 
-def launch(wrapper, kernel: str, tiles, query, matrix_flat, params):
-    """Launch ``kernel`` (a key of LAUNCHES) on the tiles' device and stream,
-    and count the launch on ``wrapper.launches``.
+def launch_row(wrapper, tiles, query, matrix_flat, nrows: int, gop: int, gex: int,
+               pool: bool):
+    """Launch the row kernel (``sw_row_kernel``, LAUNCHES) on the tiles'
+    device and stream, and count the launch on ``wrapper.launches``.
 
-    Checks and allocates as ``_single_io``; raises if the launch reports an
-    error.  Returns the scores.  Never synchronises.
+    ``tiles``: int8 [T, L, NS]; ``query``: int32, ``nrows`` real rows.
+    Allocates the f32 scores [T, NS] and, with ``pool`` (the col route,
+    ``sw_row.row_route``), the int32 boundary columns [T * NS, nrows] x 2;
+    the cell route takes no scratch.  Raises if the launch reports an
+    error.  Never synchronises.
     """
     dev = tiles.device
-    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, 0,
-                                                 tiles.dim())
-    T, L = tiles.shape[0], tiles.shape[1]
+    require(tiles, "tiles", torch.int8, 3, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    check_query_rows(query, nrows, dev)
+    T, L, NS = tiles.shape
+    out = torch.empty((T, NS), dtype=torch.float32, device=dev)
+    th = te = None
+    if pool and nrows > 0:
+        th = torch.empty((T * NS, nrows), dtype=torch.int32, device=dev)
+        te = torch.empty_like(th)
     with torch.cuda.device(dev):
-        code = getattr(lib(), LAUNCHES[kernel])(
-            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, out.shape[1], nrows, gop, gex,
-            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), 0, stream_handle(dev),
+        code = lib().sw_row_launch(
+            tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(), A, T, L, NS, nrows,
+            gop, gex, None if th is None else th.data_ptr(),
+            None if te is None else te.data_ptr(), out.data_ptr(), 0, stream_handle(dev),
         )
-    check_launch(code, kernel)
+    check_launch(code, "sw_row_kernel")
     count(wrapper, True)
     return out
 
@@ -283,10 +290,19 @@ def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex
     return out
 
 
-def col_boundary_bytes(T: int, rows: int, sat: int = 0) -> int:
-    """Device bytes of a col launch's boundary columns: H and E for each of
-    the T x 4096 warps' ``rows`` pool rows, int32 (int16 under ``sat``)."""
-    return 2 * T * 4096 * rows * (2 if sat else 4)
+#: Device-memory budget for one tile group's temporaries: the col carry
+#: (bottom-row H and F, 8 bytes per tile char) and the col wavefront's
+#: boundary columns (H and E of each subject per query row).  Buckets whose
+#: temporaries would exceed it run one tile group at a time
+#: (``sw_col.col_group_tiles``, ``sw_row.row_route``).
+TEMP_BYTES = 1 << 30
+
+
+def col_boundary_bytes(T: int, rows: int, sat: int = 0, ns: int = 4096) -> int:
+    """Device bytes of a col wavefront launch's boundary columns: H and E
+    for each of the T x ``ns`` warps' ``rows`` pool rows, int32 (int16
+    under ``sat``)."""
+    return 2 * T * ns * rows * (2 if sat else 4)
 
 
 def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex: int,
@@ -296,9 +312,11 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
     (``count``).
 
     ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].  ``slots``:
-    None for the col kernel (one slot running all W rows), or host ints
+    None for the col kernel (one slot running all W rows); host ints
     (rows, offs, rtot) for col flat: slot s runs rows[s] rows, its boundary
-    columns at pool rows offs[s] .. of rtot.  ``state_in``: int32 (hrow,
+    columns at pool rows offs[s] .. of rtot; or (None, starts, rtot) for
+    col fused: slot s runs rows starts[s] .. starts[s + 1] of a gapless
+    pool of rtot = starts[S] rows.  ``state_in``: int32 (hrow,
     frow) shaped as ``tiles``, the row above the first query row;
     ``emit_state``: also return the last row's (H, F), int32 (clamped at
     ``sat`` under int16 state).  Allocates the f32 scores [S, T, 4096] and,
@@ -317,7 +335,8 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
     rtot = W
     if slots is not None:
         rows, offs, rtot = slots
-        rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
+        if rows is not None:
+            rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
         offs_dev = to_device(np.asarray(offs, dtype=np.int32), dev)
     hin = fin = None
     if state_in is not None:
@@ -353,10 +372,12 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
 
 def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int, arg: int):
     """Launch the tool kernel ``kernel`` (a key of TOOL_LAUNCHES) on cell
-    tiles [T, L, 32, 128], as ``launch`` does (``arg``: see
-    TOOL_LAUNCHES).  Returns the scores."""
+    tiles [T, L, 32, 128] on their device and stream, and count the launch
+    on the wrapper (``count``).  Checks and allocates as ``_single_io``
+    (``arg``: see TOOL_LAUNCHES); raises if the launch reports an error.
+    Returns the scores.  Never synchronises."""
     dev = tiles.device
-    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat, 4)
+    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat)
     with torch.cuda.device(dev):
         code = getattr(lib(), TOOL_LAUNCHES[kernel])(
             tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
@@ -365,37 +386,4 @@ def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: in
         )
     check_launch(code, kernel)
     count(wrapper, not sat)
-    return out
-
-
-def launch_batch(wrapper, kernel: str, tiles, queries, starts, matrix_flat,
-                 gop: int, gex: int):
-    """Launch the batch kernel ``kernel`` (a key of BATCH_LAUNCHES) on the
-    tiles' device and stream, and count the launch on ``wrapper.launches``.
-
-    ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W]; ``starts``:
-    host ints, the slots' first rows and the total, copied to the device
-    without blocking.  Allocates the f32 scores [S, T, 4096] and one int32
-    H/F scratch plane shaped as ``tiles``; raises if the launch reports an
-    error.  Never synchronises.
-    """
-    dev = tiles.device
-    require(tiles, "tiles", torch.int8, 4, dev)
-    require(queries, "queries", torch.int32, 2, dev)
-    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
-    A = alphabet_dim(matrix_flat)
-    T, L = tiles.shape[0], tiles.shape[1]
-    S, W = queries.shape
-    starts_dev = to_device(np.asarray(starts, dtype=np.int32), dev)
-    out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
-    hs = torch.empty(tiles.shape, dtype=torch.int32, device=dev)
-    fs = torch.empty_like(hs)
-    with torch.cuda.device(dev):
-        code = getattr(lib(), BATCH_LAUNCHES[kernel])(
-            tiles.data_ptr(), queries.data_ptr(), starts_dev.data_ptr(),
-            matrix_flat.data_ptr(), A, T, L, S, W, gop, gex,
-            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
-        )
-    check_launch(code, kernel)
-    wrapper.launches += 1
     return out

@@ -46,8 +46,8 @@ QCAP = 8192
 QCAP_BATCH = 8192
 
 #: Query-row granule: the JAX kernels' unroll, which the cell batch
-#: contract keeps (L a multiple of it), the padding granule of the col
-#: kernel's row counts, and the register block of the row kernel.
+#: contract keeps (L a multiple of it), and the padding granule of the col
+#: kernels' row counts.
 DEFAULT_UNROLL = 8
 
 #: The (G, R) instances of the cell group kernels (csrc/sw_tiles.cu,

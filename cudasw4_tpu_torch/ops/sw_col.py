@@ -46,12 +46,6 @@ FLAT_QUANT = 128
 #: prefix).
 COL_FUSE_MIN_S = int(os.environ.get("CUDASW4_TPU_TORCH_COL_FUSE_MIN_S", 0))
 
-#: Device-memory budget for one tile group's carry state (bottom-row H and
-#: F, 8 bytes per tile char) and the col kernel's boundary columns (H and E
-#: of each subject per query row).  Buckets whose state would exceed it run
-#: the query-chunk loop one tile group at a time (``col_group_tiles``).
-COL_CARRY_TEMP_BYTES = 1 << 30
-
 
 def _params(params):
     return int(params[0]), int(params[1]), int(params[2])
@@ -150,7 +144,7 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
                                temp_bytes: int | None = None, exact: bool = True):
     """Score a col bucket against a query of any length: NQC-row chunks
     with the H/F carry between them, tiles in groups whose carry and
-    boundary columns fit ``temp_bytes`` (default COL_CARRY_TEMP_BYTES;
+    boundary columns fit ``temp_bytes`` (default ``cuda_lib.TEMP_BYTES``;
     ``col_group_tiles``); ``exact=False`` runs every chunk with int16
     state.
 
@@ -169,7 +163,7 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
         qps.append((cuda_lib.to_device(qpad, dev), (nq_pad, gop, gex, 0)))
 
     T, L = tiles.shape[0], tiles.shape[1]
-    budget = COL_CARRY_TEMP_BYTES if temp_bytes is None else temp_bytes
+    budget = cuda_lib.TEMP_BYTES if temp_bytes is None else temp_bytes
     tc = col_group_tiles(T, L, max(p[1][0] for p in qps), len(chunks), budget, exact)
     parts = []
     for t0 in range(0, T, tc):
@@ -267,7 +261,8 @@ score_bucket_col_flat.plain_calls = 0
 def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
     """Scores f32 [S, T, 4096]: the flat contract with the slots' rows
     packed without gaps (sum of nqp <= ``rtot``, a multiple of
-    DEFAULT_UNROLL) and walked as one run, one scratch plane for the pass.
+    DEFAULT_UNROLL), slot s's boundary columns in rows [starts[s],
+    starts[s + 1]) of one gapless pool of sum(nqp) rows.
     """
     rtot, nqps = _flat_contract(tiles, queries, params, rtot)
     if rtot % DEFAULT_UNROLL:
@@ -277,14 +272,11 @@ def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
     if tiles.device.type == "cpu":
         score_bucket_col_flat_fused.plain_calls += 1
         return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
-    # Slot boundaries land on the kernel's register-block starts only while
-    # its block is the unroll that every nqp is a multiple of.
-    assert cuda_lib.lib().sw_kernel_rows() == DEFAULT_UNROLL == 8
     starts = [0, *itertools.accumulate(nqps)]
-    return cuda_lib.launch_batch(
-        score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, starts,
-        matrix_flat, int(params[1]), int(params[2]),
-    )
+    return cuda_lib.launch_col(
+        score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, matrix_flat,
+        int(params[1]), int(params[2]), slots=(None, starts, starts[-1]),
+    )[0]
 
 
 score_bucket_col_flat_fused.launches = 0

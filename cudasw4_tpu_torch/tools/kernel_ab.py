@@ -10,10 +10,12 @@ kernels (cell and col also in int16 state), the manual-staging and pair
 kernels, and the batch kernels on the same seeded inputs: CUDA events,
 the mean of 5 launches after one warm-up.  Prints one JSON line per run,
 with the card's name and power limit, then a summary line with each
-kernel's median per checkout, then one line naming the kernels whose SASS
-(``cuobjdump -sass`` of the two libraries, the anonymous namespace's
-hashed names stripped) is identical in both checkouts and those whose
-SASS differs.
+kernel's median per checkout and the seconds each checkout's first run
+took to build and load its library, then one line naming the kernels
+whose SASS (``cuobjdump -sass`` of the two libraries, the anonymous
+namespace's hashed names stripped) is identical in both checkouts and
+those whose SASS differs, with the SASS line counts (A, B) of the
+kernels both libraries hold.
 
 ``--sweep`` times, in one checkout, every (G, R) instance of the cell
 kernels that its library holds (``cuda_lib.cell_shapes``) with G x R equal
@@ -30,14 +32,16 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 #: (kernel, tiles shape, query rows): the main-path shapes of the
 #: Swiss-Prot-scale database's buckets with the 464-aa query (the cell
 #: buckets of L = 64, 128, 256 and the largest, 640, at their tile counts;
 #: the largest row and col buckets), the largest cell bucket in int16
 #: state ("cell16") and through the manual-staging and pair (P = 2)
-#: kernels, the top col bucket with the 144-aa query and in int16 state
-#: ("col16"), and one full col chunk.
+#: kernels, row buckets on the row kernel's cell route at (16, 32) and on
+#: its col route (L = 2304), the top col bucket with the 144-aa query and
+#: in int16 state ("col16"), and one full col chunk.
 CASES = (
     ("cell", (12, 640, 32, 128), 464),
     ("cell", (1, 64, 32, 128), 464),
@@ -47,6 +51,8 @@ CASES = (
     ("manual", (12, 640, 32, 128), 464),
     ("pair", (12, 640, 32, 128), 464),
     ("row", (11, 48, 128), 464),
+    ("row", (16, 512, 128), 464),
+    ("row", (4, 2304, 128), 464),
     ("col", (1, 5632, 32, 128), 464),
     ("col", (1, 5632, 32, 128), 144),
     ("col16", (1, 5632, 32, 128), 464),
@@ -74,11 +80,15 @@ def _child(tree: str) -> dict:
     from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     assert cuda_lib.__file__.startswith(tree), cuda_lib.__file__
+    out = {"library": str(cuda_lib.library_path())}
+    built = not cuda_lib.library_path().exists()
+    t0 = time.perf_counter()
     cuda_lib.lib()
+    if built:
+        out["build_seconds"] = time.perf_counter() - t0
     cfg = make_scoring_config("blosum62")
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
     rng = np.random.default_rng(1)
-    out = {"library": str(cuda_lib.library_path())}
     for kind, shape, nq in CASES:
         t = _tiles(rng, shape, cfg.pad_code)
         q = np.full(max(nq, 3072 if kind.startswith("col") else 8192), cfg.pad_code, np.int32)
@@ -225,14 +235,18 @@ def main(argv=None) -> int:
             times = json.loads(res.stdout.strip().splitlines()[-1])
             runs[tree].append(times)
             print(json.dumps({"tree": tree, "card": card, "ms": times}), flush=True)
+    notime = ("library", "build_seconds")
     print(json.dumps({"card": card, "median_ms": {
-        tree: {k: statistics.median(r[k] for r in rs if k in r) for k in rs[0] if k != "library"}
+        tree: {k: statistics.median(r[k] for r in rs if k in r) for k in rs[0] if k not in notime}
         for tree, rs in runs.items()
-    }}), flush=True)
+    }, "build_seconds": {tree: [r["build_seconds"] for r in rs if "build_seconds" in r]
+                         for tree, rs in runs.items()}}), flush=True)
     a, b = (_sass(runs[tree][0]["library"]) for tree in argv)
     same = sorted(k for k in a if k in b and a[k] == b[k])
     print(json.dumps({"sass_identical": same,
-                      "sass_differs_or_new": sorted(set(a) ^ set(b) | {k for k in a if k in b and a[k] != b[k]})}),
+                      "sass_differs_or_new": sorted(set(a) ^ set(b) | {k for k in a if k in b and a[k] != b[k]}),
+                      "sass_lines_differing": {k: [a[k].count("\n"), b[k].count("\n")]
+                                               for k in a if k in b and a[k] != b[k]}}),
           flush=True)
     return 0
 

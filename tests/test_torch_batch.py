@@ -128,6 +128,30 @@ def test_col_flat_and_fused_plain_equal_pallas(col_geometry, mat, case):
     assert np.array_equal(want_f, want)
 
 
+def test_fused_wrapper_device_arguments(monkeypatch):
+    """B6's launch arguments on a device tensor (here "meta", so that no
+    kernel runs): the slots' gapless starts, whatever the slot sizes (0
+    rows, offsets that are no multiple of 32), and a pool of sum(nqp)
+    rows, not the contract's rtot."""
+    from cudasw4_tpu_torch.ops import cuda_lib
+
+    calls = []
+
+    def fake(wrapper, kernel, tiles, queries, matrix_flat, gop, gex, slots=None, **kw):
+        calls.append((wrapper, kernel, gop, gex, slots, kw))
+        return torch.zeros((queries.shape[0], tiles.shape[0], 4096)), None
+
+    monkeypatch.setattr(cuda_lib, "launch_col", fake)
+    nqps = (16, 0, 8, 40, 24)
+    t = torch.empty((1, 1152, 32, 128), dtype=torch.int8, device="meta")
+    q = torch.empty((len(nqps), 64), dtype=torch.int32, device="meta")
+    m = torch.empty(441, dtype=torch.int32, device="meta")
+    got = sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, *nqps), rtot=3072)
+    assert got.shape == (5, 1, 4096)
+    assert calls == [(sw_col.score_bucket_col_flat_fused, "sw_col_fused_kernel", -11, -1,
+                      (None, [0, 16, 16, 24, 64, 88], 88), {})]
+
+
 # ---------------------------------------------------------------- plan
 
 REFERENCE_PADS = [144, 192, 224, 376, 464, 568, 664, 736, 856, 1000, 1504, 2008, 2504, 3008]

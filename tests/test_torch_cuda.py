@@ -185,6 +185,70 @@ def test_row_kernel_equals_plain(dev, mat, L, NS):
     assert torch.equal(got.cpu(), want)
 
 
+#: B2's lengths: both sides of the cell route's end (768; 784, one 16-step
+#: past it), L no multiple of 16 on each route, a partial last col pass
+#: (1100) and full ones (2304).
+ROW_LS = [37, 48, 768, 784, 1100, 2304]
+
+
+def _row_inputs(rng, shape, mat):
+    """Row tiles with ragged subjects, lanes 0-2 of tile 0 of L, L - 1 and
+    1 residues and the last 5 lanes empty; the matrix and the config."""
+    cfg = make_scoring_config(mat)
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    T, L, NS = shape
+    x = _tiles(rng, shape, pad, T * NS - 5, A)
+    for lane, n in enumerate((L, L - 1, 1)):
+        x[0, :, lane] = rng.integers(0, A - 1, size=L)
+        x[0, n:, lane] = pad
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
+    return torch.as_tensor(x), m, cfg
+
+
+@pytest.mark.parametrize("NS", [128, 256])
+@pytest.mark.parametrize("L", ROW_LS)
+def test_row_kernel_routes_equal_plain(dev, L, NS):
+    """B2 on its cell route (L <= 768, at cell_shape(L)) and its col route,
+    at nq = 1, 29 and 464, against the plain version on the card; one
+    launch a call.  The alphabets alternate by case."""
+    k = ROW_LS.index(L) + (NS == 256)
+    rng = np.random.default_rng(60 + k)
+    t, m, cfg = _row_inputs(rng, (3, L, NS), MATS[k % 2])
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    t, m = t.to(dev), m.to(dev)
+    q = torch.as_tensor(_query(rng, 464, 512, pad, A)).to(dev)
+    assert sw_row.row_route(3, L, NS, 464)[0] == ("cell" if L <= 768 else "col")
+    for nq in (1, 29, 464):
+        p = (nq, cfg.gop, cfg.gex, -(-nq // 8) * 8)
+        want = sw_row.score_bucket_row_plain(t, q, m, p)
+        before = sw_row.score_bucket_row.launches
+        got = sw_row.score_bucket_row(t, q, m, p)
+        assert sw_row.score_bucket_row.launches == before + 1
+        assert torch.equal(got, want), f"nq={nq}"
+
+
+@pytest.mark.parametrize("L,NS,nq,groups", [(1100, 128, 3100, 3), (784, 30, 464, 2),
+                                            (48, 30, 464, 1), (784, 100, 0, 1)])
+def test_row_kernel_long_queries_odd_widths_and_groups(dev, L, NS, nq, groups):
+    """B2 against the plain version on the card: a query past NQC rows on
+    the col route, widths whose T x NS fills no whole block (30 and 100
+    lanes), an empty query, and tile groups: a budget of ceil(T / groups)
+    tiles' boundary columns gives ``groups`` launches."""
+    rng = np.random.default_rng(70 + L + NS)
+    T = 3
+    t, m, cfg = _row_inputs(rng, (T, L, NS), "blosum62")
+    t, m = t.to(dev), m.to(dev)
+    q = torch.as_tensor(_query(rng, nq, max(nq, 8), cfg.pad_code, cfg.alphabet_size)).to(dev)
+    p = (nq, cfg.gop, cfg.gex, -(-nq // 8) * 8)
+    per_tile = cuda_lib.col_boundary_bytes(1, nq, ns=NS)
+    budget = max(1, -(-T // groups) * per_tile)
+    want = sw_row.score_bucket_row_plain(t, q, m, p)
+    before = sw_row.score_bucket_row.launches
+    got = sw_row.score_bucket_row(t, q, m, p, temp_bytes=budget)
+    assert sw_row.score_bucket_row.launches == before + groups
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("mat", MATS)
 def test_col_kernel_carry_equals_plain(dev, mat):
     """One chunk emitting its state, then a chunk taking it and emitting
@@ -413,6 +477,35 @@ def test_col_flat_and_fused_kernels_equal_plain(dev, mat, slots):
     assert sw_col.score_bucket_col_flat_fused.launches == fused0 + 1
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got_f.cpu(), want)
+
+
+#: B6's gapless slots: an empty one, slots that start at offsets no
+#: multiple of 32 (8, 48, 88, 152) and cross 32-row groups of the pool.
+FUSED_NQPS = (8, 0, 40, 40, 24, 64, 8)
+
+
+@pytest.mark.parametrize("L", [512, 1152])
+@pytest.mark.parametrize("mat", MATS)
+def test_col_fused_gapless_slots_equal_plain(dev, mat, L):
+    """B6 on one pass of FUSED_NQPS at L = 512 (one pass: no pool) and
+    L = 1152 (three passes through the gapless pool), against the plain
+    version and the flat kernel on the card; real rows below each nqp."""
+    rng = np.random.default_rng(19 + L)
+    lens = [max(0, n - 3) for n in FUSED_NQPS]
+    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, L, 32, 128), lens, 64)
+    _edge_lanes(tiles, cfg.pad_code, rng)
+    params = (0, cfg.gop, cfg.gex, 0, *FUSED_NQPS)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    want = sw_col.score_bucket_col_flat_plain(t, qd, md, params)
+    before = sw_col.score_bucket_col_flat_fused.launches
+    got = sw_col.score_bucket_col_flat_fused(t, qd, md, params, rtot=256)
+    offs = tuple(64 * s for s in range(len(FUSED_NQPS)))
+    flat = sw_col.score_bucket_col_flat(t, qd, md, params, offs, rtot=512)
+    torch.cuda.synchronize()
+    assert sw_col.score_bucket_col_flat_fused.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(flat, want)
+    assert not bool(got[1].any())
 
 
 def test_engine_batch_cuda_equals_cpu_and_singles(dev, monkeypatch):

@@ -83,24 +83,71 @@ def test_cell_plain_equals_pallas_cell(mat):
 def test_row_plain_equals_pallas_row():
     """Classic alphabet only: the row kernel's interpret-mode trace is the
     slowest here, and both alphabets run through the same plain formula
-    (test_sw_torch_equals_sw_jax) and the row kernel on the card."""
+    (test_sw_torch_equals_sw_jax) and the row kernel on the card.  A
+    bucket of 128 lanes at L = 32, and one of 256 lanes past the largest
+    cell instance (L = 800: the card's col route)."""
     rng = np.random.default_rng(22)
     cfg = jax_scoring("blosum62")
     pad = cfg.pad_code
-    tiles = _tiles(rng, (1, 32, 128), pad, 128 - 7)
-    codes = rng.integers(0, 25 if pad == 25 else 20, size=30)
-    q, nq = sw_row.prepare_query(codes, qcap=128, pad=pad)
-    jq, jnq = prepare_query(codes, qcap=128, pad=pad)
-    assert np.array_equal(q, jq) and nq == jnq == 30
-    params = np.array([30, cfg.gop, cfg.gex, 32], np.int32)
-    want = score_bucket_pallas(
-        jnp.asarray(tiles), jnp.asarray(q), jnp.asarray(_mat(cfg)), jnp.asarray(params),
-        interpret=True,
-    )
-    got = sw_row.score_bucket_row(
-        torch.as_tensor(tiles), torch.as_tensor(q), torch.as_tensor(_mat(cfg)), params
-    )
-    assert np.array_equal(got.numpy(), np.asarray(want))
+    for shape, nq in (((1, 32, 128), 30), ((2, 800, 256), 21)):
+        tiles = _tiles(rng, shape, pad, shape[0] * shape[2] - 7)
+        codes = rng.integers(0, 25 if pad == 25 else 20, size=nq)
+        q, n = sw_row.prepare_query(codes, qcap=128, pad=pad)
+        jq, jnq = prepare_query(codes, qcap=128, pad=pad)
+        assert np.array_equal(q, jq) and n == jnq == nq
+        params = np.array([nq, cfg.gop, cfg.gex, -(-nq // 8) * 8], np.int32)
+        want = score_bucket_pallas(
+            jnp.asarray(tiles), jnp.asarray(q), jnp.asarray(_mat(cfg)), jnp.asarray(params),
+            interpret=True,
+        )
+        got = sw_row.score_bucket_row(
+            torch.as_tensor(tiles), torch.as_tensor(q), torch.as_tensor(_mat(cfg)), params
+        )
+        assert np.array_equal(got.numpy(), np.asarray(want)), shape
+
+
+def test_row_route_cell_then_col_with_pool_groups():
+    """The row kernel's route: the cell group routine at cell_shape(L) up
+    to the largest instance (768), with no scratch; past it the col
+    wavefront, its int32 boundary columns [tiles x NS, nrows] x 2 sized
+    per tile group within the budget (at least one tile a group)."""
+    for L in (1, 16, 37, 48, 256, 577, 640, 768):
+        assert sw_row.row_route(11, L, 128, 464) == ("cell", sw_cell.cell_shape(L), 11, 0)
+    per_tile = 2 * 128 * 464 * 4
+    for L in (769, 784, 1100, 2304):
+        assert sw_row.row_route(11, L, 128, 464) == ("col", None, 11, 11 * per_tile)
+    assert sw_row.row_route(11, 2304, 128, 464, budget=3 * per_tile + 5) == (
+        "col", None, 3, 3 * per_tile)
+    assert sw_row.row_route(4, 784, 256, 8192, budget=1) == ("col", None, 1, 2 * 256 * 8192 * 4)
+    assert sw_row.row_route(3, 900, 256, 0) == ("col", None, 3, 0)
+    big = 2 * 128 * 16384 * 4  # a 16,384-row query: 64 tiles in the default budget
+    assert sw_row.row_route(100, 1100, 128, 16384)[2:] == (64, 64 * big)
+
+
+def test_row_wrapper_launches_a_group_at_a_time(monkeypatch):
+    """On a device tensor (here "meta", so that no kernel runs) the row
+    wrapper launches the cell route once without a pool, and the col route
+    once per tile group with one."""
+    from cudasw4_tpu_torch.ops import cuda_lib
+
+    calls = []
+
+    def fake(wrapper, tiles, query, matrix_flat, nrows, gop, gex, pool):
+        calls.append((tuple(tiles.shape), nrows, gop, gex, pool))
+        return torch.zeros((tiles.shape[0], tiles.shape[2]))
+
+    monkeypatch.setattr(cuda_lib, "launch_row", fake)
+    q = torch.empty(512, dtype=torch.int32, device="meta")
+    m = torch.empty(441, dtype=torch.int32, device="meta")
+    t = torch.empty((5, 48, 128), dtype=torch.int8, device="meta")
+    assert sw_row.score_bucket_row(t, q, m, (464, -11, -1, 464)).shape == (5, 128)
+    assert calls == [((5, 48, 128), 464, -11, -1, False)]
+    calls.clear()
+    t = torch.empty((5, 2304, 128), dtype=torch.int8, device="meta")
+    got = sw_row.score_bucket_row(t, q, m, (464, -11, -1, 464), temp_bytes=2 * 2 * 128 * 464 * 4)
+    assert got.shape == (5, 128)
+    assert calls == [((2, 2304, 128), 464, -11, -1, True), ((2, 2304, 128), 464, -11, -1, True),
+                     ((1, 2304, 128), 464, -11, -1, True)]
 
 
 @pytest.fixture
