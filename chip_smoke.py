@@ -55,11 +55,23 @@ non-zero:
    int32 state, timed in turns.
 6. long_query: the two longest queries joined (> QCAP = 8192 aa) against
    the Swiss-Prot-scale database, hits against the oracle, GCUPS.
-7. tools: dmabench and pairbench at their defaults, every line OK.
-8. kernels line: per kernel, its launches on its path (align for the
+7. stream: the same database streamed under --maxGpuMem 736M
+   --maxBatchBytes 16M (phase_stream): makedb --prepackStream builds the
+   tile store and its b32 sidecar; align on the 20 queries in one pass
+   writes phase 4's TSV byte for byte, launches B1-B5, keeps its prefix
+   within budget and its peak memory within --maxGpuMem and below the
+   resident align's; so do the prefix off, raw and b21 chunks, --dpx
+   and the fused col kernel (B6); all 573k streamed scores of two queries
+   equal the resident engine's; streamed and resident timed in turns,
+   the copy stream's and the link's GB/s, the unpack per chunk, the idle
+   share, and a projection to a TrEMBL-sized database.
+8. tools: dmabench and pairbench at their defaults, every line OK.
+9. kernels line: per kernel, its launches on its path (align for the
    exact kernels, align --dpx for the int16 modes, the tools for the
    manual and pair kernels; each path's counters are reset just before
-   it and read just after) and its time, bound and plain time at its
+   it and read just after), its launches on the streamed align
+   (``stream_launches``, B6 from the fused streamed pass), and its time,
+   bound and plain time at its
    main-path shape: the largest bucket of its kind, with the 464-aa query
    for the single-query kernels (and the manual and pair kernels), the
    batch of 14 for the cell batch, and the widest plan pass for the col
@@ -82,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -748,8 +761,9 @@ def check_path(counts, path, launched):
         check(counts[name][0] > 0, f"{path}: the {name} kernel never launched")
 
 
-def device_idle_share(run):
-    """Trace ``run`` with torch.profiler and measure the card's idle share:
+def device_idle_share(run, name="queries_trace.json"):
+    """Trace ``run`` with torch.profiler into WORK/``name`` and measure the
+    card's idle share:
     1 - (union of the device's kernel, copy and set intervals) / (first
     device start to last device end).  Returns a dict with the share, the
     spans in microseconds and the kernel launches (the port's by name,
@@ -757,7 +771,7 @@ def device_idle_share(run):
     device events."""
     from torch.profiler import ProfilerActivity, profile
 
-    path = os.path.join(WORK, "queries_trace.json")
+    path = os.path.join(WORK, name)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -1107,7 +1121,7 @@ def phase_sprot(clock_mhz):
         "seconds": time.perf_counter() - t_phase,
     })
     ctx = {"prefix": prefix, "tsv": tsv, "queries": queries, "db": db, "cfg": cfg, "eng": eng,
-           "total_gcups": total_gcups}
+           "total_gcups": total_gcups, "fasta": fasta, "align_peak": align_peak}
     return {k["name"]: k for k in kernels}, ctx
 
 
@@ -1292,6 +1306,286 @@ def phase_long_query(ctx):
           "seconds": time.perf_counter() - t_phase})
 
 
+# -------------------------------------------------------- phase stream
+
+#: Phase stream's configuration: --maxGpuMem (the device budget that
+#: stands in for a card too small for the database and a pass's working
+#: memory) and --maxBatchBytes (the chunk cap), applied to phase 4's
+#: database; 40-60% of its padded bytes then stream, and every streamed
+#: align's peak device memory must stay within the budget.
+STREAM_GPU_MEM, STREAM_BATCH_BYTES = "736M", "16M"
+STREAM_SHARE = (0.40, 0.60)
+#: The projection's database: TrEMBL's order of sequences, with phase 4's
+#: length model (a projection from this run's rates, not a run).
+TREMBL_SEQUENCES = 250_000_000
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wall(fn):
+    """(result, seconds) of ``fn`` on the host clock, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_stream(ctx, kernels):
+    """The streaming engine on phase 4's database under a device budget of
+    STREAM_GPU_MEM: makedb --prepackStream builds the store and its b32
+    sidecar; align streams the 20 queries (one pass: 14 batched, 6 one by
+    one on every chunk), TSV byte for byte phase 4's, its counters B1-B5,
+    its prefix within budget, its peak memory within STREAM_GPU_MEM and
+    below the resident align's; the same with the prefix off, raw and b21
+    chunks, --dpx (still exact) and COL_FUSE_MIN_S = 3 (B6); all 573k
+    streamed scores of a 464-aa and a 5478-aa query against the resident
+    engine's; then streamed against resident in turns (the 20 queries, and
+    the 144-aa and 464-aa ones alone), the copy stream's and the link's GB/s, the
+    unpack's ms per chunk, the idle share from traces of the 20 queries
+    and of the 464-aa one, and a projection to a TrEMBL-sized database."""
+    import shutil
+
+    from cudasw4_tpu_torch.cli import align, makedb
+    from cudasw4_tpu_torch.cli.align import parse_memory_string
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.db.format import load_db
+    from cudasw4_tpu_torch.engine import SearchEngine
+    from cudasw4_tpu_torch.engine_streaming import stream_work_bytes
+    from cudasw4_tpu_torch.ops import pack5, sw_col
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "sprot")
+    with open(ctx["tsv"]) as f:
+        exact_text = f.read()
+    queries, cfg, res_eng = ctx["queries"], ctx["cfg"], ctx["eng"]
+    budget = parse_memory_string(STREAM_GPU_MEM)
+
+    # The store: a fresh prefix, so that makedb builds the tile store and
+    # its sidecar in one pass.
+    sprefix = os.path.join(d, "sprot_stream")
+    store = sprefix + "0.tpupack.npz"
+    for path in (store, store + ".tiles"):
+        if os.path.exists(path):
+            os.remove(path)
+    shutil.rmtree(store + ".pack5", ignore_errors=True)
+    t0 = time.perf_counter()
+    rc, out = run_cli(makedb, [ctx["fasta"], sprefix, "--prepackStream", STREAM_GPU_MEM])
+    t_store = time.perf_counter() - t0
+    check(rc == 0 and "TIMING: tile store + transfer sidecar" in out,
+          f"makedb --prepackStream failed or wrote no sidecar: {out[-300:]}")
+    store_bytes = {"tiles": os.path.getsize(store + ".tiles"), "npz": os.path.getsize(store),
+                   "sidecar": sum(os.path.getsize(os.path.join(store + ".pack5", f))
+                                  for f in os.listdir(store + ".pack5"))}
+
+    engines, real_set = [], SearchEngine.set_database
+
+    def spy(self, *a, **k):
+        engines.append(self)
+        return real_set(self, *a, **k)
+
+    def stream_align(name, *extra, **env):
+        """One streamed align of the 20 queries; its TSV must be phase 4's."""
+        tsv = os.path.join(d, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        SearchEngine.set_database = spy
+        try:
+            with environ(**env):
+                reset_counts()
+                t0 = time.perf_counter()
+                rc, out = run_cli(align, [
+                    "--query", QUERY_SET, "--db", sprefix, "--top", "10", "--tsv", "--verbose",
+                    "--of", tsv, "--maxGpuMem", STREAM_GPU_MEM, "--maxBatchBytes", STREAM_BATCH_BYTES,
+                    *extra,
+                ])
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+        finally:
+            SearchEngine.set_database = real_set
+        peak = torch.cuda.max_memory_allocated() - base
+        check(rc == 0, f"streamed align ({name}) failed")
+        check(peak <= budget, f"streamed align ({name}): peak {peak} B above base "
+                              f"passes --maxGpuMem {STREAM_GPU_MEM} ({budget} B)")
+        with open(tsv) as f:
+            check(f.read() == exact_text, f"streamed align ({name}): TSV differs from phase 4's")
+        eng = engines[-1]
+        check(eng.streaming, f"streamed align ({name}) did not stream")
+        total = [line for line in out.splitlines() if line.startswith("Total time:")][0]
+        check(not any(counts[k][0] for k in ("cell16", "col16", "manual", "manual16", "pair")),
+              f"streamed align ({name}) launched an int16 or tool kernel")
+        run = {"name": name, "gcups": float(total.split(", ")[1].replace(" GCUPS", "")),
+               "align_seconds": seconds, "peak_device_bytes_above_base": peak,
+               "codec": eng._stream_codec, "prefix_bytes": eng._prefix_bytes,
+               "prefix_tile_bytes": sum(eng._res_tiles.get(bi, 0) * b.L * b.NS
+                                        for bi, b in enumerate(eng.packed.buckets)),
+               "prefix_budget": eng._prefix_budget(), "work_bytes": eng._work_bytes,
+               "temp_bytes": eng._temp_bytes, **eng.stream_copy_stats(),
+               "launches": {k: v[0] for k, v in counts.items()}}
+        check_path(counts, f"streamed align ({name})", ())
+        return run, counts, eng
+
+    main, counts, eng = stream_align("hits_stream.tsv")
+    padded = eng.packed.total_padded_chars
+    share = 1.0 - main["prefix_tile_bytes"] / padded
+    check_path(counts, "streamed align", ("cell", "row", "col", "cell_batch", "col_flat"))
+    check(main["prefix_bytes"] <= max(0, main["prefix_budget"]), "the prefix exceeds its budget")
+    check(STREAM_SHARE[0] <= share <= STREAM_SHARE[1],
+          f"{share:.3f} of the padded bytes streamed, expected {STREAM_SHARE}")
+    check(main["peak_device_bytes_above_base"] < ctx["align_peak"],
+          f"streamed peak {main['peak_device_bytes_above_base']} >= resident {ctx['align_peak']}")
+    check(main["codec"] == "b32" and main["chunks"] > 0, "the main streamed run is not b32 chunks")
+    for kname, short in (("sw_cell_kernel", "cell"), ("sw_row_kernel", "row"),
+                         ("sw_col_kernel", "col"), ("sw_cell_batch_kernel", "cell_batch"),
+                         ("sw_col_flat_kernel", "col_flat")):
+        kernels[kname]["stream_launches"] = counts[short][0]
+    variants = [main]
+    run, _, v = stream_align("hits_stream_noprefix.tsv", CUDASW4_TPU_TORCH_STREAM_RESIDENT="0")
+    check(v._resident_chunks == [] and run["prefix_bytes"] == 0, "prefix off kept a prefix")
+    variants.append(run)
+    run, dpx_counts, v = stream_align("hits_stream_dpx.tsv", "--dpx")
+    check(v.state16 and dpx_counts["cell_batch"][0] > 0, "--dpx did not stream its batch")
+    variants.append(run)
+    sw_col.COL_FUSE_MIN_S = 3
+    try:
+        run, fused_counts, _ = stream_align("hits_stream_fused.tsv")
+    finally:
+        sw_col.COL_FUSE_MIN_S = 0
+    check(fused_counts["col_fused"][0] > 0, "the fused pass launched no B6")
+    kernels["sw_col_fused_kernel"]["stream_launches"] = fused_counts["col_fused"][0]
+    variants.append(run)
+    run, _, v = stream_align("hits_stream_raw.tsv", CUDASW4_TPU_TORCH_STREAM_PACK="0")
+    check(v._stream_pack is None and run["codec"] is None, "raw chunks were packed")
+    variants.append(run)
+    run, _, v = stream_align("hits_stream_b21.tsv", CUDASW4_TPU_TORCH_STREAM_PACK="2")
+    check(run["codec"] == "b21", "b21 chunks were not b21")
+    variants.append(run)
+    for k in kernels.values():
+        k.setdefault("stream_launches", 0)
+
+    # Every streamed score of two queries against the resident engine's.
+    db = load_db(sprefix)
+    seng = SearchEngine(scoring=cfg, num_top=10, max_device_bytes=budget,
+                        stream_chunk_bytes=parse_memory_string(STREAM_BATCH_BYTES))
+    seng.set_database(db, pack_cache=store)
+    check(seng.streaming and seng._stream_codec == "b32", "the streamed engine is not b32")
+    n = db.num_sequences
+    whole = {}
+    for qlen in (464, 5478):
+        codes = encode(next(q for q in queries if len(q) == qlen))
+        got = torch.full((n,), -1.0, device="cuda")
+        for rows, sidx in seng._stream_rows([codes]):
+            ids = sidx.reshape(-1).long()
+            keep = ids >= 0
+            got[ids[keep]] = rows[0][keep]
+        want = torch.full((n,), -1.0, device="cuda")
+        want[res_eng._flat_idx[res_eng._valid]] = res_eng.slot_scores(codes)[res_eng._valid]
+        check(bool((want >= 0).all()) and torch.equal(got, want),
+              f"{qlen}-aa query: {int((got != want).sum())} streamed scores differ from resident")
+        whole[qlen] = n
+
+    # Streamed against resident, in turns, after one untimed pass each.
+    cells = float(sum(len(q) for q in queries)) * res_eng.packed.total_real_chars
+    turns = {"resident": [], "streamed": []}
+    for who in ("resident", "streamed", "resident", "streamed", "streamed", "resident"):
+        e = res_eng if who == "resident" else seng
+        _, sec = wall(lambda: list(e.scan_many(queries)))
+        turns[who].append(sec)
+    turns = {k: v[1:] for k, v in turns.items()}
+    pass_stats = seng.stream_copy_stats()
+    single, single_stats = {}, {}
+    for qlen in (144, 464):
+        q = next(q for q in queries if len(q) == qlen)
+        single[qlen] = {"resident": [], "streamed": []}
+        for who in ("resident", "streamed", "streamed", "resident"):
+            e = res_eng if who == "resident" else seng
+            _, sec = wall(lambda: e.scan(q))
+            single[qlen][who].append(sec)
+        single_stats[qlen] = seng.stream_copy_stats()
+    mid = next(q for q in queries if len(q) == 464)
+
+    # The link: one 256 MiB page-locked -> device copy.
+    host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    link_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), reps=5)
+    del host, dev
+
+    # The unpack per chunk: the largest streamed chunk (the L = 5632 col
+    # tile) and a 16 MB cell chunk, both codecs.
+    unpack = {}
+    for b in (seng.packed.buckets[-1], max(seng.packed.buckets, key=lambda b: b.L if b.kernel == "cell" else 0)):
+        ct = seng._chunk_tiles(b)
+        tiles = np.ascontiguousarray(b.tiles[:ct])
+        for codec in ("b32", "b21"):
+            words = torch.as_tensor(pack5.CODECS[codec][2](tiles)).cuda()
+            fn = pack5.CODECS[codec][3]
+            got = fn(words, tuple(tiles.shape[1:]))
+            check(np.array_equal(got.cpu().numpy(), tiles), f"{codec} unpack differs on the card")
+            ms = cuda_ms(lambda: fn(words, tuple(tiles.shape[1:])), reps=10)
+            unpack[f"{codec} {list(tiles.shape)}"] = {
+                "ms": ms, "bytes_out": tiles.size, "bytes_in": words.numel() * 4,
+                "out_gb_per_s": tiles.size / ms / 1e6}
+
+    profiled = device_idle_share(lambda: list(seng.scan_many(queries)), "stream_trace.json")
+    profiled_single = device_idle_share(lambda: seng.scan(mid), "stream_464_trace.json")
+
+    # A projection, not a run: TREMBL_SEQUENCES with this length model
+    # (every bucket's tiles scaled), 0.7 of this card's memory as the
+    # budget, the prefix as the engine sizes it at the default chunk caps;
+    # the rest crosses the link at this run's copy rate, and the 20
+    # queries score at this run's resident rate.
+    scale = TREMBL_SEQUENCES / db.num_sequences
+    copy_gbps = pass_stats["bytes"] / pass_stats["copy_ms"] / 1e6
+    big_budget = 0.7 * torch.cuda.get_device_properties(0).total_memory
+    big_work = stream_work_bytes([(b.L, b.NS, b.kernel, math.ceil(b.num_tiles * scale))
+                                  for b in seng.packed.buckets])[0]
+    raw_streamed = scale * padded - min(big_budget - big_work, 0.85 * big_budget)
+    wire = raw_streamed * pass_stats["bytes"] / (padded - main["prefix_tile_bytes"])
+    compute_s = scale * min(turns["resident"])
+    transfer_s = wire / (copy_gbps * 1e9)
+    emit({
+        "phase": "stream", "store_seconds": t_store, "store_bytes": store_bytes,
+        "gpu_mem": STREAM_GPU_MEM, "batch_bytes": STREAM_BATCH_BYTES,
+        "padded_db_bytes": padded, "prefix_bytes": main["prefix_bytes"],
+        "prefix_tile_bytes": main["prefix_tile_bytes"], "work_bytes": main["work_bytes"],
+        "prefix_budget": main["prefix_budget"], "streamed_share": share,
+        "align_runs": variants, "resident_align_gcups": ctx["total_gcups"],
+        "resident_align_peak_device_bytes": ctx["align_peak"],
+        "whole_scores_equal": whole,
+        "turns_20_queries_seconds": turns,
+        "gcups_20_streamed": cells / min(turns["streamed"]) / 1e9,
+        "gcups_20_resident": cells / min(turns["resident"]) / 1e9,
+        "pass_20": pass_stats, "copy_gb_per_s": copy_gbps,
+        "single_seconds": single, "single_pass": single_stats,
+        "link_256mib_ms": link_ms, "link_gb_per_s": (256 << 20) / link_ms / 1e6,
+        "unpack_per_chunk": unpack, "profiled_streamed_20": profiled,
+        "profiled_streamed_464": profiled_single,
+        "projection_trembl": {
+            "note": "projection from this run's rates, not a run",
+            "sequences": TREMBL_SEQUENCES, "scale": scale, "padded_bytes": scale * padded,
+            "budget_bytes": big_budget, "work_bytes": big_work,
+            "streamed_wire_bytes_per_pass": wire,
+            "transfer_seconds_per_pass": transfer_s, "compute_seconds_20_queries": compute_s,
+            "transfer_share_if_serial": transfer_s / (transfer_s + compute_s)},
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
 # --------------------------------------------------------- phase tools
 
 def phase_tools(kernels):
@@ -1341,6 +1635,7 @@ def main() -> int:
     kernels, ctx = phase_sprot(clock_mhz)
     phase_state16(ctx, kernels)
     phase_long_query(ctx)
+    phase_stream(ctx, kernels)
     phase_tools(kernels)
     for k in kernels.values():
         check(k["launches"], f"{k['name']} never launched on its path")

@@ -3,9 +3,13 @@ cudasw4_tpu/cli/align.py).
 
 The same flag surface and byte-identical plain and TSV output as the JAX
 package's align, plus ``--device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain PyTorch versions).  Options whose paths later slices of
-the port bring (streaming, profiling, tuning) raise NotImplementedError
-naming the slice.
+kernels' plain PyTorch versions).  The packed tiles are stored beside the
+database (``<db>0.tpupack.npz``, the JAX package's tile store): built on
+the first run, memmapped on the next.  A database whose tiles and a
+streamed pass's working memory pass ``--maxGpuMem`` streams in chunks of
+``--maxBatchBytes`` and ``--maxBatchSequences``.
+Options whose paths later slices of the port bring (profiling, tuning)
+raise NotImplementedError naming the slice.
 
 Usage: python -m cudasw4_tpu_torch.cli.align --query q.fa --db prefix [--top N] [--tsv]
 """
@@ -171,12 +175,15 @@ HELP = """Usage: align [options]
 
    Performance and benchmarking
       --prefetchDBFile : Load DB into RAM immediately at program start.
-      --uploadFull : Accepted for compatibility (the DB is always device-resident).
+      --uploadFull : Keep the whole DB on the device, whatever its size.
       --pseudodb num length : Use a generated DB with num equal sequences of length length.
-      --maxBatchBytes/--maxBatchSequences : streaming chunk sizes (streaming is a later slice).
+      --maxBatchBytes val : Most tile bytes of one streamed chunk (suffix K,M,G). Default 128M.
+      --maxBatchSequences val : Most subject slots of one streamed chunk. Default 10000000.
       --maxTempBytes : bound on the long-query boundary-carry temp of long-subject buckets.
-      --maxGpuMem : device-memory budget for the resident DB; a larger DB needs streaming,
-           which is a later slice of this port.
+      --maxGpuMem val : Device-memory budget (suffix K,M,G; default 0.7 of the card's
+           memory). A DB whose packed tiles and a streamed pass's working memory exceed
+           it streams: as much as the rest of the budget holds stays on the device, the
+           rest crosses the link once per pass of up to 20 queries.
       --tuning file.json : later slice of this port.
       --singlePassType/--manyPassType_small/--manyPassType_large/--overflowType val, --dpx :
            Kernel family selection (Half2|DPXs16|DPXs32|Float).  The single-pass type decides:
@@ -254,9 +261,13 @@ def run(argv=None) -> int:
         scoring=scoring,
         num_top=opts["top"],
         device=opts["device"],
-        # --maxGpuMem caps device residency (a larger DB needs streaming);
+        # --maxGpuMem caps device residency (a larger DB streams);
         # --uploadFull forces residency like the reference flag.
         max_device_bytes=(1 << 62) if opts["upload_full"] else opts["max_gpu_mem"],
+        stream_chunk_bytes=opts["max_batch_bytes"],
+        # --maxBatchSequences caps the subject slots of a streamed chunk,
+        # the second axis of the reference's copy plan (options.cpp:121).
+        max_batch_sequences=opts["max_batch_sequences"],
         # --maxTempBytes bounds the long-query carry temp (in+out states
         # live together, so half the cap goes to each).
         col_temp_bytes=(
@@ -295,7 +306,10 @@ def run(argv=None) -> int:
         except LoadDBError as ex:
             print(f"Failed to load db: {ex}")
             return 1
-    engine.set_database(db)
+    # The tile store beside the db files: packed once, memmapped after
+    # (none for a pseudo DB).
+    cache = opts["db"] + "0.tpupack.npz" if opts["db"] else None
+    engine.set_database(db, pack_cache=cache)
     if opts["warmup"] or opts["interactive"]:
         engine.warmup()
 

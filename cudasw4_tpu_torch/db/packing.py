@@ -21,12 +21,22 @@ Three layouts, chosen per bucket by ``choose_bucket_layout``:
 The geometry constants are the port's own copies: the JAX package's
 ``apply_tuning`` rewrites its module globals at run time, and the port
 must not follow them.  The bucket plan and the tile bytes are identical
-to the JAX package's for the same database.  The disk-backed tile store,
-the pack sidecar and tuning are later slices of the port.
+to the JAX package's for the same database.
+
+The disk-backed tile store (``save_packed``, ``pack_db_to_store``,
+``load_packed``: an npz manifest at ``path`` and the raw tiles at
+``path + ".tiles"``) and its transfer-pack sidecar (``path + ".pack5/"``:
+one int32 file a bucket and ``manifest.json``) are byte for byte the JAX
+package's, so either package reads a store that the other wrote.  The
+per-host partial stores (tile ranges) wait for the multi-GPU slice of the
+port (A13); tuning waits for its own slice.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -255,6 +265,14 @@ def plan_buckets(lengths, edges=None):
     return plan
 
 
+def planned_shapes(lengths, edges=None) -> list[tuple]:
+    """(L, NS, kernel, tiles) of each bucket that ``pack_db`` would give a
+    length-sorted database of these ``lengths``, from the bucket plan
+    alone (no packing)."""
+    return [(L, NS, kernel, -(-(stop - start) // NS))
+            for start, stop, L, NS, kernel in plan_buckets(lengths, edges)]
+
+
 def packed_from_arrays(buckets, num_sequences: int, total_real_chars: int) -> PackedDB:
     """Build a PackedDB from plain arrays: ``buckets`` is an iterable of
     mappings with the keys L, NS, kernel, tiles, seq_index and lengths, as
@@ -275,3 +293,311 @@ def packed_from_arrays(buckets, num_sequences: int, total_real_chars: int) -> Pa
         num_sequences=int(num_sequences),
         total_real_chars=int(total_real_chars),
     )
+
+
+# ------------------------------------------------------------ tile store
+
+#: Version of the tile store's layout and bucket selection; a store of
+#: another version is stale.  The JAX package's value: both read one store.
+PACK_FORMAT_VERSION = 6
+
+_KERNEL_CODE = {"row": 0, "cell": 1, "col": 2}
+_KERNEL_NAME = {v: k for k, v in _KERNEL_CODE.items()}
+
+_PER_HOST = "per-host partial tile stores (tile ranges) wait for the multi-GPU slice of the port (A13)"
+
+
+def _tiles_bin_path(path: str) -> str:
+    return path + ".tiles"
+
+
+class _store_build_lock:
+    """Interprocess lock (flock on ``path + ".lock"``) serialising builds of
+    one tile store or sidecar: processes that share a ``pack_cache`` wait
+    and then load what the first one built."""
+
+    def __init__(self, path: str):
+        self._path = path + ".lock"
+        self._f = None
+
+    def __enter__(self):
+        import fcntl
+
+        self._f = open(self._path, "w")
+        try:
+            fcntl.flock(self._f, fcntl.LOCK_EX)
+        except OSError:
+            self._f.close()  # e.g. a filesystem without flock
+            self._f = None
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        import fcntl
+
+        fcntl.flock(self._f, fcntl.LOCK_UN)
+        self._f.close()
+        return False
+
+
+def save_packed(packed: PackedDB, path: str, pad_code: int = UNKNOWN) -> None:
+    """Write a PackedDB as a tile store: the npz manifest at ``path`` (meta,
+    then per bucket seq_index, lengths and info [L, NS, kernel code, T,
+    byte offset]) and the raw int8 tiles at ``path + ".tiles"``, so that a
+    streaming engine memmaps each bucket instead of holding the database
+    in RAM.  Both files are written under temp names and moved in place."""
+    arrays = {
+        "meta": np.array(
+            [PACK_FORMAT_VERSION, packed.num_sequences, packed.total_real_chars,
+             len(packed.buckets), pad_code],
+            dtype=np.int64,
+        ),
+    }
+    offset = 0
+    tmp_bin = f"{_tiles_bin_path(path)}.tmp.{os.getpid()}"
+    with open(tmp_bin, "wb") as f:
+        for i, b in enumerate(packed.buckets):
+            arrays[f"b{i}_idx"] = b.seq_index
+            arrays[f"b{i}_len"] = b.lengths
+            arrays[f"b{i}_info"] = np.array(
+                [b.L, b.NS, _KERNEL_CODE[b.kernel], b.num_tiles, offset], np.int64
+            )
+            f.write(np.ascontiguousarray(b.tiles).tobytes())
+            offset += b.tiles.size
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp_bin, _tiles_bin_path(path))
+    os.replace(tmp, path)
+
+
+def load_packed(path: str, expect_sequences: int, expect_chars: int, mmap: bool = True,
+                expect_pad: int = UNKNOWN, need_ranges=None):
+    """Load a tile store written by ``save_packed`` or ``pack_db_to_store``
+    (either package's); None when it is missing, stale (version, sequence
+    or residue count, pad code), unreadable or partial.  ``mmap``: tiles
+    stay disk-backed read-only memmaps (the default) or load into RAM.
+    ``need_ranges`` (a partial store's tile ranges) raises
+    NotImplementedError: it waits for A13."""
+    if need_ranges is not None:
+        raise NotImplementedError(_PER_HOST)
+    if not os.path.exists(path) or not os.path.exists(_tiles_bin_path(path)):
+        return None
+    try:
+        z = np.load(path)
+        ver, nseq, nchars, nb, pad = (int(x) for x in z["meta"])
+        if (ver != PACK_FORMAT_VERSION or nseq != expect_sequences
+                or nchars != expect_chars or pad != expect_pad):
+            return None
+        if any(f"b{i}_ranges" in z.files for i in range(nb)):
+            return None  # a per-host partial store covers only some tiles
+        bin_path = _tiles_bin_path(path)
+        flat = np.memmap(bin_path, dtype=np.int8, mode="r", shape=(os.path.getsize(bin_path),))
+        buckets = []
+        for i in range(nb):
+            L, NS, kk, T, off = (int(x) for x in z[f"b{i}_info"])
+            kernel = _KERNEL_NAME[kk]
+            shape = (T, L, 32, NS // 32) if kernel in ("cell", "col") else (T, L, NS)
+            tiles = flat[off : off + T * L * NS].reshape(shape)
+            buckets.append(PackedBucket(
+                L=L, NS=NS, tiles=tiles if mmap else np.array(tiles),
+                seq_index=z[f"b{i}_idx"], lengths=z[f"b{i}_len"], kernel=kernel,
+            ))
+        return PackedDB(buckets=buckets, num_sequences=nseq, total_real_chars=nchars)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def stream_manifest(codec: str, pad_code: int, num_sequences: int, total_chars: int,
+                    layout) -> dict:
+    """The transfer-pack sidecar's manifest, which every writer writes and
+    every reader compares: ``layout`` is (L, NS, kernel, T) per bucket."""
+    from ..ops import pack5 as p5
+
+    words_for = p5.CODECS[codec][1]
+    return {
+        "version": 2,
+        "codec": codec,
+        "pad": int(pad_code),
+        "num_sequences": int(num_sequences),
+        "total_chars": int(total_chars),
+        "buckets": [
+            {"L": int(L), "NS": int(NS), "kernel": kernel, "T": int(T),
+             "W": int(words_for(L * NS))}
+            for L, NS, kernel, T in layout
+        ],
+    }
+
+
+def _packed_layout(packed: PackedDB):
+    return [(b.L, b.NS, b.kernel, b.num_tiles) for b in packed.buckets]
+
+
+def stream_sidecar_fresh(path: str, manifest: dict) -> bool:
+    """True if ``path + ".pack5/manifest.json"`` equals ``manifest``: the
+    sidecar is present, complete and packed for this store and codec.  A
+    sidecar that claims tile ranges (a per-host one) is not fresh."""
+    try:
+        with open(os.path.join(path + ".pack5", "manifest.json")) as f:
+            return json.load(f) == manifest
+    except (OSError, ValueError):
+        return False
+
+
+def _write_manifest(sidecar: str, manifest: dict) -> None:
+    """Publish a sidecar's manifest atomically, after its data."""
+    tmp = os.path.join(sidecar, f"manifest.tmp.{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(sidecar, "manifest.json"))
+
+
+def _drop_manifest(sidecar: str) -> None:
+    """Invalidate a sidecar before its data files are rewritten, so that an
+    interrupted build never validates."""
+    try:
+        os.remove(os.path.join(sidecar, "manifest.json"))
+    except FileNotFoundError:
+        pass
+
+
+def build_stream_sidecar(packed: PackedDB, path: str, stream_codec: str,
+                         pad_code: int = UNKNOWN, slab_tiles: int = 64) -> bool:
+    """Build the ``path + ".pack5/"`` sidecar from an existing (memmapped)
+    tile store in one pass of ``slab_tiles`` tiles at a time.  Returns
+    True when it was written, False where the directory is not writable."""
+    from ..ops import pack5 as p5
+
+    _cpw, words_for, s_pack = p5.CODECS[stream_codec][:3]
+    if int(pad_code) > p5.CODECS[stream_codec][5]:
+        raise ValueError(f"pad code {pad_code} exceeds codec {stream_codec}")
+    sidecar = path + ".pack5"
+    try:
+        os.makedirs(sidecar, exist_ok=True)
+        _drop_manifest(sidecar)
+        for bi, b in enumerate(packed.buckets):
+            T = b.num_tiles
+            if T == 0:
+                continue
+            mm = np.memmap(os.path.join(sidecar, f"b{bi}.bin"), np.int32, mode="w+",
+                           shape=(T, words_for(b.L * b.NS)))
+            for t0 in range(0, T, slab_tiles):
+                t1 = min(t0 + slab_tiles, T)
+                s_pack(np.ascontiguousarray(b.tiles[t0:t1]), out=mm[t0:t1])
+            del mm
+        _write_manifest(sidecar, stream_manifest(
+            stream_codec, pad_code, packed.num_sequences, packed.total_real_chars,
+            _packed_layout(packed),
+        ))
+        return True
+    except (OSError, ValueError):
+        return False
+
+
+def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
+                     pad_code: int = UNKNOWN, stream_codec: str | None = None,
+                     tile_ranges=None) -> PackedDB:
+    """Pack a length-sorted database straight into a tile store, one slab
+    of ``slab_tiles`` tiles in RAM at a time; returns the store loaded with
+    memmapped tiles (the files equal ``save_packed(pack_db(db), path)``'s).
+
+    ``stream_codec`` (a codec of ops/pack5.py): also build the
+    ``path + ".pack5/"`` sidecar in the same pass, each slab packed while
+    it is in RAM; the sidecar is best-effort, and a write failure drops it
+    while the store is still built.  Under the build lock: a store another
+    process built meanwhile with the same bucket layout is loaded (and
+    given the sidecar it lacks) instead of built again.  ``tile_ranges``
+    raises NotImplementedError: per-host stores wait for A13."""
+    if tile_ranges is not None:
+        raise NotImplementedError(_PER_HOST)
+    lengths = np.asarray(db.lengths, dtype=np.int64)
+    offsets = np.asarray(db.offsets, dtype=np.int64)
+    chars = np.asarray(db.chars)
+    n = len(lengths)
+    if n and not np.all(lengths[1:] >= lengths[:-1]):
+        raise ValueError("database is not sorted by length ascending")
+    nchars = int(lengths.sum())
+    plans = plan_buckets(lengths, edges)
+    layout = [(L, NS, kernel, -(-(stop - start) // NS)) for start, stop, L, NS, kernel in plans]
+
+    with _store_build_lock(path):
+        prior = load_packed(path, n, nchars, expect_pad=pad_code)
+        if prior is not None and _packed_layout(prior) == layout:
+            if stream_codec is not None and not stream_sidecar_fresh(
+                path, stream_manifest(stream_codec, pad_code, n, nchars, layout)
+            ):
+                build_stream_sidecar(prior, path, stream_codec, pad_code=pad_code,
+                                     slab_tiles=slab_tiles)
+            return prior
+        sidecar = s_words = s_pack = None
+        if stream_codec is not None:
+            from ..ops import pack5 as p5
+
+            _cpw, s_words, s_pack = p5.CODECS[stream_codec][:3]
+            if int(pad_code) > p5.CODECS[stream_codec][5]:
+                raise ValueError(f"pad code {pad_code} exceeds codec {stream_codec}")
+            sidecar = path + ".pack5"
+            try:
+                os.makedirs(sidecar, exist_ok=True)
+                _drop_manifest(sidecar)
+            except OSError:
+                sidecar = None
+        arrays = {}
+        offset = 0
+        tmp_bin = f"{_tiles_bin_path(path)}.tmp.{os.getpid()}"
+        with open(tmp_bin, "wb") as f:
+            for nb, (start, stop, L, NS, kernel) in enumerate(plans):
+                T = -(-(stop - start) // NS)
+                pk_mm = None
+                if sidecar and T:
+                    try:
+                        pk_mm = np.memmap(os.path.join(sidecar, f"b{nb}.bin"), np.int32,
+                                          mode="w+", shape=(T, s_words(L * NS)))
+                    except (OSError, ValueError):
+                        sidecar = None
+                idx_parts, len_parts = [], []
+                for a in range(start, stop, slab_tiles * NS):
+                    b = min(a + slab_tiles * NS, stop)
+                    tiles, sidx, slen = _pack_slab(chars, offsets, lengths, a, b, L, NS, pad_code)
+                    f.write(np.ascontiguousarray(tiles).data)
+                    if pk_mm is not None and sidecar:
+                        t0 = (a - start) // NS
+                        try:
+                            s_pack(tiles, out=pk_mm[t0 : t0 + len(tiles)])
+                        except OSError:
+                            sidecar = None
+                    idx_parts.append(sidx)
+                    len_parts.append(slen)
+                del pk_mm
+                arrays[f"b{nb}_idx"] = np.concatenate(idx_parts)
+                arrays[f"b{nb}_len"] = np.concatenate(len_parts)
+                arrays[f"b{nb}_info"] = np.array(
+                    [L, NS, _KERNEL_CODE[kernel], T, offset], np.int64
+                )
+                offset += T * L * NS
+        arrays["meta"] = np.array([PACK_FORMAT_VERSION, n, nchars, len(plans), pad_code], np.int64)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as fm:
+            np.savez(fm, **arrays)
+        os.replace(tmp_bin, _tiles_bin_path(path))
+        os.replace(tmp, path)
+        if sidecar:
+            try:
+                _write_manifest(sidecar, stream_manifest(stream_codec, pad_code, n, nchars, layout))
+            except OSError:
+                pass
+    return load_packed(path, n, nchars, expect_pad=pad_code)
+
+
+def unpack_tile_sequences(bucket: PackedBucket, tile: int) -> list[np.ndarray]:
+    """The real sequences of one tile, in lane order (the inverse of
+    packing; for tests)."""
+    tiles = bucket.tiles[tile]
+    if tiles.ndim == 3:  # cell layout [L, 32, NS // 32] -> [L, NS]
+        tiles = tiles.reshape(bucket.L, bucket.NS)
+    out = []
+    for s in range(bucket.NS):
+        if bucket.seq_index[tile, s] < 0:
+            continue
+        out.append(tiles[: int(bucket.lengths[tile, s]), s].copy())
+    return out

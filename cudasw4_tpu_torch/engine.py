@@ -17,17 +17,22 @@ each bucket in one launch for all of them: the cell batch kernel on cell
 buckets, one flat-pool launch per ``col_flat_plan`` pass on col buckets,
 the row kernel per query on row buckets.  ``scan_many`` groups its queries
 so, as the JAX engine's does.
+A database whose packed tiles and a streamed pass's working memory
+exceed the device budget streams instead (engine_streaming.py): a
+resident prefix stays on the device, the rest crosses the link once per
+batch of up to QB_STREAM queries of any length.
 GCUPS = query length x sum of real DB lengths / 1e9 / seconds, as the
 reference's makeBenchmarkStats (src/cudasw4.cuh:2264-2271).
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where every wrapper takes its kernel's plain version.
-Paths of the JAX engine that later slices of the port bring raise
-NotImplementedError naming their slice.
+Paths of the JAX engine that later slices of the port bring (several
+devices, tuning, warmup) raise NotImplementedError naming their slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import deque
@@ -36,9 +41,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import engine_streaming
 from .constants import decode, encode
 from .db.format import DBData
 from .db.packing import PackedDB, pack_db
+from .engine_streaming import StreamingEngineMixin, upload
 from .ops import (
     batch_col_scores, bucket_kind, col_flat_plan, cuda_lib, score_bucket, sw_cell, sw_col,
 )
@@ -53,7 +60,6 @@ DEBUG_CHECK_ENV = "CUDASW4_TPU_TORCH_DEBUG_CHECK"
 
 #: Environment switch of int16 DP state with the overflow re-score ("1").
 STATE16_ENV = "CUDASW4_TPU_TORCH_STATE16"
-
 
 @dataclass
 class BenchmarkStats:
@@ -81,12 +87,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class SearchEngine:
-    """One-device, resident-database search engine."""
+class SearchEngine(StreamingEngineMixin):
+    """One-device search engine: a resident database, or a streamed one
+    past the device budget (engine_streaming.py)."""
 
     #: Queries per batched scan (short queries only): one launch per bucket
     #: serves the whole group.
     QB_MAX = 16
+
+    #: Queries per streamed pass, of any length (engine_streaming.py).
+    QB_STREAM = engine_streaming.QB_STREAM
 
     def __init__(
         self,
@@ -95,6 +105,8 @@ class SearchEngine:
         device=None,
         max_device_bytes: int | None = None,
         col_temp_bytes: int | None = None,
+        stream_chunk_bytes: int = engine_streaming.STREAM_CHUNK_BYTES,
+        max_batch_sequences: int | None = None,
         verbose: bool = False,
     ):
         self.scoring = scoring or make_scoring_config("blosum62")
@@ -102,7 +114,18 @@ class SearchEngine:
         self.device = resolve_device(device)
         self.max_device_bytes = max_device_bytes
         self.col_temp_bytes = col_temp_bytes
+        # Streamed chunks hold at most stream_chunk_bytes of tiles
+        # (--maxBatchBytes) and max_batch_sequences subject slots
+        # (--maxBatchSequences), the two caps of the reference's copy plan.
+        self.stream_chunk_bytes = stream_chunk_bytes
+        self.max_batch_sequences = max_batch_sequences
         self.verbose = verbose
+        self.streaming = False
+        # A streamed pass's working memory and the cap of its kernels' tile
+        # groups' temporaries (engine_streaming.stream_work_bytes); None
+        # when resident: the kernels' own cap, cuda_lib.TEMP_BYTES.
+        self._work_bytes = 0
+        self._temp_bytes = None
         # int16 DP state with the overflow re-score (the reference's
         # 16-bit kernel families); off by default, as in the JAX engine.
         self.state16 = os.environ.get(STATE16_ENV, "0") == "1"
@@ -115,13 +138,15 @@ class SearchEngine:
         self.db: DBData | None = None
         self.packed: PackedDB | None = None
         self._bucket_tiles: list[torch.Tensor] = []
+        self._flat_idx = self._valid = None
         self._total_t0 = None
         self._total_cells = 0.0
 
     # ------------------------------------------------------------------ DB
 
     def _device_budget(self) -> int:
-        """Device-memory budget for resident tiles, in bytes."""
+        """Device-memory budget, in bytes: the resident database, or a
+        streamed one's prefix and a pass's working memory."""
         if self.max_device_bytes is not None:
             return self.max_device_bytes
         if self.device.type == "cuda":
@@ -131,43 +156,86 @@ class SearchEngine:
 
     def set_database(self, db: DBData, pack_cache: str | None = None,
                      packed: PackedDB | None = None) -> None:
-        """Pack the database and make it resident on the device.
+        """Pack the database and make it resident on the device, or stream
+        it when its packed tiles and a streamed pass's working memory
+        (``engine_streaming.stream_work_bytes``) exceed the device budget.
 
-        ``packed``: use this packed form of ``db`` instead of packing it
-        (``db.packing.packed_from_arrays`` builds one from plain arrays).
+        ``pack_cache``: the tile store's path (align passes
+        ``<db>0.tpupack.npz``): loaded when it is fresh, else packed into
+        it, with the transfer-pack sidecar in the same pass when the bucket
+        plan already shows that the database streams; a store that cannot
+        be written is skipped.  ``packed``: use this packed form of ``db``
+        instead (``db.packing.packed_from_arrays`` builds one from plain
+        arrays).
         """
-        if pack_cache:
-            raise NotImplementedError(
-                "pack_cache (the JAX package's tile-store sidecar) waits for "
-                "the disk-store slice of the port"
-            )
+        from .db import packing
+        from .ops.pack5 import STREAM_PACK_ENV, choose_codec
+
         t0 = time.perf_counter()
         self.db = db
         if self.debug_check == "full" and self.num_top < db.num_sequences:
             # The reference's debug build forces numTop to the DB size so
             # the comparison covers every score.
             self.num_top = int(db.num_sequences)
+        # A previous database's device tiles, prefix and transfer pack go
+        # first, whichever branch this one takes.
+        self.streaming = False
+        self.packed = None
         self._bucket_tiles = []
+        self._flat_idx = self._valid = None
+        self._resident_chunks, self._res_tiles = [], {}
+        self._stream_pack = self._stream_codec = None
+        self._prefix_bytes, self._work_bytes, self._temp_bytes = 0, 0, None
+        codec_mode = os.environ.get(STREAM_PACK_ENV, "1")
+        if packed is None and pack_cache:
+            lengths = np.asarray(db.lengths, np.int64)
+            stream_codec = None
+            try:
+                if self._streams(packing.planned_shapes(lengths)):
+                    stream_codec = choose_codec(codec_mode, int(self._pad))
+            except ValueError:
+                pass  # unsorted metadata: the store build raises it below
+            packed = packing.load_packed(pack_cache, db.num_sequences, int(lengths.sum()),
+                                         expect_pad=self._pad)
+            if packed is not None and self.verbose:
+                print(f"Loaded packed tiles from {pack_cache}")
+            if packed is None:
+                try:
+                    packed = packing.pack_db_to_store(db, pack_cache, pad_code=self._pad,
+                                                      stream_codec=stream_codec)
+                except OSError:
+                    packed = None  # a read-only database directory: pack in RAM
         self.packed = packed if packed is not None else pack_db(db, pad_code=self._pad)
-        if self.packed.total_padded_chars > self._device_budget():
-            raise NotImplementedError(
-                f"a packed database of {self.packed.total_padded_chars} bytes "
-                f"exceeds the device budget of {self._device_budget()} bytes; "
-                "streaming waits for a later slice of the port"
-            )
         dev = self.device
         self._matrix_flat = torch.as_tensor(
             self.scoring.matrix.astype(np.int32).reshape(-1)
         ).to(dev)
-        self._bucket_tiles = [
-            torch.as_tensor(b.tiles).to(dev) for b in self.packed.buckets
-        ]
-        flat_idx = np.concatenate(
-            [b.seq_index.reshape(-1) for b in self.packed.buckets]
-        ) if self.packed.buckets else np.zeros(0, np.int32)
-        self._flat_idx = torch.as_tensor(flat_idx.astype(np.int64)).to(dev)
-        self._valid = self._flat_idx >= 0
         self._kinds = tuple(bucket_kind(b) for b in self.packed.buckets)
+        shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in self.packed.buckets]
+        if self._streams(shapes):
+            self.streaming = True
+            self._work_bytes, self._temp_bytes = self._stream_work(shapes)
+            self._stream_codec = choose_codec(codec_mode, int(self._pad))
+            # The prefix first: a temp transfer pack then skips its tiles.
+            self._load_resident_prefix()
+            if self._stream_codec:
+                with contextlib.ExitStack() as lock:
+                    if pack_cache:
+                        try:  # processes sharing the sidecar build it once
+                            lock.enter_context(
+                                packing._store_build_lock(pack_cache + ".pack5.build"))
+                        except OSError:
+                            pass  # no lock where the directory takes none
+                    self._stream_pack = self._build_stream_pack(pack_cache)
+            if self.verbose:
+                print("Database exceeds device memory budget: streaming mode")
+        else:
+            self._bucket_tiles = [upload(b.tiles, dev) for b in self.packed.buckets]
+            flat_idx = np.concatenate(
+                [b.seq_index.reshape(-1) for b in self.packed.buckets]
+            ) if self.packed.buckets else np.zeros(0, np.int32)
+            self._flat_idx = torch.as_tensor(flat_idx.astype(np.int64)).to(dev)
+            self._valid = self._flat_idx >= 0
         if self.verbose:
             dt = time.perf_counter() - t0
             print(
@@ -175,6 +243,12 @@ class SearchEngine:
                 f"{self.packed.total_real_chars} residues, "
                 f"{len(self.packed.buckets)} buckets, pack time {dt:.2f}s"
             )
+
+    def _streams(self, shapes) -> bool:
+        """``engine_streaming.streams`` under this engine's budget and
+        chunk caps."""
+        return engine_streaming.streams(shapes, self._device_budget(), self.stream_chunk_bytes,
+                                        self.max_batch_sequences, self.QB_STREAM)
 
     def warmup(self) -> int:
         """Build and load the CUDA kernel library ahead of the first scan
@@ -228,18 +302,29 @@ class SearchEngine:
     def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool):
         """Scores f32 [T, NS] of one query against one bucket's tiles: col
         buckets take NQC-row chunks with the H/F carry when the query's
-        padded rows pass NQC, every other case one kernel call."""
+        padded rows pass NQC, every other case one kernel call.  A streamed
+        pass caps the tile groups' temporaries at ``_temp_bytes``: the
+        carry's groups at half of it, as its in and out carries live
+        together."""
         if kind == "col" and int(params[3]) > sw_col.NQC:
+            temp = self.col_temp_bytes
+            if self._temp_bytes is not None:
+                half = self._temp_bytes // 2
+                temp = half if temp is None else min(temp, half)
             return sw_col.score_bucket_col_any_query(
                 tiles, codes, self._matrix_flat, self.scoring.gop, self.scoring.gex,
-                pad=self._pad, temp_bytes=self.col_temp_bytes, exact=exact,
+                pad=self._pad, temp_bytes=temp, exact=exact,
             )
-        return score_bucket(tiles, qdev, self._matrix_flat, params, kind, exact=exact)
+        return score_bucket(tiles, qdev, self._matrix_flat, params, kind, exact=exact,
+                            temp_bytes=self._temp_bytes)
 
     def bucket_scores(self, codes, exact: bool = True) -> list[torch.Tensor]:
         """Scores f32 [T, NS] of one query against each bucket, in bucket
         order, on the device; ``exact=False``: int16 state (cell and col
         buckets)."""
+        if self.streaming:
+            raise RuntimeError("bucket scores need a resident database; a streamed "
+                               "one yields its scores chunk by chunk (_stream_rows)")
         codes = np.asarray(codes, dtype=np.int8)
         qpad, params = self._single_qpad(codes)
         qdev = cuda_lib.to_device(qpad, self.device)
@@ -260,24 +345,28 @@ class SearchEngine:
             return torch.zeros(0, dtype=torch.float32, device=self.device)
         return torch.cat([p.reshape(-1) for p in parts])
 
-    def _top_n(self, scores: torch.Tensor):
+    def _top_n(self, scores: torch.Tensor, ids: torch.Tensor | None = None):
         """Top ``max(1, results_per_query)`` slots of each row of ``scores``
         ([N] or [S, N]) by descending score, then ascending slot (=
         ascending reference id): one int64 key per slot,
         (score + 1) << 32 | (2^32 - 1 - slot), so the order is total and
-        needs no tie rule from topk.  Returns device (scores, ids)."""
+        needs no tie rule from topk.  ``ids``: int64 [N] reference id of
+        each slot, -1 for padding (default: the resident database's).
+        Returns device (scores, ids); padding slots that make up a short
+        row come out as (-1, -1)."""
+        ids = self._flat_idx if ids is None else ids
         k = max(1, self.results_per_query)
         n = scores.shape[-1]
         if n == 0:
             empty = torch.zeros(scores.shape, dtype=torch.int64, device=self.device)
             return empty, empty
-        s = torch.where(self._valid, scores.long(), -1) + 1
+        s = torch.where(ids >= 0, scores.long(), -1) + 1
         slot = torch.arange(n, dtype=torch.int64, device=self.device)
         key = (s << 32) | ((1 << 32) - 1 - slot)
         top = torch.topk(key, min(k, n), dim=-1).values
         vals = (top >> 32) - 1
         slots = (1 << 32) - 1 - (top & ((1 << 32) - 1))
-        return vals, self._flat_idx[slots]
+        return vals, ids[slots]
 
     def _dispatch(self, codes):
         """Launch one query's scan; returns device (scores, ids, tile
@@ -362,6 +451,8 @@ class SearchEngine:
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan()")
         codes = self._encode(sequence)
+        if self.streaming:  # one pass of the streamed batch, exact state
+            return self._scan_streaming_batch([codes])[0]
         t0 = time.perf_counter()
         vals, ids, overflows = self._finish_single(codes, *self._dispatch(codes))
         self._sync()
@@ -397,16 +488,12 @@ class SearchEngine:
     @property
     def _qb_cap(self) -> int:
         """Most queries scan_batch and scan_many group into one batch."""
-        return self.QB_MAX
+        return self.QB_STREAM if self.streaming else self.QB_MAX
 
     @property
     def _qcap_batch(self) -> int:
-        """Longest query a batch takes: QCAP_BATCH, or NQC when the
-        database has col buckets, whose batch passes pack the slots' rows
-        into a pool of NQC rows (longer queries run as singles)."""
-        if not any(b.kernel == "col" for b in self.packed.buckets):
-            return sw_cell.QCAP_BATCH
-        return min(sw_cell.QCAP_BATCH, sw_col.NQC)
+        """Longest query a batch takes (``engine_streaming.batch_rows``)."""
+        return engine_streaming.batch_rows({b.kernel for b in self.packed.buckets})
 
     def _batch_slot_params(self, entries, QB: int, width: int):
         """The batch kernels' layout: ``entries`` = (slot, codes) pairs ->
@@ -435,36 +522,47 @@ class SearchEngine:
         to QB_MAX slots to keep one compiled program, which the port does
         not need.  Each bucket is its own launch, which is the JAX engine's
         split dispatch (BATCH_SPLIT_CELLS) at every size."""
+        if self.streaming:
+            raise RuntimeError("batch slot scores need a resident database")
         S = len(group)
         qcap_b = self._qcap_batch
         queries, nqs, pads, params = self._batch_slot_params(enumerate(group), S, qcap_b)
-        qdev = cuda_lib.to_device(queries, self.device)
         plan = ()
         if any(k == "col" for k in self._kinds):
             plan = col_flat_plan(pads, limit=S, rtot=qcap_b)
-        gop, gex = self.scoring.gop, self.scoring.gex
-        parts = []
-        for tiles, kind in zip(self._bucket_tiles, self._kinds):
-            if kind == "cell":
-                s = sw_cell.score_bucket_cell_batch(tiles, qdev, self._matrix_flat, params)
-            elif kind == "col":
-                got = [None] * S
-                for s_part, slots in batch_col_scores(
-                    tiles, qdev, self._matrix_flat, params, S, plan, rtot=qcap_b
-                ):
-                    for si, slot in enumerate(slots):
-                        got[slot] = s_part[si]
-                s = torch.stack(got)
-            else:
-                s = torch.stack([
-                    score_bucket(tiles, qdev[i], self._matrix_flat,
-                                 (int(nqs[i]), gop, gex, int(pads[i])), kind)
-                    for i in range(S)
-                ])
-            parts.append(s.reshape(S, -1))
+        batch = (cuda_lib.to_device(queries, self.device), nqs, pads, params, plan)
+        parts = [self._batch_bucket(tiles, kind, *batch)
+                 for tiles, kind in zip(self._bucket_tiles, self._kinds)]
         if not parts:
             return torch.zeros((S, 0), dtype=torch.float32, device=self.device)
         return torch.cat(parts, dim=1)
+
+    def _batch_bucket(self, tiles, kind, qdev, nqs, pads, params, plan) -> torch.Tensor:
+        """Scores f32 [S, T x NS] of a batch's S slots (``_batch_slot_params``
+        layout, queries ``qdev`` on the device, ``plan`` from col_flat_plan
+        on a database with col buckets) against one bucket's tiles: the
+        cell batch kernel on cell tiles, one flat-pool launch per plan pass
+        on col tiles, the row kernel per slot on row tiles."""
+        S = qdev.shape[0]
+        if kind == "cell":
+            s = sw_cell.score_bucket_cell_batch(tiles, qdev, self._matrix_flat, params)
+        elif kind == "col":
+            got = [None] * S
+            for s_part, slots in batch_col_scores(
+                tiles, qdev, self._matrix_flat, params, S, plan, rtot=self._qcap_batch,
+                temp_bytes=self._temp_bytes,
+            ):
+                for si, slot in enumerate(slots):
+                    got[slot] = s_part[si]
+            s = torch.stack(got)
+        else:
+            gop, gex = self.scoring.gop, self.scoring.gex
+            s = torch.stack([
+                score_bucket(tiles, qdev[i], self._matrix_flat,
+                             (int(nqs[i]), gop, gex, int(pads[i])), kind)
+                for i in range(S)
+            ])
+        return s.reshape(S, -1)
 
     def _dispatch_batch(self, group):
         """Launch one batch; returns device (scores, ids), each [S, k]
@@ -489,7 +587,9 @@ class SearchEngine:
 
     def scan_batch(self, sequences) -> list[ScanResult]:
         """Scan up to QB_MAX queries of at most ``_qcap_batch`` residues as
-        one batch (synchronous); returns results in input order."""
+        one batch (synchronous); returns results in input order.  A
+        streamed database takes up to QB_STREAM queries of any length in
+        one pass."""
         group = [self._encode(s) for s in sequences]
         if len(group) > self._qb_cap:
             raise ValueError(
@@ -498,6 +598,8 @@ class SearchEngine:
             )
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan_batch()")
+        if self.streaming:
+            return self._scan_streaming_batch(group)
         too_long = [len(c) for c in group if len(c) > self._qcap_batch]
         if too_long:
             raise ValueError(
@@ -520,9 +622,21 @@ class SearchEngine:
         ahead of reading their results back, so the host's work overlaps
         the device's.  A single's seconds are its CUDA-event span on the
         card (its wall time on the CPU), plus its overflow re-score's; a
-        batch's span is split over its queries by their cells."""
+        batch's span is split over its queries by their cells.  A streamed
+        database takes every query into its passes, QB_STREAM a pass, also
+        under ``state16`` (streamed passes are exact), each pass synchronous.
+        """
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan_many()")
+        if self.streaming:
+            group: list = []
+            for sequence in sequences:
+                group.append(self._encode(sequence))
+                if len(group) >= self._qb_cap:
+                    yield from self._scan_streaming_batch(group)
+                    group = []
+            yield from self._scan_streaming_batch(group)
+            return
         pending: deque = deque()  # (group or None, (vals, ids, tmaxes), codes, clock)
         shortbuf: list = []
         qcap_b = self._qcap_batch if not self.state16 else -1

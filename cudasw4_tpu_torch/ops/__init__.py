@@ -14,11 +14,13 @@ card.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import cuda_lib, sw_cell, sw_col, sw_row
 
 
-def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True):
+def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True,
+                 temp_bytes: int | None = None):
     """Score one bucket's tiles against one query; returns f32 [T, NS].
 
     ``qpad``: int32 [>= nq] query block padded with the pad code;
@@ -27,12 +29,13 @@ def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True
     nq_pad <= sw_col.NQC; longer queries go through
     sw_col.score_bucket_col_any_query.  ``exact=False``: int16 state on
     cell and col buckets; the row kernel is int32 only, as the JAX
-    package's is, so its scores are exact in both modes.
+    package's is, so its scores are exact in both modes.  ``temp_bytes``:
+    the cap of a row tile group's boundary columns (``sw_row.row_route``).
     """
     if kind == "cell":
         return sw_cell.score_bucket_cell(tiles, qpad, matrix_flat, params, exact=exact)
     if kind == "row":
-        return sw_row.score_bucket_row(tiles, qpad, matrix_flat, params)
+        return sw_row.score_bucket_row(tiles, qpad, matrix_flat, params, temp_bytes)
     if kind == "col":
         nq_pad = int(params[3])
         pc = (nq_pad, int(params[1]), int(params[2]), nq_pad)
@@ -74,7 +77,8 @@ def col_flat_plan(pads, limit=None, rtot=None, smax=8):
     return tuple(tuple(e[1]) for e in passes)
 
 
-def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=None):
+def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=None,
+                     temp_bytes=None):
     """Score a col bucket for a QB-query batch, one flat-pool launch per
     plan entry.
 
@@ -84,19 +88,29 @@ def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=No
     col_flat_plan.  Yields (scores [S_pass, T, 4096], slots): row i of the
     scores belongs to batch slot slots[i].  A pass of at least
     sw_col.COL_FUSE_MIN_S slots (when that is > 0) runs on the fused
-    kernel, the others on the flat kernel.
+    kernel, the others on the flat kernel.  Each pass launches once per
+    group of as many tiles as keep the pool's boundary columns
+    (``cuda_lib.col_boundary_bytes``, 100.7 MB a tile at 3072 rows) within
+    ``temp_bytes`` (default ``cuda_lib.TEMP_BYTES``), so that no chunk or
+    bucket size makes them outgrow the card.
     """
+    T = tiles.shape[0]
+    budget = cuda_lib.TEMP_BYTES if temp_bytes is None else temp_bytes
+    tc = max(1, budget // cuda_lib.col_boundary_bytes(1, sw_col.NQC if rtot is None else rtot))
     for slots_offs in plan:
         idx = [s for s, _ in slots_offs]
         offs = tuple(o for _, o in slots_offs)
         qs = queries.index_select(0, cuda_lib.to_device(np.asarray(idx, np.int64), queries.device))
         pcol = [int(v) for v in params[:4]] + [int(params[4 + QB + s]) for s in idx]
         fmin = sw_col.COL_FUSE_MIN_S
-        if fmin > 0 and len(offs) >= fmin:
-            s = sw_col.score_bucket_col_flat_fused(tiles, qs, matrix_flat, pcol, rtot=rtot)
-        else:
-            s = sw_col.score_bucket_col_flat(tiles, qs, matrix_flat, pcol, offs, rtot=rtot)
-        yield s, tuple(idx)
+        parts = []
+        for t0 in range(0, max(T, 1), tc):
+            sub = tiles[t0 : t0 + tc]
+            if fmin > 0 and len(offs) >= fmin:
+                parts.append(sw_col.score_bucket_col_flat_fused(sub, qs, matrix_flat, pcol, rtot=rtot))
+            else:
+                parts.append(sw_col.score_bucket_col_flat(sub, qs, matrix_flat, pcol, offs, rtot=rtot))
+        yield parts[0] if len(parts) == 1 else torch.cat(parts, dim=1), tuple(idx)
 
 
 def bucket_kind(bucket) -> str:

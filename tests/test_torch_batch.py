@@ -220,6 +220,33 @@ def test_batch_col_scores_dispatch(col_geometry, monkeypatch, fuse_min):
         assert torch.equal(got[slot], want[slot])
 
 
+def test_batch_col_scores_tile_groups(col_geometry, monkeypatch):
+    """With TEMP_BYTES at one tile's boundary columns, every pass launches
+    once a tile, and the scores equal the plain sweep of all tiles."""
+    from cudasw4_tpu_torch.ops import cuda_lib
+
+    rng = np.random.default_rng(34)
+    cfg = make_scoring_config("blosum62")
+    tiles = torch.as_tensor(_tiles(rng, (3, 32, 32, 128), cfg.pad_code, 21))
+    lengths = [9, 16, 3]
+    pads = [max(8, -(-n // 8) * 8) for n in lengths]
+    q = torch.as_tensor(_slots(rng, lengths, 16, cfg.pad_code, 21))
+    params = np.array([0, cfg.gop, cfg.gex, 0, *lengths, *pads], np.int32)
+    plan = (((0, 0), (1, 16)), ((2, 0),))
+    monkeypatch.setattr(cuda_lib, "TEMP_BYTES", cuda_lib.col_boundary_bytes(1, 32))
+    m = torch.as_tensor(_mat(cfg))
+    flat0 = sw_col.score_bucket_col_flat.plain_calls
+    got = {}
+    for scores, slots in batch_col_scores(tiles, q, m, params, 3, plan, rtot=32):
+        assert scores.shape[1] == 3
+        for i, slot in enumerate(slots):
+            got[slot] = scores[i]
+    assert sw_col.score_bucket_col_flat.plain_calls - flat0 == 2 * 3
+    want = sw_col.score_bucket_col_flat_plain(tiles, q, m, [*params[:4].tolist(), *pads])
+    for slot in range(3):
+        assert torch.equal(got[slot], want[slot])
+
+
 # ------------------------------------------------------------- contract
 
 

@@ -658,3 +658,109 @@ def test_pair_kernel_equals_cell_plain(dev, P):
     got = score_pair(tiles.to(dev), q.to(dev), m.to(dev), params, P=P)
     assert score_pair.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _stream_packed(rng, cfg):
+    """A packed database of many small tiles: 24 row tiles (L = 32), 10 cell
+    tiles (L = 64) and 6 col tiles (L = 256), the last tile of each bucket
+    partly empty."""
+    pad = cfg.pad_code
+    buckets, base = [], 0
+    for L, kind, ns, T in ((32, "row", 128, 24), (64, "cell", 4096, 10), (256, "col", 4096, 6)):
+        cnt = T * ns - 7
+        shape = (T, L, ns) if kind == "row" else (T, L, 32, 128)
+        tiles = _tiles(rng, shape, pad, cnt, cfg.alphabet_size)
+        sidx = np.full(T * ns, -1, np.int32)
+        sidx[:cnt] = np.arange(base, base + cnt)
+        sidx = sidx.reshape(T, ns)
+        buckets.append(PackedBucket(L=L, NS=ns, tiles=tiles, seq_index=sidx,
+                                    lengths=(sidx >= 0).astype(np.int32) * L, kernel=kind))
+        base += cnt
+    return PackedDB(buckets=buckets, num_sequences=base, total_real_chars=base * 40)
+
+
+#: (staging depth, resident prefix, codec mode).
+STREAM_CASES = [(1, "0", "1"), (2, "1", "1"), (2, "0", "2"), (2, "0", "0")]
+
+
+@pytest.mark.parametrize("depth,resident,codec", STREAM_CASES)
+def test_streamed_pass_equals_resident_on_card(dev, monkeypatch, depth, resident, codec):
+    """A streamed pass on the card (one tile a chunk, 38 chunks without a
+    prefix) gives the resident engine's results, at staging depth 1 and 2,
+    with and without a resident prefix, for each codec: a slot refilled
+    before the card read it, or a device buffer overwritten under a
+    kernel, would change scores.  The budget is the pass's working memory
+    and half the tiles."""
+    import functools
+
+    from cudasw4_tpu_torch.engine_streaming import stream_work_bytes
+
+    monkeypatch.setenv("CUDASW4_TPU_TORCH_STREAM_RESIDENT", resident)
+    monkeypatch.setenv("CUDASW4_TPU_TORCH_STREAM_PACK", codec)
+    rng = np.random.default_rng(31)
+    cfg = make_scoring_config("blosum62")
+    packed = _stream_packed(rng, cfg)
+    lengths = [int(n) for n in rng.integers(5, 400, size=20)] + [3100, 3500]
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in lengths]
+    resident_eng = SearchEngine(scoring=cfg, num_top=15, device="cuda")
+    resident_eng.set_database(None, packed=packed)
+    want = [(r.scores, r.reference_ids) for r in resident_eng.scan_many(queries)]
+    shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in packed.buckets]
+    work = stream_work_bytes(shapes, 300_000, 128)[0]
+    eng = SearchEngine(scoring=cfg, num_top=15, device="cuda",
+                       max_device_bytes=work + packed.total_padded_chars // 2,
+                       stream_chunk_bytes=300_000, max_batch_sequences=128)
+    eng.set_database(None, packed=packed)
+    assert eng.streaming and bool(eng._resident_chunks) == (resident == "1")
+    monkeypatch.setattr(eng, "_scan_chunks", functools.partial(
+        type(eng)._scan_chunks, eng, depth=depth))
+    for _ in range(2):
+        got = [(r.scores, r.reference_ids) for r in eng.scan_many(queries)]
+        assert got == want
+    stats = eng.stream_copy_stats()
+    assert stats["chunks"] == 40 - sum(eng._res_tiles.values()) and stats["copy_ms"] > 0
+    torch.cuda.synchronize()
+
+
+def test_cell_batch_and_col_plan_at_20_slots(dev):
+    """B4 with 20 slots and a col_flat_plan of 20 slots (at most 8 a pass)
+    through batch_col_scores, as a streamed pass of QB_STREAM = 20 queries
+    launches them, against their plain versions (run on the card)."""
+    from cudasw4_tpu_torch.ops import batch_col_scores, col_flat_plan
+
+    rng = np.random.default_rng(32)
+    cfg = make_scoring_config("blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    lens = [int(n) for n in rng.integers(0, 200, size=20)]
+    qs = torch.as_tensor(np.stack([_query(rng, n, 256, pad, A) for n in lens])).to(dev)
+    cell = torch.as_tensor(_tiles(rng, (2, 64, 32, 128), pad, 2 * 4096 - 9, A)).to(dev)
+    p = (0, cfg.gop, cfg.gex, 0, *lens)
+    got = sw_cell.score_bucket_cell_batch(cell, qs, m, p)
+    assert got.shape == (20, 2, 4096)
+    assert torch.equal(got, sw_cell.score_bucket_cell_batch_plain(cell, qs, m, p))
+    col = torch.as_tensor(_tiles(rng, (1, 640, 32, 128), pad, 4000, A)).to(dev)
+    pads = [sw_col.padded_rows(n) for n in lens]
+    plan = col_flat_plan(pads, limit=20)
+    assert sorted(s for ps in plan for s, _ in ps) == list(range(20))
+    assert all(len(ps) <= 8 for ps in plan) and len(plan) >= 3
+    params = (0, cfg.gop, cfg.gex, 0, *lens, *pads)
+    got = [None] * 20
+    for part, slots in batch_col_scores(col, qs, m, params, 20, plan):
+        for k, slot in enumerate(slots):
+            got[slot] = part[k]
+    want = sw_col.score_bucket_col_flat_plain(col, qs, m, (0, cfg.gop, cfg.gex, 0, *pads))
+    assert torch.equal(torch.stack(got), want)
+
+
+@pytest.mark.parametrize("codec", ["b32", "b21"])
+def test_unpack_on_card_equals_numpy(dev, codec):
+    from cudasw4_tpu_torch.ops import pack5
+
+    rng = np.random.default_rng(33)
+    tiles = rng.integers(0, 21, size=(3, 100, 32, 128)).astype(np.int8)
+    words = pack5.CODECS[codec][2](tiles)
+    got = pack5.CODECS[codec][3](torch.as_tensor(words).to(dev), (100, 32, 128))
+    assert got.device.type == "cuda" and got.is_contiguous()
+    assert np.array_equal(got.cpu().numpy(), pack5.CODECS[codec][4](words, (100, 32, 128)))
+    assert np.array_equal(got.cpu().numpy(), tiles)

@@ -127,7 +127,7 @@ def test_engine_on_jax_packed_db(setup, lowered):
     assert _results(eng.scan_many(queries, window=0)) == want
 
 
-def test_engine_stats_and_unported_paths(setup):
+def test_engine_stats_and_unported_paths(setup, tmp_path):
     db, queries, _ = setup
     eng = SearchEngine(num_top=3, device="cpu")
     with pytest.raises(RuntimeError):
@@ -141,10 +141,12 @@ def test_engine_stats_and_unported_paths(setup):
     assert eng.get_reference_length(r.reference_ids[0]) == int(db.lengths[r.reference_ids[0]])
     assert eng.get_reference_header(0) == "s0"
     assert len(eng.get_reference_sequence(5)) == int(db.lengths[5])
-    with pytest.raises(NotImplementedError):
-        eng.set_database(db, pack_cache="x.npz")
-    with pytest.raises(NotImplementedError):
-        SearchEngine(device="cpu", max_device_bytes=1000).set_database(db)
+    # Paths that waited for later slices: the tile store and streaming.
+    eng.set_database(db, pack_cache=str(tmp_path / "x.npz"))
+    assert isinstance(eng.packed.buckets[0].tiles, np.memmap) and not eng.streaming
+    streamed = SearchEngine(num_top=3, device="cpu", max_device_bytes=1000)
+    streamed.set_database(db)
+    assert streamed.streaming and streamed.scan(queries[1]).scores == r.scores
 
 
 def test_engine_debug_check_and_device_default(setup, monkeypatch):
