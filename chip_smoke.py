@@ -65,12 +65,27 @@ non-zero:
    equal the resident engine's; streamed and resident timed in turns,
    the copy stream's and the link's GB/s, the unpack per chunk, the idle
    share, and a projection to a TrEMBL-sized database.
-8. tools: dmabench and pairbench at their defaults, every line OK.
-9. kernels line: per kernel, its launches on its path (align for the
+8. mesh: the database sharded over two shards (two cards where there
+   are two, else both on one card, each on its own stream; phase_mesh):
+   resident, the 20 queries through scan_many with align's TSV writer,
+   byte for byte phase 4's TSV, its counters B1-B5, and B6 from the batch
+   with COL_FUSE_MIN_S = 3; int16 state, and again at a lowered SAT with
+   tiles flagged on both shards (the mesh re-score); the 10,625-aa
+   query; mesh against single device in turns, each shard's device time
+   alone, the merge's time, peak memory; streamed on the mesh under a
+   per-shard budget (a third or more of the padded bytes stream), the
+   TSV again, each card's peak within its shards' budgets, all 573k
+   scores of the 464-aa query against the resident engine's; then
+   tools/run_multihost.py as two processes on the mesh over gloo and as
+   one under NCCL at world size 1, every process printing phase 4's hits.
+9. tools: dmabench and pairbench at their defaults, every line OK.
+10. kernels line: per kernel, its launches on its path (align for the
    exact kernels, align --dpx for the int16 modes, the tools for the
    manual and pair kernels; each path's counters are reset just before
    it and read just after), its launches on the streamed align
-   (``stream_launches``, B6 from the fused streamed pass), and its time,
+   (``stream_launches``, B6 from the fused streamed pass) and on the mesh
+   (``mesh_launches``: phase mesh's resident run, B6 its fused batch,
+   the int16 modes its int16 run; 0 for the tool kernels), and its time,
    bound and plain time at its
    main-path shape: the largest bucket of its kind, with the 464-aa query
    for the single-query kernels (and the manual and pair kernels), the
@@ -1225,10 +1240,10 @@ def phase_state16(ctx, kernels):
     tiles_total = sum(b.num_tiles for b in eng.packed.buckets)
     exact_tiles, real_score = [], SearchEngine._score_bucket
 
-    def score_spy(self, tiles, kind, codes, qdev, params, exact):
+    def score_spy(self, tiles, kind, codes, qdev, params, exact, *rest):
         if exact:  # the fast pass is int16: exact calls are the re-score's
             exact_tiles.append(int(tiles.shape[0]))
-        return real_score(self, tiles, kind, codes, qdev, params, exact)
+        return real_score(self, tiles, kind, codes, qdev, params, exact, *rest)
 
     flagged.clear()
     SearchEngine._rescore_overflow, SearchEngine._score_bucket = spy, score_spy
@@ -1300,6 +1315,7 @@ def phase_long_query(ctx):
         block[k, : len(x)] = x
     want = oracle.sw_score_rowvec(codes, block, cfg.matrix, cfg.gop, cfg.gex)
     check(res.scores == [int(v) for v in want], "long query: scores differ from the oracle")
+    ctx["long_query"] = (codes, hs)
     emit({"phase": "long_query", "query_aa": len(codes), "ms": ms,
           "gcups": len(codes) * eng.packed.total_real_chars / ms / 1e6,
           "hits": hs, "launches": {k: v[0] for k, v in counts.items()},
@@ -1378,7 +1394,7 @@ def phase_stream(ctx, kernels):
     # The store: a fresh prefix, so that makedb builds the tile store and
     # its sidecar in one pass.
     sprefix = os.path.join(d, "sprot_stream")
-    store = sprefix + "0.tpupack.npz"
+    store = ctx["stream_store"] = sprefix + "0.tpupack.npz"
     for path in (store, store + ".tiles"):
         if os.path.exists(path):
             os.remove(path)
@@ -1586,6 +1602,365 @@ def phase_stream(ctx, kernels):
     })
 
 
+# --------------------------------------------------------- phase mesh
+
+#: The least share of the padded bytes that the streamed mesh streams.
+MESH_STREAM_MIN_SHARE = 1 / 3
+
+
+def mesh_devices() -> list[str]:
+    """The mesh's two shards: two cards where there are two, else both on
+    cuda:0."""
+    return ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_wall(fn):
+    """(result, seconds) of ``fn`` on the host clock, every card
+    synchronised before and after."""
+    sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all()
+    return out, time.perf_counter() - t0
+
+
+def shard_ms(shard, fn, reps: int = 3) -> float:
+    """Mean milliseconds of ``fn`` enqueued alone on one shard's stream
+    (CUDA events on that stream, one warm-up call)."""
+    from cudasw4_tpu_torch.parallel.sharding import shard_context
+
+    with shard_context(shard):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(shard.stream)
+        for _ in range(reps):
+            fn()
+        stop.record(shard.stream)
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def hit_lines(text: str) -> list:
+    """The lines run_multihost writes for its hits and its "Total" line,
+    without anything else a process logs to its standard error."""
+    return [line for line in text.splitlines()
+            if line.startswith(("# ", "Total ")) or re.match(r"\d+\t", line)]
+
+
+def run_multihost_processes(ctx, nproc: int, *extra):
+    """``nproc`` processes of tools/run_multihost.py over phase 4's database
+    and the 20 queries, meeting at a file store of their own (no port to
+    choose); returns (each process's hit lines, rank 0's from its standard
+    output and every other's from its standard error, without the timing
+    line; each one's "Total" line; seconds).  Every process is waited for,
+    and killed if the run passes its limit."""
+    rendezvous = os.path.join(WORK, "mesh", f"rendezvous-{nproc}-{time.time_ns()}")
+    cmd = [sys.executable, "-m", "cudasw4_tpu_torch.tools.run_multihost", "--db", ctx["prefix"],
+           "--query", QUERY_SET, "--top", "10", "--coordinator", f"file://{rendezvous}",
+           "--num-processes", str(nproc), "--packCache", ctx["prefix"] + "0.tpupack.npz", *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+             for i in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"run_multihost failed ({' '.join(extra)}): {err[-2000:]}")
+            outs.append(out.splitlines() if not outs else hit_lines(err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for lines in outs:
+        check(lines and lines[-1].startswith("Total "), "run_multihost printed no Total line")
+    return [lines[:-1] for lines in outs], [lines[-1] for lines in outs], seconds
+
+
+def phase_mesh(ctx, kernels):
+    """The database sharded over a mesh of two shards (two cards, or both
+    on one card): phase 4's database resident on the mesh, the 20 queries
+    through scan_many (the batch of 14: B4, B5, B2 on each shard; 6
+    singles: B1, B2, B3) with align's TSV writer, byte for byte phase 4's
+    TSV; the 14 again with COL_FUSE_MIN_S = 3 (B6); int16 state (B1 and
+    B3 int16) with the same TSV, and at SAT lowered to the median top
+    score, so that tiles flag on both shards and go through the mesh
+    re-score; the 10,625-aa query against phase long_query's hits; the
+    mesh against the single device in turns; each shard's device time
+    alone; the merge's time and the candidate bytes a scan exchanges;
+    peak memory.  Then phase stream's database streamed on the mesh under
+    a per-shard budget at which at least a third of the padded bytes
+    stream: the TSV again, each card's peak within its shards' budgets,
+    and all 573k scores of the 464-aa query against the resident engine's.
+    Then tools/run_multihost.py as two processes on the mesh (gloo, one
+    shard each) and as one under NCCL at world size 1 (two shards): every
+    process prints the single device's hits."""
+    from cudasw4_tpu_torch.cli.align import TSV_HEADER, parse_memory_string, print_scan_result_tsv
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.db.fasta import read_sequences
+    from cudasw4_tpu_torch.engine import SearchEngine
+    from cudasw4_tpu_torch.engine_streaming import stream_work_bytes
+    from cudasw4_tpu_torch.ops import sw_cell, sw_col
+    from cudasw4_tpu_torch.parallel.sharding import make_mesh, shard_context
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "mesh")
+    os.makedirs(d, exist_ok=True)
+    with open(ctx["tsv"]) as f:
+        exact_text = f.read()
+    records = list(read_sequences(QUERY_SET))
+    queries = [r.sequence for r in records]
+    db, cfg, single = ctx["db"], ctx["cfg"], ctx["eng"]
+    devices = mesh_devices()
+    cards = sorted({torch.device(x).index for x in devices})
+    layout = "two cards" if len(cards) == 2 else "two shards on one card"
+    cells = float(sum(len(q) for q in queries)) * single.packed.total_real_chars
+
+    def tsv_of(eng, name):
+        """scan_many of the 20 on ``eng``, written as align writes its TSV."""
+        path = os.path.join(d, name)
+        with open(path, "w") as out:
+            out.write(TSV_HEADER)
+            for qi, (res, rec) in enumerate(zip(eng.scan_many(queries), records)):
+                print_scan_result_tsv(out, res, eng, qi, len(rec.sequence), rec.header)
+        with open(path) as f:
+            return f.read()
+
+    def peaks_reset():
+        sync_all()
+        base = {}
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+            base[i] = torch.cuda.memory_allocated(i)
+        return base
+
+    def peaks_above(base):
+        return {i: torch.cuda.max_memory_allocated(i) - base[i] for i in cards}
+
+    # Resident on the mesh: the 20 queries through scan_many.
+    eng = SearchEngine(scoring=cfg, num_top=10, mesh=make_mesh(devices))
+    (_, t_set) = mesh_wall(lambda: eng.set_database(db, pack_cache=ctx["prefix"] + "0.tpupack.npz"))
+    check(not eng.streaming, "the mesh streamed phase 4's database")
+    shard_tiles = [[0 if t is None else int(t.shape[0]) for t in sh.tiles] for sh in eng._shards]
+    check(all(sum(x) > 0 for x in shard_tiles), f"a shard holds no tile: {shard_tiles}")
+    base = peaks_reset()
+    reset_counts()
+    text, t_align = mesh_wall(lambda: tsv_of(eng, "hits_mesh.tsv"))
+    counts = read_counts()
+    align_peaks = peaks_above(base)
+    check(text == exact_text, "mesh scan_many: TSV differs from phase 4's")
+    check_path(counts, "mesh align", ("cell", "row", "col", "cell_batch", "col_flat"))
+    check(not any(counts[k][0] for k in ("cell16", "col16", "manual", "manual16", "pair")),
+          "mesh align launched an int16 or tool kernel")
+
+    # The batch of 14 with COL_FUSE_MIN_S = 3: B6 on each shard.
+    qcap_b = eng._qcap_batch
+    group_idx = [i for i, q in enumerate(queries) if len(q) <= qcap_b]
+    group = [encode(queries[i]) for i in group_idx]
+    check(len(group) == 14, f"a batch of {len(group)}, expected 14")
+    hits = {}
+    for line in exact_text.splitlines()[1:]:
+        c = line.split("\t")
+        hits.setdefault(int(c[0]), []).append((int(c[4]), int(c[7])))
+    sw_col.COL_FUSE_MIN_S = 3
+    try:
+        reset_counts()
+        fused = eng.scan_batch(group)
+        fused_counts = read_counts()
+    finally:
+        sw_col.COL_FUSE_MIN_S = 0
+    check(fused_counts["col_fused"][0] > 0, "the fused mesh batch launched no B6")
+    check(all(v[1] == 0 for v in fused_counts.values()), "a plain version ran in the fused mesh batch")
+    check([list(zip(r.scores, r.reference_ids)) for r in fused] == [hits[i] for i in group_idx],
+          "fused mesh batch: hits differ from phase 4's")
+
+    # int16 state on the mesh, then at a lowered SAT: the mesh re-score.
+    eng.state16 = True
+    reset_counts()
+    check(tsv_of(eng, "hits_mesh_dpx.tsv") == exact_text, "mesh --dpx: TSV differs from the exact one")
+    dpx_counts = read_counts()
+    check_path(dpx_counts, "mesh --dpx", ("cell16", "row", "col16"))
+    tops = sorted(h[0][0] for h in hits.values())
+    sat_low = tops[len(tops) // 2]
+    flagged, real_rescore = [], SearchEngine._rescore_overflow_mesh
+
+    def spy(self, tmaxes, vals, ids, codes):
+        flagged.append([sum(int((t >= sw_cell.SAT).sum()) for t in per) for per in tmaxes])
+        return real_rescore(self, tmaxes, vals, ids, codes)
+
+    default_sat = sw_cell.SAT
+    SearchEngine._rescore_overflow_mesh, sw_cell.SAT = spy, sat_low
+    try:
+        reset_counts()
+        low_text = tsv_of(eng, "hits_mesh_dpx_lowered_sat.tsv")
+        low_counts = read_counts()
+    finally:
+        SearchEngine._rescore_overflow_mesh, sw_cell.SAT = real_rescore, default_sat
+        eng.state16 = False
+    check(low_text == exact_text, f"mesh --dpx at SAT={sat_low}: TSV differs from the exact one")
+    check(any(all(n > 0 for n in per) for per in flagged),
+          f"no query flagged tiles on both shards at SAT={sat_low}: {flagged}")
+    check_path(low_counts, "mesh --dpx at a lowered SAT", ("cell16", "col16"))
+
+    # The 10,625-aa query: B3's carry on each shard.
+    long_codes, long_hits = ctx["long_query"]
+    reset_counts()
+    res, long_s = mesh_wall(lambda: eng.scan(long_codes))
+    long_counts = read_counts()
+    check(list(zip(res.scores, res.reference_ids)) == long_hits,
+          "mesh long query: hits differ from phase long_query's")
+    check_path(long_counts, "mesh long query", ("cell", "row", "col"))
+
+    # The mesh against the single device, in turns.
+    turns = {"single": [], "mesh": []}
+    for who in ("single", "mesh", "mesh", "single"):
+        e = single if who == "single" else eng
+        _, sec = mesh_wall(lambda: list(e.scan_many(queries)))
+        turns[who].append(sec)
+
+    # Each shard's device time alone, the mesh's host-clock time for the
+    # same work, and the single device's.
+    mid = encode(next(q for q in queries if len(q) == QUERY_LADDER[1]))  # 464 aa
+    per_shard = {
+        "query_464": [shard_ms(sh, lambda sh=sh: eng._bucket_parts(sh.tiles, sh.device, mid, True,
+                                                                   sh.matrix))
+                      for sh in eng._shards],
+        "batch_14": [shard_ms(sh, lambda sh=sh: eng._batch_rows(sh.tiles, sh.device, group,
+                                                                sh.matrix), reps=1)
+                     for sh in eng._shards],
+    }
+    mesh_ms = {
+        "query_464": 1e3 * mesh_wall(lambda: eng._finish_single(mid, *eng._dispatch(mid)))[1],
+        "batch_14": 1e3 * mesh_wall(lambda: eng._dispatch_batch_mesh(group).merged())[1],
+    }
+    single_ms = {
+        "query_464": cuda_ms(lambda: single.slot_scores(mid), reps=1),
+        "batch_14": cuda_ms(lambda: single.batch_slot_scores(group), reps=1),
+    }
+    cands = eng._dispatch_batch_mesh(group)
+    host = cands.host()
+    merge_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cands.merged(host)
+        merge_s.append(time.perf_counter() - t0)
+    exchange_bytes = 2 * host[0].nbytes * eng.mesh.size // len(eng._shards)
+    del cands, host, eng
+    torch.cuda.empty_cache()
+
+    # Streamed on the mesh: phase stream's store, a per-shard budget at
+    # which a third or more of the padded bytes stream.
+    chunk = parse_memory_string(STREAM_BATCH_BYTES)
+    shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in single.packed.buckets]
+    padded = single.packed.total_padded_chars
+    work = stream_work_bytes(shapes, chunk, None, SearchEngine.QB_STREAM, len(devices))[0]
+    budget = work + padded // 4
+    seng = SearchEngine(scoring=cfg, num_top=10, mesh=make_mesh(devices), max_device_bytes=budget,
+                        stream_chunk_bytes=chunk)
+    (_, t_sset) = mesh_wall(lambda: seng.set_database(db, pack_cache=ctx["stream_store"]))
+    check(seng.streaming and seng._stream_codec == "b32", "the mesh did not stream b32 chunks")
+    prefix_tiles = sum(seng._res_tiles.get(bi, 0) * b.L * b.NS
+                       for bi, b in enumerate(seng.packed.buckets))
+    share = 1.0 - prefix_tiles / padded
+    check(share >= MESH_STREAM_MIN_SHARE, f"{share:.3f} of the padded bytes streamed on the mesh")
+    base = peaks_reset()
+    reset_counts()
+    stext, t_salign = mesh_wall(lambda: tsv_of(seng, "hits_mesh_stream.tsv"))
+    scounts = read_counts()
+    speaks = peaks_above(base)
+    check(stext == exact_text, "streamed mesh: TSV differs from phase 4's")
+    check_path(scounts, "streamed mesh", ("cell", "row", "col", "cell_batch", "col_flat"))
+    for i in cards:
+        n_on = sum(1 for x in devices if torch.device(x).index == i)
+        check(speaks[i] <= n_on * budget,
+              f"streamed mesh: cuda:{i}'s peak {speaks[i]} B above base passes {n_on} x {budget} B")
+    copy = seng.stream_copy_stats()
+    n = db.num_sequences
+    setups = []
+    for sh in seng._shards:
+        with shard_context(sh):
+            setups.append(seng._stream_setup([mid], sh.device))
+    got = torch.full((n,), -1.0, device=devices[0])
+    sync_all()  # the shards' streams write it
+    for b, parts in seng._scan_chunks_mesh():
+        for sh, setup, part in zip(seng._shards, setups, parts):
+            if part is None:
+                continue
+            with shard_context(sh):
+                tiles, sidx = part
+                rows = seng._chunk_rows(tiles, b, [mid], setup, sh.matrix)
+                ids = sidx.reshape(-1).long()
+                keep = ids >= 0
+                got[ids[keep].to(devices[0])] = rows[0][keep].to(devices[0])
+    sync_all()
+    want = torch.full((n,), -1.0, device=devices[0])
+    want[single._flat_idx[single._valid]] = single.slot_scores(mid)[single._valid].to(devices[0])
+    check(bool((want >= 0).all()) and torch.equal(got, want),
+          f"streamed mesh: {int((got != want).sum())} scores of the 464-aa query differ")
+    del seng, got, want
+    torch.cuda.empty_cache()
+
+    # Processes: two over gloo (one shard each), and one under NCCL alone.
+    want_lines = []
+    for qi, rec in enumerate(records):
+        want_lines.append(f"# {rec.header}")
+        want_lines += ["\t".join(line.split("\t")[3:]) for line in exact_text.splitlines()[1:]
+                       if int(line.split("\t")[0]) == qi]
+    runs = {}
+    for name, nproc, extra in (("gloo_two_processes", 2, ("--backend", "gloo", "--shards", "1")),
+                               ("nccl_one_process", 1, ("--backend", "nccl", "--shards", "2"))):
+        outs, totals, seconds = run_multihost_processes(ctx, nproc, *extra)
+        check(all(o == want_lines for o in outs), f"run_multihost ({name}): lines differ from phase 4's")
+        runs[name] = {"backend": extra[1], "processes": nproc, "shards_per_process": int(extra[3]),
+                      "seconds": seconds, "totals": totals}
+
+    kernels_mesh = {"sw_cell_kernel": counts["cell"][0], "sw_row_kernel": counts["row"][0],
+                    "sw_col_kernel": counts["col"][0], "sw_cell_batch_kernel": counts["cell_batch"][0],
+                    "sw_col_flat_kernel": counts["col_flat"][0],
+                    "sw_col_fused_kernel": fused_counts["col_fused"][0],
+                    "sw_cell16_kernel": dpx_counts["cell16"][0], "sw_col16_kernel": dpx_counts["col16"][0],
+                    "sw_manual_kernel": 0, "sw_pair_kernel": 0}
+    for name, v in kernels_mesh.items():
+        kernels[name]["mesh_launches"] = v
+        check(v > 0 or name in ("sw_manual_kernel", "sw_pair_kernel"), f"{name}: no launch on the mesh")
+    emit({
+        "phase": "mesh", "layout": layout, "devices": devices, "shard_tiles": shard_tiles,
+        "set_database_seconds": t_set, "align_seconds": t_align,
+        "tsv_equal": ["resident", "dpx", "dpx_lowered_sat", "streamed"],
+        "launches": {k: v[0] for k, v in counts.items()},
+        "fused_launches": {k: v[0] for k, v in fused_counts.items()},
+        "dpx_launches": {k: v[0] for k, v in dpx_counts.items()},
+        "lowered_sat": sat_low, "lowered_sat_flagged_per_shard": flagged,
+        "lowered_sat_launches": {k: v[0] for k, v in low_counts.items()},
+        "long_query_seconds": long_s,
+        "turns_20_queries_seconds": turns,
+        "gcups_20_mesh": cells / min(turns["mesh"]) / 1e9,
+        "gcups_20_single": cells / min(turns["single"]) / 1e9,
+        "per_shard_device_ms": per_shard, "mesh_host_ms": mesh_ms, "single_device_ms": single_ms,
+        "merge_ms_batch14": [1e3 * x for x in merge_s],
+        "exchange_bytes_batch14": exchange_bytes,
+        "align_peak_device_bytes_above_base": align_peaks,
+        "stream": {"budget_per_shard": budget, "work_per_shard": work, "streamed_share": share,
+                   "prefix_bytes_per_shard": prefix_tiles // len(devices),
+                   "set_database_seconds": t_sset, "align_seconds": t_salign,
+                   "gcups_20": cells / t_salign / 1e9,
+                   "peak_device_bytes_above_base": speaks, **copy,
+                   "launches": {k: v[0] for k, v in scounts.items()},
+                   "whole_scores_equal_464": n},
+        "processes": runs,
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
 # --------------------------------------------------------- phase tools
 
 def phase_tools(kernels):
@@ -1636,6 +2011,7 @@ def main() -> int:
     phase_state16(ctx, kernels)
     phase_long_query(ctx)
     phase_stream(ctx, kernels)
+    phase_mesh(ctx, kernels)
     phase_tools(kernels)
     for k in kernels.values():
         check(k["launches"], f"{k['name']} never launched on its path")

@@ -27,9 +27,11 @@ The disk-backed tile store (``save_packed``, ``pack_db_to_store``,
 ``load_packed``: an npz manifest at ``path`` and the raw tiles at
 ``path + ".tiles"``) and its transfer-pack sidecar (``path + ".pack5/"``:
 one int32 file a bucket and ``manifest.json``) are byte for byte the JAX
-package's, so either package reads a store that the other wrote.  The
-per-host partial stores (tile ranges) wait for the multi-GPU slice of the
-port (A13); tuning waits for its own slice.
+package's, so either package reads a store that the other wrote.  A
+per-host partial store (``tile_ranges``) packs only the tiles that one
+process of a streamed mesh reads into a sparse file of the full size and
+records its ranges; a later build with other ranges extends it in place.
+Tuning waits for its own slice.
 """
 
 from __future__ import annotations
@@ -154,6 +156,11 @@ class PackedDB:
     buckets: list[PackedBucket]
     num_sequences: int
     total_real_chars: int  # sum of real lengths (GCUPS denominator)
+    #: Per bucket, the [(t_start, t_stop), ...] tile ranges a partial
+    #: (per-host) store holds; None when it holds every tile.  Tiles
+    #: outside them read as zeros and are never scored: only a streamed
+    #: mesh pass, whose shards' rows they were made from, takes such a store.
+    tile_ranges: list | None = None
 
     @property
     def total_padded_chars(self) -> int:
@@ -304,11 +311,73 @@ PACK_FORMAT_VERSION = 6
 _KERNEL_CODE = {"row": 0, "cell": 1, "col": 2}
 _KERNEL_NAME = {v: k for k, v in _KERNEL_CODE.items()}
 
-_PER_HOST = "per-host partial tile stores (tile ranges) wait for the multi-GPU slice of the port (A13)"
-
 
 def _tiles_bin_path(path: str) -> str:
     return path + ".tiles"
+
+
+def _norm_ranges(ranges, T: int) -> list:
+    """Tile ranges clipped to [0, T), empty ones dropped, sorted and merged
+    where they overlap or touch: the form manifests store and the coverage
+    checks compare."""
+    out: list = []
+    for a, b in sorted((max(0, int(a)), min(T, int(b))) for a, b in ranges):
+        if a >= b:
+            continue
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _ranges_cover(have: list, need: list) -> bool:
+    """Whether every range of ``need`` lies inside one range of ``have``
+    (both normalised)."""
+    i = 0
+    for a, b in need:
+        while i < len(have) and have[i][1] < b:
+            i += 1
+        if i == len(have) or have[i][0] > a:
+            return False
+    return True
+
+
+def _ranges_subtract(need: list, have: list) -> list:
+    """Normalised ``need`` less normalised ``have``: the ranges an extension
+    of a partial store still packs."""
+    out = []
+    for a, b in need:
+        cur = a
+        for c, d in have:
+            if d <= cur or c >= b:
+                continue
+            if c > cur:
+                out.append((cur, c))
+            cur = max(cur, d)
+            if cur >= b:
+                break
+        if cur < b:
+            out.append((cur, b))
+    return out
+
+
+def _full_ranges(Ts) -> list:
+    """The ranges of a complete store of buckets of ``Ts`` tiles."""
+    return [[(0, T)] if T else [] for T in Ts]
+
+
+def _bucket_meta_arrays(start: int, stop: int, NS: int, lengths):
+    """seq_index and lengths [T, NS] of the bucket of sequences [start,
+    stop), from the lengths alone: slot s of tile t is sequence start +
+    t * NS + s (what ``_pack_slab`` gives, slab by slab)."""
+    cnt = stop - start
+    T = -(-cnt // NS)
+    sidx = np.full(T * NS, -1, dtype=np.int32)
+    sidx[:cnt] = np.arange(start, stop, dtype=np.int32)
+    slen = np.zeros(T * NS, dtype=np.int32)
+    slen[:cnt] = lengths[start:stop]
+    return sidx.reshape(T, NS), slen.reshape(T, NS)
 
 
 class _store_build_lock:
@@ -375,12 +444,14 @@ def load_packed(path: str, expect_sequences: int, expect_chars: int, mmap: bool 
                 expect_pad: int = UNKNOWN, need_ranges=None):
     """Load a tile store written by ``save_packed`` or ``pack_db_to_store``
     (either package's); None when it is missing, stale (version, sequence
-    or residue count, pad code), unreadable or partial.  ``mmap``: tiles
-    stay disk-backed read-only memmaps (the default) or load into RAM.
-    ``need_ranges`` (a partial store's tile ranges) raises
-    NotImplementedError: it waits for A13."""
-    if need_ranges is not None:
-        raise NotImplementedError(_PER_HOST)
+    or residue count, pad code) or unreadable, or does not hold the tiles
+    asked for.  ``mmap``: tiles stay disk-backed read-only memmaps (the
+    default) or load into RAM.
+
+    ``need_ranges``: per bucket, the tile ranges the caller reads.  None
+    asks for every tile; "any" takes a store of any coverage (the
+    extension's probe); else a partial store is taken when its ranges
+    cover them.  A partial store comes back with its ``tile_ranges``."""
     if not os.path.exists(path) or not os.path.exists(_tiles_bin_path(path)):
         return None
     try:
@@ -389,33 +460,46 @@ def load_packed(path: str, expect_sequences: int, expect_chars: int, mmap: bool 
         if (ver != PACK_FORMAT_VERSION or nseq != expect_sequences
                 or nchars != expect_chars or pad != expect_pad):
             return None
-        if any(f"b{i}_ranges" in z.files for i in range(nb)):
-            return None  # a per-host partial store covers only some tiles
+        if need_ranges is not None and need_ranges != "any" and len(need_ranges) != nb:
+            return None
         bin_path = _tiles_bin_path(path)
         flat = np.memmap(bin_path, dtype=np.int8, mode="r", shape=(os.path.getsize(bin_path),))
-        buckets = []
+        buckets, ranges = [], []
         for i in range(nb):
             L, NS, kk, T, off = (int(x) for x in z[f"b{i}_info"])
             kernel = _KERNEL_NAME[kk]
+            full = _full_ranges([T])[0]
+            rk = f"b{i}_ranges"
+            have = (_norm_ranges([tuple(r) for r in z[rk].reshape(-1, 2)], T)
+                    if rk in z.files else full)
+            ranges.append(have)
+            if need_ranges != "any":
+                need = full if need_ranges is None else _norm_ranges(need_ranges[i], T)
+                if not _ranges_cover(have, need):
+                    return None
             shape = (T, L, 32, NS // 32) if kernel in ("cell", "col") else (T, L, NS)
             tiles = flat[off : off + T * L * NS].reshape(shape)
             buckets.append(PackedBucket(
                 L=L, NS=NS, tiles=tiles if mmap else np.array(tiles),
                 seq_index=z[f"b{i}_idx"], lengths=z[f"b{i}_len"], kernel=kernel,
             ))
-        return PackedDB(buckets=buckets, num_sequences=nseq, total_real_chars=nchars)
+        partial = ranges != _full_ranges([b.num_tiles for b in buckets])
+        return PackedDB(buckets=buckets, num_sequences=nseq, total_real_chars=nchars,
+                        tile_ranges=ranges if partial else None)
     except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
         return None
 
 
 def stream_manifest(codec: str, pad_code: int, num_sequences: int, total_chars: int,
-                    layout) -> dict:
+                    layout, ranges=None) -> dict:
     """The transfer-pack sidecar's manifest, which every writer writes and
-    every reader compares: ``layout`` is (L, NS, kernel, T) per bucket."""
+    every reader compares: ``layout`` is (L, NS, kernel, T) per bucket.
+    ``ranges``: the tile ranges a partial (per-host) sidecar holds, written
+    only when they are not the whole of every bucket."""
     from ..ops import pack5 as p5
 
     words_for = p5.CODECS[codec][1]
-    return {
+    man = {
         "version": 2,
         "codec": codec,
         "pad": int(pad_code),
@@ -427,21 +511,43 @@ def stream_manifest(codec: str, pad_code: int, num_sequences: int, total_chars: 
             for L, NS, kernel, T in layout
         ],
     }
+    if ranges is not None:
+        Ts = [int(T) for _, _, _, T in layout]
+        norm = [_norm_ranges(r, T) for r, T in zip(ranges, Ts)]
+        if norm != _full_ranges(Ts):
+            man["ranges"] = [[[int(a), int(b)] for a, b in r] for r in norm]
+    return man
 
 
 def _packed_layout(packed: PackedDB):
     return [(b.L, b.NS, b.kernel, b.num_tiles) for b in packed.buckets]
 
 
-def stream_sidecar_fresh(path: str, manifest: dict) -> bool:
-    """True if ``path + ".pack5/manifest.json"`` equals ``manifest``: the
-    sidecar is present, complete and packed for this store and codec.  A
-    sidecar that claims tile ranges (a per-host one) is not fresh."""
+def stream_sidecar_fresh(path: str, manifest: dict, need_ranges=None) -> bool:
+    """True if ``path + ".pack5/manifest.json"`` matches ``manifest`` (its
+    "ranges" aside) and its tile ranges (none: all) cover ``need_ranges``:
+    None asks for every tile, "any" for the layout alone (the extension's
+    probe)."""
     try:
         with open(os.path.join(path + ".pack5", "manifest.json")) as f:
-            return json.load(f) == manifest
+            stored = json.load(f)
     except (OSError, ValueError):
         return False
+    s_ranges = stored.pop("ranges", None)
+    if stored != {k: v for k, v in manifest.items() if k != "ranges"}:
+        return False
+    if need_ranges == "any":
+        return True
+    Ts = [int(b["T"]) for b in stored["buckets"]]
+    have = (_full_ranges(Ts) if s_ranges is None
+            else [_norm_ranges(r, T) for r, T in zip(s_ranges, Ts)])
+    if need_ranges is None:
+        need = _full_ranges(Ts)
+    elif len(need_ranges) != len(Ts):
+        return False
+    else:
+        need = [_norm_ranges(r, T) for r, T in zip(need_ranges, Ts)]
+    return all(_ranges_cover(h, n) for h, n in zip(have, need))
 
 
 def _write_manifest(sidecar: str, manifest: dict) -> None:
@@ -464,8 +570,9 @@ def _drop_manifest(sidecar: str) -> None:
 def build_stream_sidecar(packed: PackedDB, path: str, stream_codec: str,
                          pad_code: int = UNKNOWN, slab_tiles: int = 64) -> bool:
     """Build the ``path + ".pack5/"`` sidecar from an existing (memmapped)
-    tile store in one pass of ``slab_tiles`` tiles at a time.  Returns
-    True when it was written, False where the directory is not writable."""
+    tile store in one pass of ``slab_tiles`` tiles at a time; a partial
+    store's sidecar claims the store's ranges only.  Returns True when it
+    was written, False where the directory is not writable."""
     from ..ops import pack5 as p5
 
     _cpw, words_for, s_pack = p5.CODECS[stream_codec][:3]
@@ -487,7 +594,7 @@ def build_stream_sidecar(packed: PackedDB, path: str, stream_codec: str,
             del mm
         _write_manifest(sidecar, stream_manifest(
             stream_codec, pad_code, packed.num_sequences, packed.total_real_chars,
-            _packed_layout(packed),
+            _packed_layout(packed), ranges=packed.tile_ranges,
         ))
         return True
     except (OSError, ValueError):
@@ -504,12 +611,13 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
     ``stream_codec`` (a codec of ops/pack5.py): also build the
     ``path + ".pack5/"`` sidecar in the same pass, each slab packed while
     it is in RAM; the sidecar is best-effort, and a write failure drops it
-    while the store is still built.  Under the build lock: a store another
-    process built meanwhile with the same bucket layout is loaded (and
-    given the sidecar it lacks) instead of built again.  ``tile_ranges``
-    raises NotImplementedError: per-host stores wait for A13."""
-    if tile_ranges is not None:
-        raise NotImplementedError(_PER_HOST)
+    while the store is still built.  ``tile_ranges``: per bucket of the
+    plan, the [(t_start, t_stop), ...] tiles to pack (a per-host store:
+    a sparse tiles file of the full size, the ranges in the manifest;
+    seq_index and lengths cover every tile); None packs all.  Under the
+    build lock: a store another process built meanwhile with the same
+    bucket layout is loaded (and given the sidecar it lacks), or, when it
+    lacks some requested ranges, extended in place (``_extend_store``)."""
     lengths = np.asarray(db.lengths, dtype=np.int64)
     offsets = np.asarray(db.offsets, dtype=np.int64)
     chars = np.asarray(db.chars)
@@ -519,12 +627,28 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
     nchars = int(lengths.sum())
     plans = plan_buckets(lengths, edges)
     layout = [(L, NS, kernel, -(-(stop - start) // NS)) for start, stop, L, NS, kernel in plans]
+    Ts = [T for _, _, _, T in layout]
+    if tile_ranges is not None and len(tile_ranges) != len(plans):
+        raise ValueError(f"tile_ranges has {len(tile_ranges)} buckets, the plan {len(plans)}")
+    full = _full_ranges(Ts)
+    req = full if tile_ranges is None else [_norm_ranges(r, T) for r, T in zip(tile_ranges, Ts)]
+    partial = req != full
+
+    def pack_slab(a, b, L, NS):
+        return _pack_slab(chars, offsets, lengths, a, b, L, NS, pad_code)
 
     with _store_build_lock(path):
-        prior = load_packed(path, n, nchars, expect_pad=pad_code)
+        prior = load_packed(path, n, nchars, expect_pad=pad_code, need_ranges="any")
         if prior is not None and _packed_layout(prior) == layout:
+            have = prior.tile_ranges or full
+            missing = [_ranges_subtract(r, h) for r, h in zip(req, have)]
+            if any(missing):
+                del prior  # its memmap goes before the tiles file is written
+                return _extend_store(path, plans, Ts, missing, have, req, pack_slab,
+                                     slab_tiles, stream_codec, pad_code, n, nchars, layout)
             if stream_codec is not None and not stream_sidecar_fresh(
-                path, stream_manifest(stream_codec, pad_code, n, nchars, layout)
+                path, stream_manifest(stream_codec, pad_code, n, nchars, layout),
+                need_ranges=req,
             ):
                 build_stream_sidecar(prior, path, stream_codec, pad_code=pad_code,
                                      slab_tiles=slab_tiles)
@@ -546,7 +670,9 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
         offset = 0
         tmp_bin = f"{_tiles_bin_path(path)}.tmp.{os.getpid()}"
         with open(tmp_bin, "wb") as f:
-            for nb, (start, stop, L, NS, kernel) in enumerate(plans):
+            if partial:  # sparse: the offsets of a complete store, only the ranges written
+                f.truncate(sum(T * L * NS for (L, NS, _, T) in layout))
+            for nb, ((start, stop, L, NS, kernel), rq) in enumerate(zip(plans, req)):
                 T = -(-(stop - start) // NS)
                 pk_mm = None
                 if sidecar and T:
@@ -555,22 +681,37 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
                                           mode="w+", shape=(T, s_words(L * NS)))
                     except (OSError, ValueError):
                         sidecar = None
-                idx_parts, len_parts = [], []
-                for a in range(start, stop, slab_tiles * NS):
-                    b = min(a + slab_tiles * NS, stop)
-                    tiles, sidx, slen = _pack_slab(chars, offsets, lengths, a, b, L, NS, pad_code)
+
+                def put(tiles, t0):
+                    nonlocal sidecar
                     f.write(np.ascontiguousarray(tiles).data)
                     if pk_mm is not None and sidecar:
-                        t0 = (a - start) // NS
                         try:
                             s_pack(tiles, out=pk_mm[t0 : t0 + len(tiles)])
                         except OSError:
                             sidecar = None
-                    idx_parts.append(sidx)
-                    len_parts.append(slen)
+
+                if partial:
+                    arrays[f"b{nb}_idx"], arrays[f"b{nb}_len"] = _bucket_meta_arrays(
+                        start, stop, NS, lengths)
+                    arrays[f"b{nb}_ranges"] = np.asarray(rq, np.int64).reshape(-1, 2)
+                    for t0r, t1r in rq:
+                        hi = min(stop, start + t1r * NS)
+                        for a in range(start + t0r * NS, hi, slab_tiles * NS):
+                            tiles = pack_slab(a, min(a + slab_tiles * NS, hi), L, NS)[0]
+                            t0 = (a - start) // NS
+                            f.seek(offset + t0 * L * NS)
+                            put(tiles, t0)
+                else:
+                    idx_parts, len_parts = [], []
+                    for a in range(start, stop, slab_tiles * NS):
+                        tiles, sidx, slen = pack_slab(a, min(a + slab_tiles * NS, stop), L, NS)
+                        put(tiles, (a - start) // NS)
+                        idx_parts.append(sidx)
+                        len_parts.append(slen)
+                    arrays[f"b{nb}_idx"] = np.concatenate(idx_parts)
+                    arrays[f"b{nb}_len"] = np.concatenate(len_parts)
                 del pk_mm
-                arrays[f"b{nb}_idx"] = np.concatenate(idx_parts)
-                arrays[f"b{nb}_len"] = np.concatenate(len_parts)
                 arrays[f"b{nb}_info"] = np.array(
                     [L, NS, _KERNEL_CODE[kernel], T, offset], np.int64
                 )
@@ -583,10 +724,82 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
         os.replace(tmp, path)
         if sidecar:
             try:
-                _write_manifest(sidecar, stream_manifest(stream_codec, pad_code, n, nchars, layout))
+                _write_manifest(sidecar, stream_manifest(stream_codec, pad_code, n, nchars, layout,
+                                                         ranges=req if partial else None))
             except OSError:
                 pass
-    return load_packed(path, n, nchars, expect_pad=pad_code)
+    return load_packed(path, n, nchars, expect_pad=pad_code, need_ranges=req)
+
+
+def _extend_store(path, plans, Ts, missing, have, req, pack_slab, slab_tiles, stream_codec,
+                  pad_code, n, nchars, layout):
+    """Pack the ``missing`` tile ranges into an existing partial store in
+    place, then publish the union of ``have`` and ``req`` in its manifest
+    (and the sidecar's, where its layout matches: its rows are written
+    too).  Runs under the build lock; the data goes before the manifests,
+    so an interrupted extension never claims tiles it did not write."""
+    sc_fresh = False
+    e_words = e_pack = None
+    if stream_codec is not None:
+        from ..ops import pack5 as p5
+
+        _cpw, e_words, e_pack = p5.CODECS[stream_codec][:3]
+        sc_fresh = stream_sidecar_fresh(
+            path, stream_manifest(stream_codec, pad_code, n, nchars, layout), need_ranges="any")
+    with open(_tiles_bin_path(path), "r+b") as f:
+        offset = 0
+        for bi, ((start, stop, L, NS, _kernel), miss, T) in enumerate(zip(plans, missing, Ts)):
+            pk_mm = None
+            if sc_fresh and miss and T:
+                try:
+                    pk_mm = np.memmap(os.path.join(path + ".pack5", f"b{bi}.bin"), np.int32,
+                                      mode="r+", shape=(T, e_words(L * NS)))
+                except (OSError, ValueError):
+                    sc_fresh = False  # a half-extended sidecar must not validate
+                    try:
+                        _drop_manifest(path + ".pack5")
+                    except OSError:
+                        pass
+            for t0r, t1r in miss:
+                hi = min(stop, start + t1r * NS)
+                for a in range(start + t0r * NS, hi, slab_tiles * NS):
+                    tiles = pack_slab(a, min(a + slab_tiles * NS, hi), L, NS)[0]
+                    t0 = (a - start) // NS
+                    f.seek(offset + t0 * L * NS)
+                    f.write(np.ascontiguousarray(tiles).data)
+                    if pk_mm is not None:
+                        e_pack(tiles, out=pk_mm[t0 : t0 + len(tiles)])
+            del pk_mm
+            offset += T * L * NS
+    z = np.load(path)
+    arrays = {k: z[k] for k in z.files}
+    for i, (h, r) in enumerate(zip(have, req)):
+        arrays[f"b{i}_ranges"] = np.asarray(
+            _norm_ranges(list(h) + list(r), Ts[i]), np.int64).reshape(-1, 2)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as fm:
+        np.savez(fm, **arrays)
+    os.replace(tmp, path)
+    if sc_fresh:
+        # The sidecar's claims grow by the rows written here; its own
+        # ranges may be narrower than the store's.
+        man_path = os.path.join(path + ".pack5", "manifest.json")
+        try:
+            with open(man_path) as mf:
+                sc_have = json.load(mf).get("ranges")
+            sc_have = (_full_ranges(Ts) if sc_have is None
+                       else [_norm_ranges([tuple(x) for x in r], T) for r, T in zip(sc_have, Ts)])
+            union = [_norm_ranges(list(h) + list(m), T) for h, m, T in zip(sc_have, missing, Ts)]
+            _write_manifest(path + ".pack5", stream_manifest(
+                stream_codec, pad_code, n, nchars, layout, ranges=union))
+        except (OSError, ValueError):
+            pass  # stale claims under-report; the next check rebuilds
+    out = load_packed(path, n, nchars, expect_pad=pad_code, need_ranges=req)
+    if stream_codec is not None and not sc_fresh and out is not None:
+        # No sidecar of this layout: build it whole (rows a partial store
+        # lacks pack as zeros, which no shard of this process reads).
+        build_stream_sidecar(out, path, stream_codec, pad_code=pad_code, slab_tiles=slab_tiles)
+    return out
 
 
 def unpack_tile_sequences(bucket: PackedBucket, tile: int) -> list[np.ndarray]:

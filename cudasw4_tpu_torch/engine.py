@@ -21,13 +21,20 @@ A database whose packed tiles and a streamed pass's working memory
 exceed the device budget streams instead (engine_streaming.py): a
 resident prefix stays on the device, the rest crosses the link once per
 batch of up to QB_STREAM queries of any length.
+With a ``mesh`` (parallel/sharding.py) every bucket's tiles split over
+the mesh's shards, resident or streamed: each shard runs the same kernels
+on its slice, reduces it to its top N, and the host merges the shards'
+candidates under the same tie rule (``_dispatch_mesh``,
+``_dispatch_batch_mesh``, ``_rescore_overflow_mesh``), so a mesh gives
+exactly what one device gives.  A mesh scan is timed on the host clock,
+from its launch to the merged result on the host.
 GCUPS = query length x sum of real DB lengths / 1e9 / seconds, as the
-reference's makeBenchmarkStats (src/cudasw4.cuh:2264-2271).
+reference's makeBenchmarkStats (src/cudasw4.cuh:2264-2271); a mesh counts
+the database's residues once, not once a shard.
 
 The engine runs on the card unless the caller asks for the CPU
-(``device="cpu"``), where every wrapper takes its kernel's plain version.
-Paths of the JAX engine that later slices of the port bring (several
-devices, tuning, warmup) raise NotImplementedError naming their slice.
+(``device="cpu"``, or a mesh of CPU devices), where every wrapper takes
+its kernel's plain version.  Tuning and warmup come with later slices.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from .ops import (
     batch_col_scores, bucket_kind, col_flat_plan, cuda_lib, score_bucket, sw_cell, sw_col,
 )
 from .ops.sw_row import prepare_query
+from .parallel import sharding
+from .parallel.sharding import Candidates, shard_context
 from .substitution import ScoringConfig, make_scoring_config
 
 #: Environment switch of the oracle check: "1" re-scores each scan's top
@@ -60,6 +69,11 @@ DEBUG_CHECK_ENV = "CUDASW4_TPU_TORCH_DEBUG_CHECK"
 
 #: Environment switch of int16 DP state with the overflow re-score ("1").
 STATE16_ENV = "CUDASW4_TPU_TORCH_STATE16"
+
+#: Per-shard budget of a mesh that spans processes when no
+#: max_device_bytes is given: every process must decide alike, and each
+#: sees only its own devices.
+MULTIPROCESS_BUDGET = 8 << 30
 
 @dataclass
 class BenchmarkStats:
@@ -87,9 +101,37 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class _HostClock:
+    """The host-clock start of a mesh launch (``SearchEngine._timed``)."""
+
+    def __init__(self, t0: float):
+        self.t0 = t0
+
+
+def _merge_rescored(vals, ids, cand_v, cand_i):
+    """The fast pass's top-N (``vals``, ``ids``) after an overflow re-score:
+    its entries below SAT that were not re-scored, merged with the exact
+    candidates (``cand_v``, ``cand_i``) by (-score, id) and cut to its
+    length.  An entry at SAT is a lower bound, and its subject's tile was
+    flagged: its exact score is among the candidates, or below a shard's
+    top N.  Returns host (vals, ids)."""
+    vals, ids = np.asarray(vals, np.int64), np.asarray(ids, np.int64)
+    keep = (vals < sw_cell.SAT) & ~np.isin(ids, cand_i)
+    allv = np.concatenate([vals[keep], np.asarray(cand_v, np.int64)])
+    alli = np.concatenate([ids[keep], np.asarray(cand_i, np.int64)])
+    order = np.lexsort((alli, -allv))[: len(vals)]
+    return allv[order].tolist(), alli[order].tolist()
+
+
 class SearchEngine(StreamingEngineMixin):
-    """One-device search engine: a resident database, or a streamed one
-    past the device budget (engine_streaming.py)."""
+    """Search engine on one device or a mesh: a resident database, or a
+    streamed one past the device budget (engine_streaming.py)."""
+
+    #: Most flagged tiles of one bucket that one shard re-scores in the
+    #: mesh overflow re-score; past it the query is scanned again in exact
+    #: state (the JAX engine's OVF_TILE_CAP, the reference's overflow
+    #: buffer).
+    OVF_TILE_CAP = 32
 
     #: Queries per batched scan (short queries only): one launch per bucket
     #: serves the whole group.
@@ -108,10 +150,14 @@ class SearchEngine(StreamingEngineMixin):
         stream_chunk_bytes: int = engine_streaming.STREAM_CHUNK_BYTES,
         max_batch_sequences: int | None = None,
         verbose: bool = False,
+        mesh: sharding.Mesh | None = None,
     ):
         self.scoring = scoring or make_scoring_config("blosum62")
         self.num_top = num_top
-        self.device = resolve_device(device)
+        # A mesh's shards hold the database; ``device`` is then its first
+        # local device.
+        self.mesh = mesh
+        self.device = mesh.local_devices[0] if mesh is not None else resolve_device(device)
         self.max_device_bytes = max_device_bytes
         self.col_temp_bytes = col_temp_bytes
         # Streamed chunks hold at most stream_chunk_bytes of tiles
@@ -139,32 +185,48 @@ class SearchEngine(StreamingEngineMixin):
         self.packed: PackedDB | None = None
         self._bucket_tiles: list[torch.Tensor] = []
         self._flat_idx = self._valid = None
+        self._shards: list[sharding.Shard] = []
         self._total_t0 = None
         self._total_cells = 0.0
+        self._host_done = 0.0  # when the last mesh result reached the host
 
     # ------------------------------------------------------------------ DB
 
+    def _mesh_ndev(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
     def _device_budget(self) -> int:
-        """Device-memory budget, in bytes: the resident database, or a
-        streamed one's prefix and a pass's working memory."""
+        """Device-memory budget of one device (of each shard, on a mesh), in
+        bytes: the resident database, or a streamed one's prefix and a
+        pass's working memory.  A card's 0.7 is shared by the shards it
+        holds; a mesh across processes takes MULTIPROCESS_BUDGET unless
+        ``max_device_bytes`` is given."""
         if self.max_device_bytes is not None:
             return self.max_device_bytes
-        if self.device.type == "cuda":
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            return int(total * 0.7)
+        if self.mesh is not None and self.mesh.multiprocess:
+            return MULTIPROCESS_BUDGET
+        devices = self.mesh.local_devices if self.mesh is not None else [self.device]
+        if devices[0].type == "cuda":
+            return min(int(torch.cuda.get_device_properties(d).total_memory * 0.7)
+                       // devices.count(d) for d in devices)
         return 8 << 30
 
     def set_database(self, db: DBData, pack_cache: str | None = None,
                      packed: PackedDB | None = None) -> None:
-        """Pack the database and make it resident on the device, or stream
-        it when its packed tiles and a streamed pass's working memory
-        (``engine_streaming.stream_work_bytes``) exceed the device budget.
+        """Pack the database and make it resident on the device (split over
+        the mesh's shards), or stream it when its packed tiles and a
+        streamed pass's working memory (``engine_streaming.stream_work_bytes``)
+        exceed the device budget (on a mesh: the largest shard's tiles and
+        one shard's working memory against one shard's budget).
 
         ``pack_cache``: the tile store's path (align passes
         ``<db>0.tpupack.npz``): loaded when it is fresh, else packed into
         it, with the transfer-pack sidecar in the same pass when the bucket
         plan already shows that the database streams; a store that cannot
-        be written is skipped.  ``packed``: use this packed form of ``db``
+        be written is skipped.  A streamed mesh across processes packs only
+        the tiles this process's shards read (a per-host store,
+        ``_host_tile_ranges``), and a partial store that turns out resident is first
+        extended to every tile.  ``packed``: use this packed form of ``db``
         instead (``db.packing.packed_from_arrays`` builds one from plain
         arrays).
         """
@@ -183,35 +245,45 @@ class SearchEngine(StreamingEngineMixin):
         self.packed = None
         self._bucket_tiles = []
         self._flat_idx = self._valid = None
+        self._shards = []
         self._resident_chunks, self._res_tiles = [], {}
         self._stream_pack = self._stream_codec = None
         self._prefix_bytes, self._work_bytes, self._temp_bytes = 0, 0, None
         codec_mode = os.environ.get(STREAM_PACK_ENV, "1")
         if packed is None and pack_cache:
             lengths = np.asarray(db.lengths, np.int64)
-            stream_codec = None
+            stream_codec = tile_ranges = None
             try:
-                if self._streams(packing.planned_shapes(lengths)):
+                plans = packing.plan_buckets(lengths)
+                if self._streams([(L, NS, kernel, -(-(stop - start) // NS))
+                                  for start, stop, L, NS, kernel in plans]):
                     stream_codec = choose_codec(codec_mode, int(self._pad))
+                    tile_ranges = self._host_tile_ranges(plans)
             except ValueError:
                 pass  # unsorted metadata: the store build raises it below
             packed = packing.load_packed(pack_cache, db.num_sequences, int(lengths.sum()),
-                                         expect_pad=self._pad)
+                                         expect_pad=self._pad, need_ranges=tile_ranges)
             if packed is not None and self.verbose:
                 print(f"Loaded packed tiles from {pack_cache}")
             if packed is None:
                 try:
                     packed = packing.pack_db_to_store(db, pack_cache, pad_code=self._pad,
-                                                      stream_codec=stream_codec)
+                                                      stream_codec=stream_codec,
+                                                      tile_ranges=tile_ranges)
                 except OSError:
                     packed = None  # a read-only database directory: pack in RAM
         self.packed = packed if packed is not None else pack_db(db, pad_code=self._pad)
-        dev = self.device
-        self._matrix_flat = torch.as_tensor(
-            self.scoring.matrix.astype(np.int32).reshape(-1)
-        ).to(dev)
-        self._kinds = tuple(bucket_kind(b) for b in self.packed.buckets)
         shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in self.packed.buckets]
+        if self.packed.tile_ranges is not None and not self._streams(shapes):
+            # The budget says resident after all: the partial store's
+            # tiles are not all this process's shards' slices.
+            self.packed = packing.pack_db_to_store(db, pack_cache, pad_code=self._pad)
+        dev = self.device
+        matrix_flat = self.scoring.matrix.astype(np.int32).reshape(-1)
+        self._matrix_flat = torch.as_tensor(matrix_flat).to(dev)
+        self._kinds = tuple(bucket_kind(b) for b in self.packed.buckets)
+        if self.mesh is not None:
+            self._shards = sharding.make_shards(self.mesh, matrix_flat)
         if self._streams(shapes):
             self.streaming = True
             self._work_bytes, self._temp_bytes = self._stream_work(shapes)
@@ -229,6 +301,8 @@ class SearchEngine(StreamingEngineMixin):
                     self._stream_pack = self._build_stream_pack(pack_cache)
             if self.verbose:
                 print("Database exceeds device memory budget: streaming mode")
+        elif self.mesh is not None:
+            sharding.shard_bucket_arrays(self.packed, self._shards, self.mesh.size)
         else:
             self._bucket_tiles = [upload(b.tiles, dev) for b in self.packed.buckets]
             flat_idx = np.concatenate(
@@ -242,13 +316,15 @@ class SearchEngine(StreamingEngineMixin):
                 f"Database ready: {self.packed.num_sequences} sequences, "
                 f"{self.packed.total_real_chars} residues, "
                 f"{len(self.packed.buckets)} buckets, pack time {dt:.2f}s"
+                + (f", {self.mesh.size} shards" if self.mesh is not None else "")
             )
 
     def _streams(self, shapes) -> bool:
         """``engine_streaming.streams`` under this engine's budget and
         chunk caps."""
         return engine_streaming.streams(shapes, self._device_budget(), self.stream_chunk_bytes,
-                                        self.max_batch_sequences, self.QB_STREAM)
+                                        self.max_batch_sequences, self.QB_STREAM,
+                                        self._mesh_ndev())
 
     def warmup(self) -> int:
         """Build and load the CUDA kernel library ahead of the first scan
@@ -299,38 +375,46 @@ class SearchEngine(StreamingEngineMixin):
         engine's ``_scan_long_query``)."""
         return not self.state16 or len(codes) > sw_cell.QCAP
 
-    def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool):
+    def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool, matrix=None):
         """Scores f32 [T, NS] of one query against one bucket's tiles: col
         buckets take NQC-row chunks with the H/F carry when the query's
         padded rows pass NQC, every other case one kernel call.  A streamed
         pass caps the tile groups' temporaries at ``_temp_bytes``: the
         carry's groups at half of it, as its in and out carries live
-        together."""
+        together.  ``matrix``: the substitution matrix on the tiles' device
+        (default: the engine's)."""
+        matrix = self._matrix_flat if matrix is None else matrix
         if kind == "col" and int(params[3]) > sw_col.NQC:
             temp = self.col_temp_bytes
             if self._temp_bytes is not None:
                 half = self._temp_bytes // 2
                 temp = half if temp is None else min(temp, half)
             return sw_col.score_bucket_col_any_query(
-                tiles, codes, self._matrix_flat, self.scoring.gop, self.scoring.gex,
+                tiles, codes, matrix, self.scoring.gop, self.scoring.gex,
                 pad=self._pad, temp_bytes=temp, exact=exact,
             )
-        return score_bucket(tiles, qdev, self._matrix_flat, params, kind, exact=exact,
+        return score_bucket(tiles, qdev, matrix, params, kind, exact=exact,
                             temp_bytes=self._temp_bytes)
 
     def bucket_scores(self, codes, exact: bool = True) -> list[torch.Tensor]:
         """Scores f32 [T, NS] of one query against each bucket, in bucket
         order, on the device; ``exact=False``: int16 state (cell and col
         buckets)."""
-        if self.streaming:
-            raise RuntimeError("bucket scores need a resident database; a streamed "
-                               "one yields its scores chunk by chunk (_stream_rows)")
+        if self.streaming or self.mesh is not None:
+            raise RuntimeError("bucket scores need a database resident on one device; a "
+                               "streamed one yields its scores chunk by chunk (_stream_rows)")
+        return self._bucket_parts(self._bucket_tiles, self.device, codes, exact)
+
+    def _bucket_parts(self, bucket_tiles, device, codes, exact: bool, matrix=None) -> list:
+        """Scores f32 [T, NS] of one query against each of ``bucket_tiles``
+        on ``device`` (None where a shard holds no tile of the bucket)."""
         codes = np.asarray(codes, dtype=np.int8)
         qpad, params = self._single_qpad(codes)
-        qdev = cuda_lib.to_device(qpad, self.device)
+        qdev = cuda_lib.to_device(qpad, device)
         return [
-            self._score_bucket(tiles, kind, codes, qdev, params, exact)
-            for tiles, kind in zip(self._bucket_tiles, self._kinds)
+            None if tiles is None
+            else self._score_bucket(tiles, kind, codes, qdev, params, exact, matrix)
+            for tiles, kind in zip(bucket_tiles, self._kinds)
         ]
 
     def slot_scores(self, codes, exact: bool = True) -> torch.Tensor:
@@ -339,43 +423,50 @@ class SearchEngine(StreamingEngineMixin):
         the kernels gave them (mask with ``seq_index >= 0``)."""
         return self._slots(self.bucket_scores(codes, exact))
 
-    def _slots(self, parts) -> torch.Tensor:
-        """Per-bucket scores [T, NS] flattened into one slot-order vector."""
+    def _slots(self, parts, device=None) -> torch.Tensor:
+        """Per-bucket scores [T, NS] flattened into one slot-order vector
+        (None parts skipped)."""
+        parts = [p for p in parts if p is not None]
         if not parts:
-            return torch.zeros(0, dtype=torch.float32, device=self.device)
+            return torch.zeros(0, dtype=torch.float32, device=device or self.device)
         return torch.cat([p.reshape(-1) for p in parts])
 
     def _top_n(self, scores: torch.Tensor, ids: torch.Tensor | None = None):
         """Top ``max(1, results_per_query)`` slots of each row of ``scores``
         ([N] or [S, N]) by descending score, then ascending slot (=
-        ascending reference id): one int64 key per slot,
-        (score + 1) << 32 | (2^32 - 1 - slot), so the order is total and
-        needs no tie rule from topk.  ``ids``: int64 [N] reference id of
-        each slot, -1 for padding (default: the resident database's).
-        Returns device (scores, ids); padding slots that make up a short
-        row come out as (-1, -1)."""
+        ascending reference id) (``sharding.top_n``).  ``ids``: int64 [N]
+        reference id of each slot, -1 for padding (default: the resident
+        database's).  Returns (scores, ids) on the scores' device; padding
+        slots that make up a short row come out as (-1, -1)."""
         ids = self._flat_idx if ids is None else ids
-        k = max(1, self.results_per_query)
-        n = scores.shape[-1]
-        if n == 0:
-            empty = torch.zeros(scores.shape, dtype=torch.int64, device=self.device)
-            return empty, empty
-        s = torch.where(ids >= 0, scores.long(), -1) + 1
-        slot = torch.arange(n, dtype=torch.int64, device=self.device)
-        key = (s << 32) | ((1 << 32) - 1 - slot)
-        top = torch.topk(key, min(k, n), dim=-1).values
-        vals = (top >> 32) - 1
-        slots = (1 << 32) - 1 - (top & ((1 << 32) - 1))
-        return vals, ids[slots]
+        return sharding.top_n(scores, ids, self.results_per_query)
 
     def _dispatch(self, codes):
         """Launch one query's scan; returns device (scores, ids, tile
         maxima), the tile maxima [T] per bucket for an int16-state scan and
-        None for an exact one."""
+        None for an exact one; on a mesh, ``_dispatch_mesh``'s."""
         exact = self._exact_for(codes)
+        if self.mesh is not None:
+            return self._dispatch_mesh(codes, exact)
         parts = self.bucket_scores(codes, exact)
         vals, ids = self._top_n(self._slots(parts))
         return vals, ids, None if exact else [p.amax(dim=1) for p in parts]
+
+    def _dispatch_mesh(self, codes, exact: bool):
+        """Enqueue one query on every local shard, each on its slice of
+        every bucket, reduced to its top N with its tile maxima under int16
+        state (the JAX package's ``build_sharded_scan``, chunked col
+        buckets included); reads nothing back.  Returns (Candidates,
+        exact, None), the arguments ``_finish_single`` takes."""
+        cands = Candidates(self.mesh, self.results_per_query, 1)
+        for sh in self._shards:
+            with shard_context(sh):
+                parts = self._bucket_parts(sh.tiles, sh.device, codes, exact, sh.matrix)
+                vals, ids = self._top_n(self._slots(parts, sh.device), sh.ids)
+                tmax = () if exact else [torch.zeros(0) if p is None else p.amax(dim=1)
+                                         for p in parts]
+                cands.add(sh, vals, ids, tmax)
+        return cands, exact, None
 
     def _result(self, vals, ids, nq: int, seconds: float, overflows: int = 0) -> ScanResult:
         k = self.results_per_query
@@ -395,7 +486,11 @@ class SearchEngine(StreamingEngineMixin):
         """Host (vals, ids, overflows) of a single scan: the fast pass's
         top-N, and when its top score reaches SAT the re-scored merge
         (``_rescore_overflow``), overflows counting the fast top-N entries
-        at or above SAT.  Reads the device results back."""
+        at or above SAT.  Reads the device results back.  On a mesh
+        (``_dispatch_mesh``'s (Candidates, exact) as ``vals, ids``), the
+        shards' merge and ``_rescore_overflow_mesh``."""
+        if self.mesh is not None:
+            return self._finish_mesh(codes, vals, ids)
         vals, ids = vals.tolist(), ids.tolist()
         if tmaxes is None or not vals or vals[0] < sw_cell.SAT:
             return vals, ids, 0
@@ -403,11 +498,25 @@ class SearchEngine(StreamingEngineMixin):
         vals, ids = self._rescore_overflow(tmaxes, vals, ids, codes)
         return vals, ids, overflows
 
+    def _finish_mesh(self, codes, cands: Candidates, exact: bool):
+        """``_finish_single`` of a mesh launch: waits for the local shards'
+        candidates, merges every shard's, and re-scores on the mesh when
+        the top score reaches SAT."""
+        host = cands.host()
+        v, i = cands.merged(host)
+        keep = i[0] >= 0
+        vals, ids = v[0][keep].tolist(), i[0][keep].tolist()
+        if exact or not vals or vals[0] < sw_cell.SAT:
+            return vals, ids, 0
+        overflows = sum(1 for x in vals if x >= sw_cell.SAT)
+        vals, ids = self._rescore_overflow_mesh(host[2], vals, ids, codes)
+        return vals, ids, overflows
+
     def _rescore_overflow(self, tmaxes, vals, ids, codes):
         """Exact int32 re-score of only the tiles whose int16 max reached
         SAT, merged into the fast pass's top-N by (-score, id) (the JAX
-        engine's single-device ``_rescore_overflow``; the mesh twin waits
-        for the multi-GPU slice).
+        engine's single-device ``_rescore_overflow``; on a mesh,
+        ``_rescore_overflow_mesh``).
 
         A saturated subject's exact score is >= SAT and every unsaturated
         score is exact and < SAT, so the true top-N is the exact scores of
@@ -430,16 +539,51 @@ class SearchEngine(StreamingEngineMixin):
             cand_i.append(sidx[keep].astype(np.int64))
         if not cand_v:  # a flag without a flagged tile cannot happen
             return vals, ids
-        vals, ids = np.asarray(vals, np.int64), np.asarray(ids, np.int64)
-        keep = ~np.isin(ids, np.concatenate(cand_i))
-        allv = np.concatenate([vals[keep], *cand_v])
-        alli = np.concatenate([ids[keep], *cand_i])
-        order = np.lexsort((alli, -allv))[: len(vals)]
-        return allv[order].tolist(), alli[order].tolist()
+        return _merge_rescored(vals, ids, np.concatenate(cand_v), np.concatenate(cand_i))
+
+    def _rescore_overflow_mesh(self, tmaxes, vals, ids, codes):
+        """The mesh twin of ``_rescore_overflow`` (the JAX engine's
+        ``_rescore_overflow_mesh`` and ``build_sharded_overflow_rescore``):
+        each shard re-scores its flagged tiles (``tmaxes``: per local shard,
+        its tile maxima per bucket on the host) with exact state and
+        reduces them to its top N; the shards' candidates merge with the
+        fast top-N's entries below SAT that are not among them.  Every
+        subject that saturated has an exact score >= SAT, above every fast
+        entry kept, and a shard's top N holds all of its subjects that can
+        reach the global top N.  When some shard flags more than
+        OVF_TILE_CAP tiles of a bucket, the query is scanned again in exact
+        state instead.  Returns host (vals, ids)."""
+        sat = sw_cell.SAT
+        need = np.array([[int((tm >= sat).sum()) for tm in per] for per in tmaxes], np.int64)
+        if int(self.mesh.gather(need.reshape(len(tmaxes), -1)).max(initial=0)) > self.OVF_TILE_CAP:
+            vals, ids, _ = self._finish_mesh(codes, *self._dispatch_mesh(codes, True)[:2])
+            return vals, ids
+        qpad, params = self._single_qpad(np.asarray(codes, np.int8))
+        cands = Candidates(self.mesh, self.results_per_query, 1)
+        for sh, per in zip(self._shards, tmaxes):
+            with shard_context(sh):
+                qdev = cuda_lib.to_device(qpad, sh.device)
+                parts, idparts = [], [np.zeros(0, np.int64)]
+                for bi, (tiles, kind, tm) in enumerate(zip(sh.tiles, self._kinds, per)):
+                    sel = np.nonzero(tm >= sat)[0]
+                    if sel.size == 0:
+                        continue
+                    sub = tiles.index_select(0, cuda_lib.to_device(sel, sh.device))
+                    parts.append(self._score_bucket(sub, kind, codes, qdev, params, True,
+                                                    sh.matrix))
+                    sidx = self.packed.buckets[bi].seq_index[sh.first[bi] + sel]
+                    idparts.append(np.asarray(sidx, np.int64).reshape(-1))
+                ids_dev = cuda_lib.to_device(np.concatenate(idparts), sh.device)
+                cands.add(sh, *self._top_n(self._slots(parts, sh.device), ids_dev))
+        cv, ci = cands.merged()
+        ok = ci[0] >= 0
+        return _merge_rescored(vals, ids, cv[0][ok], ci[0][ok])
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.local_devices if self.mesh is not None else [self.device]
+        for d in dict.fromkeys(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _encode(self, sequence):
         if isinstance(sequence, (str, bytes)):
@@ -465,7 +609,11 @@ class SearchEngine(StreamingEngineMixin):
     def _timed(self, fn, *args):
         """Run ``fn(*args)``; returns (its result, its clock): CUDA events
         around its launches on the card, so work queued before it does not
-        count, and its wall seconds on the CPU."""
+        count, and its wall seconds on the CPU.  A mesh launch's clock is
+        the host's (``_HostClock``)."""
+        if self.mesh is not None:
+            t0 = time.perf_counter()
+            return fn(*args), _HostClock(t0)
         if self.device.type != "cuda":
             t0 = time.perf_counter()
             return fn(*args), time.perf_counter() - t0
@@ -476,9 +624,17 @@ class SearchEngine(StreamingEngineMixin):
         stop.record()
         return out, (start, stop)
 
-    @staticmethod
-    def _seconds(clock) -> float:
-        """Seconds of a clock from ``_timed`` (waits for its events)."""
+    def _seconds(self, clock) -> float:
+        """Seconds of a clock from ``_timed`` (waits for its events).  A mesh
+        launch's, read once its result is on the host: from the later of
+        its launch and the previous mesh result's arrival to now, so that
+        launches queued ahead share the wall time without counting it
+        twice."""
+        if isinstance(clock, _HostClock):
+            now = time.perf_counter()
+            seconds = now - max(clock.t0, self._host_done)
+            self._host_done = now
+            return seconds
         if isinstance(clock, tuple):
             return clock[0].elapsed_time(clock[1]) / 1e3
         return clock
@@ -522,34 +678,42 @@ class SearchEngine(StreamingEngineMixin):
         to QB_MAX slots to keep one compiled program, which the port does
         not need.  Each bucket is its own launch, which is the JAX engine's
         split dispatch (BATCH_SPLIT_CELLS) at every size."""
-        if self.streaming:
-            raise RuntimeError("batch slot scores need a resident database")
+        if self.streaming or self.mesh is not None:
+            raise RuntimeError("batch slot scores need a database resident on one device")
+        return self._batch_rows(self._bucket_tiles, self.device, group)
+
+    def _batch_rows(self, bucket_tiles, device, group, matrix=None) -> torch.Tensor:
+        """Scores f32 [len(group), slots] of a batch against ``bucket_tiles``
+        on ``device`` (None entries skipped), in slot order."""
         S = len(group)
         qcap_b = self._qcap_batch
         queries, nqs, pads, params = self._batch_slot_params(enumerate(group), S, qcap_b)
         plan = ()
         if any(k == "col" for k in self._kinds):
             plan = col_flat_plan(pads, limit=S, rtot=qcap_b)
-        batch = (cuda_lib.to_device(queries, self.device), nqs, pads, params, plan)
-        parts = [self._batch_bucket(tiles, kind, *batch)
-                 for tiles, kind in zip(self._bucket_tiles, self._kinds)]
+        batch = (cuda_lib.to_device(queries, device), nqs, pads, params, plan)
+        parts = [self._batch_bucket(tiles, kind, *batch, matrix=matrix)
+                 for tiles, kind in zip(bucket_tiles, self._kinds) if tiles is not None]
         if not parts:
-            return torch.zeros((S, 0), dtype=torch.float32, device=self.device)
+            return torch.zeros((S, 0), dtype=torch.float32, device=device)
         return torch.cat(parts, dim=1)
 
-    def _batch_bucket(self, tiles, kind, qdev, nqs, pads, params, plan) -> torch.Tensor:
+    def _batch_bucket(self, tiles, kind, qdev, nqs, pads, params, plan,
+                      matrix=None) -> torch.Tensor:
         """Scores f32 [S, T x NS] of a batch's S slots (``_batch_slot_params``
         layout, queries ``qdev`` on the device, ``plan`` from col_flat_plan
         on a database with col buckets) against one bucket's tiles: the
         cell batch kernel on cell tiles, one flat-pool launch per plan pass
-        on col tiles, the row kernel per slot on row tiles."""
+        on col tiles, the row kernel per slot on row tiles.  ``matrix``: on
+        the tiles' device (default: the engine's)."""
         S = qdev.shape[0]
+        matrix = self._matrix_flat if matrix is None else matrix
         if kind == "cell":
-            s = sw_cell.score_bucket_cell_batch(tiles, qdev, self._matrix_flat, params)
+            s = sw_cell.score_bucket_cell_batch(tiles, qdev, matrix, params)
         elif kind == "col":
             got = [None] * S
             for s_part, slots in batch_col_scores(
-                tiles, qdev, self._matrix_flat, params, S, plan, rtot=self._qcap_batch,
+                tiles, qdev, matrix, params, S, plan, rtot=self._qcap_batch,
                 temp_bytes=self._temp_bytes,
             ):
                 for si, slot in enumerate(slots):
@@ -558,21 +722,36 @@ class SearchEngine(StreamingEngineMixin):
         else:
             gop, gex = self.scoring.gop, self.scoring.gex
             s = torch.stack([
-                score_bucket(tiles, qdev[i], self._matrix_flat,
-                             (int(nqs[i]), gop, gex, int(pads[i])), kind)
+                score_bucket(tiles, qdev[i], matrix, (int(nqs[i]), gop, gex, int(pads[i])), kind)
                 for i in range(S)
             ])
         return s.reshape(S, -1)
 
     def _dispatch_batch(self, group):
         """Launch one batch; returns device (scores, ids), each [S, k]
-        (batches are exact)."""
-        return self._top_n(self.batch_slot_scores(group))
+        (batches are exact); on a mesh, (Candidates, None)."""
+        if self.mesh is None:
+            return self._top_n(self.batch_slot_scores(group))
+        return self._dispatch_batch_mesh(group), None
+
+    def _dispatch_batch_mesh(self, group) -> Candidates:
+        """Enqueue one batch on every local shard (the JAX package's
+        ``build_sharded_batch_scan``: B4, B5 or B6, and B2 on each shard's
+        slices) and reduce each shard's rows to its top N."""
+        cands = Candidates(self.mesh, self.results_per_query, len(group))
+        for sh in self._shards:
+            with shard_context(sh):
+                rows = self._batch_rows(sh.tiles, sh.device, group, sh.matrix)
+                cands.add(sh, *self._top_n(rows, sh.ids))
+        return cands
 
     def _materialize_batch(self, vals, ids, group, clock) -> list[ScanResult]:
         """Per-query ScanResults of one batch, in order.  A query's seconds
         are the batch's split in proportion to its cells (queries are not
-        separately observable inside one batch)."""
+        separately observable inside one batch).  On a mesh ``vals`` is the
+        batch's Candidates, merged here."""
+        if isinstance(vals, Candidates):
+            vals, ids = vals.merged()
         vals, ids = vals.tolist(), ids.tolist()  # waits for the batch
         seconds = self._seconds(clock)
         total = sum(len(c) for c in group)

@@ -43,8 +43,17 @@ always run exact int32 state, as the JAX package's do, and batch under
 (from its start to the last chunk's results on the host, the transfers
 included, since the user waits for them) split by each query's cells.
 
-The mesh branches of the JAX module (tile-sharded chunks, per-host tile
-ranges) belong to the multi-GPU slice of the port (A13).
+On a mesh (parallel/sharding.py) a chunk's tiles are a multiple of the
+mesh size and split over the shards as a resident bucket's do
+(``sharding.shard_ranges``): each shard stages its rows through a ring of
+its own on its device, unpacks and scores them there, and keeps its top N
+of the chunk; the last chunk of a bucket splits at its real size, in
+slices of ceil(t / ndev) tiles, where the JAX package pads it to the full
+chunk.  At the end of the pass each shard's candidates come back, reduce
+to its top N, and merge across shards and processes.  Budgets are per
+shard: a shard's tiles, prefix and working memory against one shard's
+budget.  A mesh across processes packs only the tiles its shards read
+(``_host_tile_ranges``, the per-host tile store).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from .ops import col_flat_plan, cuda_lib, sw_cell, sw_col, sw_row
+from .parallel.sharding import Candidates, shard_context, shard_ranges
 
 #: Environment switch of the resident prefix ("1" on, anything else off).
 STREAM_RESIDENT_ENV = "CUDASW4_TPU_TORCH_STREAM_RESIDENT"
@@ -91,15 +101,18 @@ def batch_rows(kinds) -> int:
     return min(sw_cell.QCAP_BATCH, sw_col.NQC)
 
 
-def chunk_tiles(L: int, NS: int, T: int, chunk_bytes: int, max_seqs: int | None) -> int:
+def chunk_tiles(L: int, NS: int, T: int, chunk_bytes: int, max_seqs: int | None,
+                ndev: int = 1) -> int:
     """Tiles of a streamed chunk of a bucket of T tiles [L, NS]: as many as
     ``chunk_bytes`` holds (--maxBatchBytes), and no more subject slots
     than ``max_seqs`` (--maxBatchSequences), whichever binds first, at
-    least one tile, at most the bucket's."""
+    least one tile, at most the bucket's; on a mesh of ``ndev`` shards a
+    multiple of ndev (at least ndev, at most T rounded up to ndev)."""
     ct = max(1, chunk_bytes // (L * NS))
     if max_seqs is not None:
         ct = min(ct, max(1, max_seqs // NS))
-    return min(ct, T)
+    ct = max(ndev, ct // ndev * ndev)
+    return min(ct, -(-T // ndev) * ndev)
 
 
 def one_tile_temp_bytes(L: int, NS: int, kind: str, rows: int) -> int:
@@ -119,12 +132,14 @@ def one_tile_temp_bytes(L: int, NS: int, kind: str, rows: int) -> int:
 
 
 def stream_work_bytes(shapes, chunk_bytes: int = STREAM_CHUNK_BYTES,
-                      max_seqs: int | None = None, queries: int = QB_STREAM) -> tuple[int, int]:
+                      max_seqs: int | None = None, queries: int = QB_STREAM,
+                      ndev: int = 1) -> tuple[int, int]:
     """(work, temp): the device bytes a streamed pass of ``queries``
     queries takes besides its resident prefix, over buckets of ``shapes``
-    = (L, NS, kind, T), and ``temp``, the cap of one tile group's kernel
+    = (L, NS, kind, T), on each shard of a mesh of ``ndev`` (whose chunks
+    split in ndev slices), and ``temp``, the cap of one tile group's kernel
     temporaries (the largest ``one_tile_temp_bytes``), which is part of
-    the work.  The rest, for the largest chunk: the staging ring's device
+    the work.  The rest, for the largest chunk slice: the staging ring's device
     buffers (``STAGING_DEPTH`` chunks and their seq_index), four chunks of
     tiles (the one scored, the next one unpacked, and the unpack's
     temporaries: two int32 digit planes of at most 4/6 bytes a residue,
@@ -137,7 +152,7 @@ def stream_work_bytes(shapes, chunk_bytes: int = STREAM_CHUNK_BYTES,
     temp = max(one_tile_temp_bytes(L, NS, kind, rows) for L, NS, kind, _ in shapes)
     tiles = slots = 0
     for L, NS, _, T in shapes:
-        ct = chunk_tiles(L, NS, T, chunk_bytes, max_seqs)
+        ct = chunk_tiles(L, NS, T, chunk_bytes, max_seqs, ndev) // ndev
         tiles, slots = max(tiles, ct * L * NS), max(slots, ct * NS)
     ring = STAGING_DEPTH * (tiles + 4 * slots)
     work = ring + 4 * tiles + slots * (SLOT_BYTES_PER_QUERY * queries + 8) + SMALL_BYTES + temp
@@ -145,12 +160,14 @@ def stream_work_bytes(shapes, chunk_bytes: int = STREAM_CHUNK_BYTES,
 
 
 def streams(shapes, budget: int, chunk_bytes: int = STREAM_CHUNK_BYTES,
-            max_seqs: int | None = None, queries: int = QB_STREAM) -> bool:
+            max_seqs: int | None = None, queries: int = QB_STREAM, ndev: int = 1) -> bool:
     """Whether a database of buckets ``shapes`` = (L, NS, kind, T) streams
     under ``budget``: its tiles and a streamed pass's working memory
-    exceed it."""
-    padded = sum(L * NS * T for L, NS, _, T in shapes)
-    return padded + stream_work_bytes(shapes, chunk_bytes, max_seqs, queries)[0] > budget
+    exceed it (on a mesh of ``ndev`` shards, the largest shard's tiles,
+    ceil(T / ndev) of each bucket, and one shard's working memory against
+    one shard's budget)."""
+    padded = sum(L * NS * -(-T // ndev) for L, NS, _, T in shapes)
+    return padded + stream_work_bytes(shapes, chunk_bytes, max_seqs, queries, ndev)[0] > budget
 
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -187,15 +204,17 @@ class _StagingRing:
       sees that record.
 
     On the CPU a chunk is a plain copy and the ring holds nothing.  ``log``
-    holds (bytes, start event, ``copied``, host seconds) of each chunk: the
-    events around its copy on CUDA, and the seconds of its read into the
-    page-locked buffer.
+    (a list the rings of a mesh's shards share) holds (bytes, start event,
+    ``copied``, host seconds) of each chunk: the events around its copy on
+    CUDA, and the seconds of its read into the page-locked buffer.  The
+    compute stream is the current one when the ring is made (a shard's,
+    under its ``shard_context``).
     """
 
-    def __init__(self, device, depth: int, payload_bytes: int, sidx_ints: int):
+    def __init__(self, device, depth: int, payload_bytes: int, sidx_ints: int, log=None):
         self.device = device
         self.cuda = device.type == "cuda"
-        self.log: list = []
+        self.log: list = [] if log is None else log
         if not self.cuda:
             return
         self.depth = depth
@@ -266,13 +285,37 @@ class StreamingEngineMixin:
     def _chunk_tiles(self, b) -> int:
         """Tiles of bucket ``b``'s streamed chunks (``chunk_tiles``)."""
         return chunk_tiles(b.L, b.NS, b.num_tiles, self.stream_chunk_bytes,
-                           self.max_batch_sequences)
+                           self.max_batch_sequences, self._mesh_ndev())
 
     def _stream_work(self, shapes) -> tuple[int, int]:
         """(work, temp) of ``stream_work_bytes`` for this engine's chunk
-        caps and QB_STREAM queries."""
+        caps, QB_STREAM queries and mesh."""
         return stream_work_bytes(shapes, self.stream_chunk_bytes, self.max_batch_sequences,
-                                 self.QB_STREAM)
+                                 self.QB_STREAM, self._mesh_ndev())
+
+    def _host_tile_ranges(self, plans):
+        """Per bucket of ``plans`` (``db.packing.plan_buckets``), the tile
+        ranges this process's shards read on a streamed mesh: each chunk's
+        slices at this process's positions (the resident prefix is whole
+        chunks, split alike).  None when this process holds every shard.
+        ``pack_db_to_store(tile_ranges=...)`` then packs only these (the
+        per-host store, the JAX engine's ``_host_tile_ranges``)."""
+        from .db.packing import _norm_ranges
+
+        mesh = self.mesh
+        if mesh is None or not mesh.multiprocess:
+            return None
+        out = []
+        for start, stop, L, NS, _ in plans:
+            T = -(-(stop - start) // NS)
+            ct = chunk_tiles(L, NS, T, self.stream_chunk_bytes, self.max_batch_sequences,
+                             mesh.size)
+            rs = []
+            for t0 in range(0, T, ct):
+                split = shard_ranges(min(ct, T - t0), mesh.size)
+                rs += [(t0 + split[p][0], t0 + split[p][1]) for p in mesh.local]
+            out.append(_norm_ranges(rs, T))
+        return out
 
     def _prefix_budget(self) -> int:
         """Device bytes the resident prefix (tiles and seq_index) may take:
@@ -283,38 +326,51 @@ class StreamingEngineMixin:
     def _load_resident_prefix(self) -> None:
         """Keep whole leading chunks of each bucket on the device, in bucket
         order, while they fit ``_prefix_budget`` (a bucket's partial last
-        chunk always streams); the rest streams on every pass.  Pinned only
-        where the budget is known: an explicit ``max_device_bytes`` or a
-        CUDA device.  The first ``torch.cuda.OutOfMemoryError`` ends the
-        prefix there, as a device allocation failure does in the JAX
-        package.  ``CUDASW4_TPU_TORCH_STREAM_RESIDENT=0`` streams it all."""
+        chunk always streams); the rest streams on every pass.  On a mesh
+        each local shard keeps its slice of those chunks, within its own
+        budget; an entry is then (bucket, [(tiles, seq_index) a shard]).
+        Pinned only where the budget is known: an explicit
+        ``max_device_bytes`` or a CUDA device (on a mesh across processes,
+        only the explicit one, which every process shares).  The first
+        ``torch.cuda.OutOfMemoryError`` ends the prefix there, as a device
+        allocation failure does in the JAX package (a mesh across
+        processes raises instead: its processes would disagree).
+        ``CUDASW4_TPU_TORCH_STREAM_RESIDENT=0`` streams it all."""
         self._resident_chunks = []
         self._res_tiles = {}
         if os.environ.get(STREAM_RESIDENT_ENV, "1") != "1":
             return
-        if self.max_device_bytes is None and self.device.type != "cuda":
-            return  # unknown memory: do not pin blind
+        if self.max_device_bytes is None and (
+            self.device.type != "cuda" or (self.mesh is not None and self.mesh.multiprocess)
+        ):
+            return  # unknown or unshared memory: do not pin blind
         budget = self._prefix_budget()
         if budget <= 0:
             return
+        ndev = self._mesh_ndev()
         used, oom = 0, False
         for bi, b in enumerate(self.packed.buckets):
             if b.num_tiles == 0 or oom:
                 continue
             ct = self._chunk_tiles(b)
-            chunk_bytes = ct * b.NS * (b.L + 4)
+            chunk_bytes = ct // ndev * b.NS * (b.L + 4)
             taken = 0
             for t0 in range(0, b.num_tiles, ct):
                 t1 = min(t0 + ct, b.num_tiles)
                 if t1 - t0 < ct or used + chunk_bytes > budget:
                     break
                 try:
-                    xdev = upload(np.ascontiguousarray(b.tiles[t0:t1]), self.device)
-                    sdev = upload(np.ascontiguousarray(b.seq_index[t0:t1]), self.device)
+                    if self.mesh is None:
+                        entry = (bi, upload(np.ascontiguousarray(b.tiles[t0:t1]), self.device),
+                                 upload(np.ascontiguousarray(b.seq_index[t0:t1]), self.device))
+                    else:
+                        entry = (bi, [self._upload_slice(sh, b, t0, t1) for sh in self._shards])
                 except torch.cuda.OutOfMemoryError:
+                    if self.mesh is not None and self.mesh.multiprocess:
+                        raise
                     oom = True
                     break
-                self._resident_chunks.append((bi, xdev, sdev))
+                self._resident_chunks.append(entry)
                 used += chunk_bytes
                 taken = t1
             if taken:
@@ -323,18 +379,27 @@ class StreamingEngineMixin:
         if self.verbose and used:
             total = float(self.packed.total_padded_chars)
             print(
-                f"Resident prefix: {used / 2**30:.2f} GiB pinned on device "
-                f"({100.0 * used / total:.0f}% of the DB); remainder streams"
+                f"Resident prefix: {used / 2**30:.2f} GiB pinned on each device "
+                f"({100.0 * used * ndev / total:.0f}% of the DB); remainder streams"
                 + (" [stopped early: device allocation failed]" if oom else "")
             )
+
+    def _upload_slice(self, shard, b, t0: int, t1: int):
+        """A shard's slice of the chunk [t0, t1) of bucket ``b``: its tiles
+        and seq_index on its device."""
+        a, e = shard_ranges(t1 - t0, self.mesh.size)[shard.pos]
+        with shard_context(shard):
+            return (upload(np.ascontiguousarray(b.tiles[t0 + a : t0 + e]), shard.device),
+                    upload(np.ascontiguousarray(b.seq_index[t0 + a : t0 + e]), shard.device))
 
     def _build_stream_pack(self, pack_cache: str | None):
         """Pack every bucket's tiles for the transfer (codec
         ``self._stream_codec``, ops/pack5.py) into disk-backed memmaps: the
         ``<pack_cache>.pack5/`` sidecar when a cache path is given (reused
-        while its manifest matches, rebuilt otherwise; an unwritable one
-        falls back), else anonymous temp files, which skip the resident
-        prefix.  Returns the packed int32 [T, W] memmap of each bucket."""
+        while its manifest matches and its ranges cover a per-host store's,
+        rebuilt otherwise; an unwritable one falls back), else anonymous
+        temp files, which skip the resident prefix.  Returns the packed
+        int32 [T, W] memmap of each bucket."""
         import json
         import tempfile
 
@@ -345,14 +410,17 @@ class StreamingEngineMixin:
         cpw, words_for, pack, _u, _un, maxc = p5.CODECS[codec]
         if int(self._pad) > maxc:
             raise ValueError(f"pad code {self._pad} exceeds codec {codec}")
+        # A per-host store backs a sidecar of its own ranges, which are all
+        # that this process streams.
+        own = self.packed.tile_ranges
         expect = stream_manifest(
             codec, int(self._pad), self.packed.num_sequences, self.packed.total_real_chars,
-            _packed_layout(self.packed),
+            _packed_layout(self.packed), ranges=own,
         )
         sidecar = pack_cache + ".pack5" if pack_cache else None
         fresh = False
         if sidecar:
-            fresh = stream_sidecar_fresh(pack_cache, expect)
+            fresh = stream_sidecar_fresh(pack_cache, expect, need_ranges=own)
             if not fresh:
                 try:
                     _drop_manifest(sidecar)
@@ -426,12 +494,13 @@ class StreamingEngineMixin:
                 yield b, src[t0 : t0 + ct], b.seq_index[t0 : t0 + ct]
 
     def _staging_sizes(self) -> tuple[int, int]:
-        """(payload bytes, seq_index entries) of the largest streamed chunk."""
+        """(payload bytes, seq_index entries) of the largest streamed chunk
+        (of a shard's slice of it, on a mesh)."""
         payload = ints = 0
         for bi, b in enumerate(self.packed.buckets):
             if self._res_tiles.get(bi, 0) >= b.num_tiles:
                 continue
-            ct = self._chunk_tiles(b)
+            ct = -(-self._chunk_tiles(b) // self._mesh_ndev())
             per_tile = (self._stream_pack[bi].shape[1] * 4 if self._stream_pack is not None
                         else b.L * b.NS)
             payload, ints = max(payload, ct * per_tile), max(ints, ct * b.NS)
@@ -455,6 +524,40 @@ class StreamingEngineMixin:
             yield b, self._put_chunk(tiles, b.tiles.shape[1:]), ids
             ring.release(item)
 
+    def _scan_chunks_mesh(self, depth: int = STAGING_DEPTH):
+        """``_scan_chunks`` on a mesh: every chunk of one pass as (bucket,
+        [(int8 tiles, seq_index) on the shard's device, or None where its
+        slice is empty] a local shard).  Each shard stages its slice
+        (``shard_ranges`` of the chunk) through a ring of its own, on its
+        stream; a chunk's slices are released after the caller has
+        enqueued their kernels."""
+        self._stream_log = []
+        rings = []
+        for sh in self._shards:
+            with shard_context(sh):
+                rings.append(_StagingRing(sh.device, depth, *self._staging_sizes(),
+                                          log=self._stream_log))
+        for bi, per_shard in self._resident_chunks:
+            yield self.packed.buckets[bi], per_shard
+        for b, chunk, sidx in self._stream_chunks():
+            split = shard_ranges(len(chunk), self.mesh.size)
+            parts, items = [], []
+            for sh, ring in zip(self._shards, rings):
+                a, e = split[sh.pos]
+                item = part = None
+                if e > a:
+                    with shard_context(sh):
+                        item = ring.stage(chunk[a:e], sidx[a:e])
+                        tiles, ids = ring.take(item)
+                        part = (self._put_chunk(tiles, b.tiles.shape[1:]), ids)
+                parts.append(part)
+                items.append(item)
+            yield b, parts
+            for sh, ring, item in zip(self._shards, rings, items):
+                if item is not None:
+                    with shard_context(sh):
+                        ring.release(item)
+
     def stream_copy_stats(self) -> dict:
         """The last pass's streamed chunks, bytes, the host's milliseconds
         reading them into page-locked memory and, on CUDA, the copy
@@ -467,12 +570,13 @@ class StreamingEngineMixin:
         return {"chunks": len(log), "bytes": sum(e[0] for e in log), "copy_ms": ms,
                 "host_copy_ms": 1e3 * sum(e[3] for e in log)}
 
-    def _stream_rows(self, group):
-        """One pass of the database for encoded queries ``group``: yields,
-        per chunk, (scores f32 [len(group), ct x NS], seq_index [ct, NS])
-        on the device, in chunk order (resident prefix first)."""
+    def _stream_setup(self, group, device):
+        """The device side of a streamed pass of encoded queries ``group`` on
+        ``device``: (shorts, longs, batch, singles).  Queries of at most
+        ``_qcap_batch`` residues (``shorts``) share the batch kernels, their
+        layout in ``batch``; each longer one (``longs``) has its query
+        block and params in ``singles``."""
         qcap_b = self._qcap_batch
-        n = len(group)
         shorts = [i for i, c in enumerate(group) if len(c) <= qcap_b]
         longs = [i for i, c in enumerate(group) if len(c) > qcap_b]
         batch = None
@@ -483,22 +587,61 @@ class StreamingEngineMixin:
             plan = ()
             if any(b.kernel == "col" for b in self.packed.buckets):
                 plan = col_flat_plan(pads, limit=len(shorts), rtot=qcap_b)
-            batch = (cuda_lib.to_device(queries, self.device), nqs, pads, params, plan)
+            batch = (cuda_lib.to_device(queries, device), nqs, pads, params, plan)
         singles = {}
         for i in longs:
             qpad, params = self._single_qpad(group[i])
-            singles[i] = (cuda_lib.to_device(qpad, self.device), params)
+            singles[i] = (cuda_lib.to_device(qpad, device), params)
+        return shorts, longs, batch, singles
+
+    def _chunk_rows(self, tiles, b, group, setup, matrix=None):
+        """Scores f32 [len(group), ct x NS] of one chunk of bucket ``b``
+        (``tiles`` on the device of ``setup``, ``_stream_setup``'s)."""
+        shorts, longs, batch, singles = setup
+        rows: list = [None] * len(group)
+        if batch is not None:
+            part = self._batch_bucket(tiles, b.kernel, *batch, matrix=matrix)
+            for slot, i in enumerate(shorts):
+                rows[i] = part[slot]
+        for i in longs:
+            qdev, params = singles[i]
+            rows[i] = self._score_bucket(tiles, b.kernel, group[i], qdev, params, True,
+                                         matrix).reshape(-1)
+        return torch.stack(rows)
+
+    def _stream_rows(self, group):
+        """One pass of the database for encoded queries ``group``: yields,
+        per chunk, (scores f32 [len(group), ct x NS], seq_index [ct, NS])
+        on the device, in chunk order (resident prefix first)."""
+        setup = self._stream_setup(group, self.device)
         for b, tiles, sidx in self._scan_chunks():
-            rows: list = [None] * n
-            if batch is not None:
-                part = self._batch_bucket(tiles, b.kernel, *batch)
-                for slot, i in enumerate(shorts):
-                    rows[i] = part[slot]
-            for i in longs:
-                qdev, params = singles[i]
-                rows[i] = self._score_bucket(tiles, b.kernel, group[i], qdev, params,
-                                             True).reshape(-1)
-            yield torch.stack(rows), sidx
+            yield self._chunk_rows(tiles, b, group, setup), sidx
+
+    def _stream_candidates_mesh(self, group) -> Candidates:
+        """One pass of the database on a mesh: every local shard scores its
+        slice of each chunk and keeps its top N of the chunk on its device;
+        at the end each shard's candidates start back to the host (the JAX
+        package's sharded chunk scorers and
+        ``build_sharded_chunk_candidates``)."""
+        setups, cands = [], [[] for _ in self._shards]
+        for sh in self._shards:
+            with shard_context(sh):
+                setups.append(self._stream_setup(group, sh.device))
+        for b, parts in self._scan_chunks_mesh():
+            for j, (sh, part) in enumerate(zip(self._shards, parts)):
+                if part is None:
+                    continue
+                with shard_context(sh):
+                    tiles, sidx = part
+                    rows = self._chunk_rows(tiles, b, group, setups[j], sh.matrix)
+                    cands[j].append(self._top_n(rows, sidx.reshape(-1).long()))
+        out = Candidates(self.mesh, self.results_per_query, len(group))
+        for sh, cs in zip(self._shards, cands):
+            with shard_context(sh):
+                empty = torch.full((len(group), 0), -1, dtype=torch.int64, device=sh.device)
+                out.add(sh, torch.cat([v for v, _ in cs], dim=1) if cs else empty,
+                        torch.cat([i for _, i in cs], dim=1) if cs else empty)
+        return out
 
     def _scan_streaming_batch(self, group):
         """Stream the database once for up to QB_STREAM encoded queries of
@@ -513,13 +656,16 @@ class StreamingEngineMixin:
             print("NOTE: int16 kernel families are ignored in streaming mode "
                   "(always exact int32 state)", file=sys.stderr)
         t0 = time.perf_counter()
-        cands = [self._top_n(rows, sidx.reshape(-1).long())
-                 for rows, sidx in self._stream_rows(group)]
-        if cands:  # the one read-back of the pass
-            vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
-            ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
+        if self.mesh is not None:
+            vals, ids = self._stream_candidates_mesh(group).merged()
         else:
-            vals = ids = np.zeros((len(group), 0), np.int64)
+            cands = [self._top_n(rows, sidx.reshape(-1).long())
+                     for rows, sidx in self._stream_rows(group)]
+            if cands:  # the one read-back of the pass
+                vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
+                ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
+            else:
+                vals = ids = np.zeros((len(group), 0), np.int64)
         seconds = time.perf_counter() - t0
         k = self.results_per_query
         db_chars = float(self.packed.total_real_chars)

@@ -722,6 +722,47 @@ def test_streamed_pass_equals_resident_on_card(dev, monkeypatch, depth, resident
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("mode", ["resident", "streamed", "state16"])
+def test_mesh_of_two_shards_equals_single_on_card(dev, monkeypatch, mode):
+    """Two shards (two cards where there are, else both on one card, each
+    on its own stream) give the single device's results: resident, streamed
+    (one-tile chunks split over the shards, a per-shard prefix of half the
+    tiles), and in int16 state at a SAT low enough that tiles flag on both
+    shards (the mesh re-score, its candidates copied back without
+    blocking)."""
+    from cudasw4_tpu_torch.engine_streaming import stream_work_bytes
+    from cudasw4_tpu_torch.parallel.sharding import make_mesh
+
+    rng = np.random.default_rng(34)
+    cfg = make_scoring_config("blosum62")
+    packed = _stream_packed(rng, cfg)
+    lengths = [int(n) for n in rng.integers(5, 400, size=20)] + [3100, 3500]
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in lengths]
+    single = SearchEngine(scoring=cfg, num_top=15, device="cuda")
+    single.set_database(None, packed=packed)
+    want = [(r.scores, r.reference_ids) for r in single.scan_many(queries)]
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() > 1 else ["cuda:0"] * 2
+    kw = {}
+    if mode == "streamed":
+        shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in packed.buckets]
+        kw = dict(max_device_bytes=stream_work_bytes(shapes, 300_000, 128, 20, 2)[0]
+                  + packed.total_padded_chars // 4,
+                  stream_chunk_bytes=300_000, max_batch_sequences=128)
+    eng = SearchEngine(scoring=cfg, num_top=15, mesh=make_mesh(devices), **kw)
+    eng.set_database(None, packed=packed)
+    assert eng.streaming == (mode == "streamed")
+    if mode == "state16":
+        eng.state16 = True
+        monkeypatch.setattr(sw_cell, "SAT", min(s[0] for s, _ in want))
+    for _ in range(2):
+        got = [(r.scores, r.reference_ids) for r in eng.scan_many(queries)]
+        assert got == want
+    if mode == "state16":
+        got = [eng.scan(q) for q in queries[:3]]
+        assert all(r.stats.num_overflows > 0 for r in got)
+    torch.cuda.synchronize()
+
+
 def test_cell_batch_and_col_plan_at_20_slots(dev):
     """B4 with 20 slots and a col_flat_plan of 20 slots (at most 8 a pass)
     through batch_col_scores, as a streamed pass of QB_STREAM = 20 queries

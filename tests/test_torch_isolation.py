@@ -1,4 +1,5 @@
-"""cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu.
+"""cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu;
+importing them builds no kernel and starts no process group.
 
 Each check imports in a fresh interpreter whose PYTHONPATH is the repo
 alone (the login profile's site dir can import JAX on its own).
@@ -21,11 +22,14 @@ names = ["cudasw4_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import torch.distributed as dist
+from cudasw4_tpu_torch.ops import cuda_lib
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cudasw4_tpu" or m.startswith("cudasw4_tpu."))
 print(len(names))
 print(",".join(bad))
+print(int(dist.is_available() and dist.is_initialized()), int(cuda_lib._lib is not None))
 """
 
 
@@ -35,13 +39,14 @@ def _probe():
                        env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.split("\n")
-    return int(lines[0]), lines[1]
+    return int(lines[0]), lines[1], lines[2]
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    count, bad = _probe()
+    count, bad, started = _probe()
     assert count >= 15  # every module of the port was imported
     assert bad == "", f"imported: {bad}"
+    assert started == "0 0", "an import started a process group or loaded the kernels"
 
 
 @pytest.mark.parametrize("cmd", [

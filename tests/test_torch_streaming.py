@@ -446,10 +446,14 @@ def test_store_files_byte_identical_and_read_by_both(tmp_path, monkeypatch, lowe
     assert tp.load_packed(paths["t"], n + 1, nchars, expect_pad=pad_code) is None
     assert tp.load_packed(paths["t"], n, nchars, expect_pad=pad_code + 1) is None
     assert tp.load_packed(str(tmp_path / "none.npz"), n, nchars) is None
-    with pytest.raises(NotImplementedError, match="A13"):
-        tp.load_packed(paths["t"], n, nchars, need_ranges=[[(0, 1)]] * 3)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tp.pack_db_to_store(db, paths["t"], tile_ranges=[[(0, 1)]] * 3)
+    # Tile ranges (per-host stores, tests/test_torch_host_ranges.py): a
+    # complete store covers any, and a build asking for some of its tiles
+    # takes it as it is.
+    assert tp.load_packed(paths["t"], n, nchars, expect_pad=pad_code,
+                          need_ranges=[[(0, 1)]] * 3).tile_ranges is None
+    assert tp.pack_db_to_store(db, paths["t"], pad_code=pad_code,
+                               tile_ranges=[[(0, 1)]] * 3).tile_ranges is None
+    assert list(_tree(paths["t"]).values()) == list(_tree(paths["j"]).values())
 
 
 def _small_db(tmp_path):
