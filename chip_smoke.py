@@ -6,8 +6,11 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line with its seconds; any failure exits
 non-zero:
 
-1. device:  the card's name and power limit (nvidia-smi), and the build
-   of the CUDA kernels from csrc/ with nvcc.
+1. device:  the card's name and power limit (nvidia-smi) and the packaged
+   tuning config that applies to it, if any; then build: the CUDA kernel
+   library from csrc/ with nvcc from an empty object directory, its units
+   compiled in parallel (seconds, nproc, units, workers), every exported
+   launcher present.
 2. kernels: each kernel (cell, row, col with its carry, cell batch, col
    flat, col fused) against its plain PyTorch version on the card, exact
    equality of the integer scores, both alphabets; kernel, plain and
@@ -79,7 +82,22 @@ non-zero:
    tools/run_multihost.py as two processes on the mesh over gloo and as
    one under NCCL at world size 1, every process printing phase 4's hits.
 9. tools: dmabench and pairbench at their defaults, every line OK.
-10. kernels line: per kernel, its launches on its path (align for the
+10. warmup: fresh processes search phase 4's database for the 144-aa and
+   then the 464-aa query, each alone, with warmup() and without (each
+   query's seconds, the warmup's seconds and launches, the first batch's
+   extra time over its second) and one streamed under phase stream's
+   budget; the three write the same TSV.
+11. tuning: gridsearch at its defaults with the (NQC, LC) sweep, the
+   config it emits for this card; phase 4's database packed under the
+   defaults and under the config (plans by kind), the 20 queries timed in
+   turns (default, tuned, tuned, default) in exact and in int16 state,
+   the TSV under the config phase 4's byte for byte.
+12. native: the native IO library loaded; makedb of phase 4's FASTA with
+   and without it, byte for byte equal, pack_db both ways with equal
+   tiles, seconds for each; modifydb verify on the database.
+13. profile: align --profile on two queries; the trace names the batch's
+   kernels and the engine's spans.
+14. kernels line: per kernel, its launches on its path (align for the
    exact kernels, align --dpx for the int16 modes, the tools for the
    manual and pair kernels; each path's counters are reset just before
    it and read just after), its launches on the streamed align
@@ -784,13 +802,10 @@ def device_idle_share(run, name="queries_trace.json"):
     spans in microseconds and the kernel launches (the port's by name,
     PyTorch's as "other"); the share is None when the trace holds no
     device events."""
-    from torch.profiler import ProfilerActivity, profile
+    from cudasw4_tpu_torch.utils.profiling import device_trace
 
-    path = os.path.join(WORK, name)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(WORK, name) as path:
         run()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans, names = [], {}
@@ -814,6 +829,14 @@ def device_idle_share(run, name="queries_trace.json"):
     span = max(b for _, b in spans) - spans[0][0]
     return {"device_idle_share": 1.0 - busy / span, "device_busy_us": busy,
             "device_span_us": span, "kernels": names}
+
+
+def kernel_source(name: str) -> str:
+    """The source file of a kernel of the library (csrc/)."""
+    unit = ("sw_col.cu" if name.startswith(("sw_col", "sw_row_col"))
+            else "sw_tools.cu" if name in ("sw_manual_kernel", "sw_pair_kernel")
+            else "sw_cell.cuh")
+    return f"cudasw4_tpu_torch/csrc/{unit}"
 
 
 def phase_sprot(clock_mhz):
@@ -963,7 +986,7 @@ def phase_sprot(clock_mhz):
         nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * int(np.prod(shape[2:]))
         b_ms, by = bound(real, nbytes, clock_mhz, state)
         kernels.append({
-            "name": name, "route": "cuda", "source": "cudasw4_tpu_torch/csrc/sw_tiles.cu",
+            "name": name, "route": "cuda", "source": kernel_source(name),
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "state": state, "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
@@ -1987,6 +2010,341 @@ def phase_tools(kernels):
           "seconds": time.perf_counter() - t_phase})
 
 
+# ------------------------------------------------------- phase build
+
+def phase_build():
+    """The kernel library built from an empty object directory (its units
+    in parallel, ``cuda_lib.build``), every exported launcher present, its
+    (G, R) table the Python one's."""
+    import ctypes
+    import shutil
+
+    from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
+
+    t_phase = time.perf_counter()
+    lib_path = cuda_lib.library_path()
+    shutil.rmtree(cuda_lib.object_dir(), ignore_errors=True)
+    if lib_path.exists():
+        lib_path.unlink()
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    t_build = time.perf_counter() - t0
+    handle = ctypes.CDLL(str(lib_path))
+    names = sorted({*cuda_lib.LAUNCHES.values(), *cuda_lib.CELL_LAUNCHES.values(),
+                    *cuda_lib.COL_LAUNCHES.values(), *cuda_lib.TOOL_LAUNCHES.values(),
+                    "sw_col_pass_columns", "sw_cell_shapes", "sw_error_string"})
+    missing = [n for n in names if not hasattr(handle, n)]
+    check(not missing, f"the kernel library lacks {missing}")
+    t0 = time.perf_counter()
+    cuda_lib.lib()
+    t_load = time.perf_counter() - t0
+    check(cuda_lib.cell_shapes() == list(sw_cell.CELL_SHAPES),
+          "the library's (G, R) instances differ from sw_cell.CELL_SHAPES")
+    emit({"phase": "build", "build_seconds": t_build, "load_seconds": t_load,
+          "nproc": os.cpu_count(), "units": len(cuda_lib.UNITS),
+          "jobs": cuda_lib.build_jobs(), "launchers_checked": len(names),
+          "library": lib_path.name, "seconds": time.perf_counter() - t_phase})
+
+
+# ------------------------------------------------------ phase warmup
+
+#: The warmup phase's queries: the reference set's 144-aa and 464-aa ones.
+WARMUP_QUERY_LENGTHS = (144, 464)
+
+
+def warmup_child(prefix: str, qfile: str, warm: str, out_tsv: str, budget: str) -> int:
+    """One fresh process of phase warmup (``chip_smoke.py --warmup-child``):
+    the database at ``prefix`` (its tile store beside it) on an engine of
+    ``budget`` ("-": resident), ``warmup()`` timed when ``warm`` is "1",
+    then each query of ``qfile`` alone (host clock around ``scan``, which
+    synchronises, and its own seconds), the hits written as align's TSV to
+    ``out_tsv``, then on a resident database the queries as one batch,
+    twice.  Prints one JSON line."""
+    from cudasw4_tpu_torch.cli.align import TSV_HEADER, parse_memory_string, print_scan_result_tsv
+    from cudasw4_tpu_torch.db.fasta import read_sequences
+    from cudasw4_tpu_torch.db.format import load_db
+    from cudasw4_tpu_torch.engine import SearchEngine
+
+    t0 = time.perf_counter()
+    extra = {}
+    if budget != "-":
+        extra = {"max_device_bytes": parse_memory_string(budget),
+                 "stream_chunk_bytes": parse_memory_string(STREAM_BATCH_BYTES)}
+    eng = SearchEngine(num_top=10, **extra)
+    eng.set_database(load_db(prefix), pack_cache=prefix + "0.tpupack.npz")
+    torch.cuda.synchronize()
+    out = {"streaming": eng.streaming, "set_database_seconds": time.perf_counter() - t0}
+    if warm == "1":
+        t0 = time.perf_counter()
+        out["warmup_launches"] = eng.warmup()
+        out["warmup_seconds"] = time.perf_counter() - t0
+    records = list(read_sequences(qfile))
+    out["queries"] = []
+    with open(out_tsv, "w") as f:
+        f.write(TSV_HEADER)
+        for i, rec in enumerate(records):
+            t0 = time.perf_counter()
+            res = eng.scan(rec.sequence)
+            out["queries"].append({"aa": len(rec.sequence), "wall_s": time.perf_counter() - t0,
+                                   "scan_s": res.stats.seconds})
+            print_scan_result_tsv(f, res, eng, i, len(rec.sequence), rec.header)
+    if not eng.streaming:
+        out["batch_wall_s"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            eng.scan_batch([rec.sequence for rec in records])
+            out["batch_wall_s"].append(time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_warmup(ctx):
+    """Fresh processes search phase 4's database for the 144-aa query, then
+    the 464-aa one, each alone: one process with ``warmup()`` and one
+    without (each query's seconds, the warmup's seconds and launches, and
+    the first batch's extra time over its second, which warmup leaves
+    cold), and one streamed under phase stream's budget with its one-scan
+    warmup; the three write the same hits."""
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "warmup")
+    os.makedirs(d, exist_ok=True)
+    qfile = os.path.join(d, "q.fa")
+    with open(qfile, "w") as f:
+        for n in WARMUP_QUERY_LENGTHS:
+            header, seq = [q for q in read_query_set() if len(q[1]) == n][0]
+            f.write(f">{header}\n{seq}\n")
+    stream_prefix = ctx["stream_store"][: -len("0.tpupack.npz")]
+    runs = {}
+    for name, prefix, warm, budget in (("cold", ctx["prefix"], "0", "-"),
+                                       ("warm", ctx["prefix"], "1", "-"),
+                                       ("streamed_warm", stream_prefix, "1", STREAM_GPU_MEM)):
+        tsv = os.path.join(d, f"{name}.tsv")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmup-child", prefix,
+                              qfile, warm, tsv, budget], capture_output=True, text=True,
+                             timeout=900, cwd=REPO)
+        check(res.returncode == 0, f"warmup child {name} failed: {res.stderr[-2000:]}")
+        runs[name] = {**json.loads(res.stdout.strip().splitlines()[-1]),
+                      "process_seconds": time.perf_counter() - t0}
+        with open(tsv) as f:
+            runs[name]["tsv"] = f.read()
+    tsvs = {r.pop("tsv") for r in runs.values()}
+    check(len(tsvs) == 1, "warmup changed the hits: the processes' TSVs differ")
+    check(runs["warm"]["warmup_launches"] > 0, "warmup launched no kernel")
+    check(runs["streamed_warm"]["streaming"], "the streamed warmup process did not stream")
+    first = {n: r["queries"][0]["wall_s"] for n, r in runs.items()}
+    second = {n: r["queries"][1]["wall_s"] for n, r in runs.items()}
+    emit({"phase": "warmup", "runs": runs, "first_query_wall_s": first,
+          "second_query_wall_s": second,
+          "first_batch_extra_s": {n: r["batch_wall_s"][0] - r["batch_wall_s"][1]
+                                  for n, r in runs.items() if "batch_wall_s" in r},
+          "tsv_equal": True, "seconds": time.perf_counter() - t_phase})
+
+
+# ------------------------------------------------------ phase tuning
+
+def tuning_state() -> dict:
+    """The tunable geometry as it stands: the layout chooser's ratios,
+    CELL_MAX_L and the col kernels' NQC and LC."""
+    from cudasw4_tpu_torch.db import packing
+    from cudasw4_tpu_torch.ops import sw_col
+
+    return {"cell_speedup": packing.CELL_SPEEDUP, "col_speedup": packing.COL_SPEEDUP,
+            "cell_max_l": packing.CELL_MAX_L, "col_nqc": sw_col.NQC, "col_lc": sw_col.LC}
+
+
+def set_tuning(state: dict) -> None:
+    from cudasw4_tpu_torch.db import packing
+    from cudasw4_tpu_torch.ops import sw_col
+
+    packing.CELL_SPEEDUP, packing.COL_SPEEDUP = state["cell_speedup"], state["col_speedup"]
+    packing.CELL_MAX_L = state["cell_max_l"]
+    sw_col.NQC, sw_col.LC = state["col_nqc"], state["col_lc"]
+
+
+def packaged_tuning() -> str | None:
+    """The packaged tuning config whose platform is this card, if any."""
+    from cudasw4_tpu_torch.db import packing
+
+    for name in sorted(os.listdir(packing.TUNING_DIR)):
+        if name.endswith(".json"):
+            with open(os.path.join(packing.TUNING_DIR, name)) as f:
+                if json.load(f).get("platform") == torch.cuda.get_device_name(0):
+                    return os.path.join("cudasw4_tpu_torch", "tuning", name)
+    return None
+
+
+def phase_tuning(ctx, defaults):
+    """gridsearch at the JAX package's defaults (lengths 128-2048, query
+    length 512, 32M residues) with the col geometry sweep, its config
+    emitted for this card; phase 4's database packed under the library
+    defaults and under the config (the bucket plans by kind), the 20
+    queries timed in turns (default, tuned, tuned, default) after one
+    untimed pass each, in exact state and in int16 state (align --dpx's
+    singles), and the TSV under the config byte for byte phase 4's in
+    both.  The geometry is restored afterwards."""
+    from cudasw4_tpu_torch.cli import gridsearch
+    from cudasw4_tpu_torch.cli.align import TSV_HEADER, print_scan_result_tsv
+    from cudasw4_tpu_torch.db import packing
+    from cudasw4_tpu_torch.db.fasta import read_sequences
+    from cudasw4_tpu_torch.engine import SearchEngine
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "tuning")
+    os.makedirs(d, exist_ok=True)
+    entry = tuning_state()
+    sweep_tsv, cfg_path = os.path.join(d, "sweep.tsv"), os.path.join(d, "tuning.json")
+    t0 = time.perf_counter()
+    rc, out = run_cli(gridsearch, ["--of", sweep_tsv, "--emit-config", cfg_path,
+                                   "--nqcs", "2048,3072,4096", "--lcs", "128,256"])
+    t_sweep = time.perf_counter() - t0
+    check(rc == 0 and os.path.exists(cfg_path), f"gridsearch failed: {out[-500:]}")
+    with open(cfg_path) as f:
+        tuned_cfg = json.load(f)
+    check(tuned_cfg["platform"] == torch.cuda.get_device_name(0), "config platform is not the card")
+    with open(sweep_tsv) as f:
+        sweep = [line.rstrip("\n").split("\t") for line in f][1:]
+    geometry = [line.strip() for line in out.splitlines() if line.strip().startswith("col NQC=")]
+    set_tuning(defaults)
+    packing.apply_tuning(tuned_cfg)
+    tuned = tuning_state()
+    engines, plans = {}, {}
+    for name, state in (("default", defaults), ("tuned", tuned)):
+        set_tuning(state)
+        eng = SearchEngine(scoring=ctx["cfg"], num_top=10)
+        eng.set_database(ctx["db"])
+        engines[name] = eng
+        by_kind = {}
+        for b in eng.packed.buckets:
+            k = by_kind.setdefault(b.kernel, {"buckets": 0, "tiles": 0, "padded_chars": 0})
+            k["buckets"] += 1
+            k["tiles"] += b.num_tiles
+            k["padded_chars"] += int(b.tiles.size)
+        plans[name] = {"by_kind": by_kind, "buckets": [(b.kernel, b.L, b.num_tiles)
+                                                       for b in eng.packed.buckets]}
+    queries = ctx["queries"]
+    cells = float(sum(len(q) for q in queries)) * ctx["db"].num_chars
+
+    def search(name):
+        set_tuning(defaults if name == "default" else tuned)
+        results = list(engines[name].scan_many(queries))
+        torch.cuda.synchronize()
+        return results
+
+    with open(ctx["tsv"]) as f:
+        exact_text = f.read()
+    turns = {}
+    for mode in ("int32", "int16"):  # exact state, then align --dpx's singles
+        for eng in engines.values():
+            eng.state16 = mode == "int16"
+        results = {name: search(name) for name in engines}  # the untimed passes
+        turns[mode] = []
+        for name in ("default", "tuned", "tuned", "default"):
+            _, sec = wall(lambda name=name: search(name))
+            turns[mode].append({"config": name, "seconds": sec, "gcups": cells / 1e9 / sec})
+        buf = io.StringIO()
+        buf.write(TSV_HEADER)
+        for i, (rec, res) in enumerate(zip(read_sequences(QUERY_SET), results["tuned"])):
+            print_scan_result_tsv(buf, res, engines["tuned"], i, len(rec.sequence), rec.header)
+        check(buf.getvalue() == exact_text,
+              f"the TSV under the tuned config ({mode}) differs from phase 4's")
+    set_tuning(entry)
+    del engines
+    torch.cuda.empty_cache()
+    summary = {}
+    for mode, ts in turns.items():
+        secs = {n: [t["seconds"] for t in ts if t["config"] == n] for n in ("default", "tuned")}
+        summary[mode] = {
+            "tuned_minus_default_s": sum(secs["tuned"]) / 2 - sum(secs["default"]) / 2,
+            "spread_s": max(abs(secs["default"][0] - secs["default"][1]),
+                            abs(secs["tuned"][0] - secs["tuned"][1]))}
+    emit({"phase": "tuning", "auto_applied": packaged_tuning(), "emitted": tuned_cfg,
+          "sweep_rows": sweep, "col_geometry": geometry, "sweep_seconds": t_sweep,
+          "defaults": defaults, "tuned": tuned, "plans": plans, "turns": turns,
+          "summary": summary, "tsv_equal": True, "seconds": time.perf_counter() - t_phase})
+
+
+# ------------------------------------------------------ phase native
+
+def phase_native(ctx):
+    """The native IO library loaded; makedb of phase 4's FASTA with it and
+    with CUDASW4_TPU_TORCH_NATIVE=0, the files byte for byte equal;
+    pack_db both ways, the tiles equal; modifydb verify on the database."""
+    from cudasw4_tpu_torch import native
+    from cudasw4_tpu_torch.cli import makedb, modifydb
+    from cudasw4_tpu_torch.db import packing
+
+    t_phase = time.perf_counter()
+    check(native.get_lib() is not None, f"the native library did not load: {native.build_error}")
+    d = os.path.join(WORK, "native")
+    os.makedirs(d, exist_ok=True)
+    out = {}
+    for name, env in (("native", "1"), ("python", "0")):
+        with environ(CUDASW4_TPU_TORCH_NATIVE=env):
+            t0 = time.perf_counter()
+            rc, _ = run_cli(makedb, [ctx["fasta"], os.path.join(d, name)])
+            out[f"makedb_{name}_seconds"] = time.perf_counter() - t0
+            check(rc == 0, f"makedb ({name}) failed")
+    files = ["metadata", "0chars", "0offsets", "0lengths", "0headers", "0headeroffsets",
+             "0metadata"]
+    for f in files:
+        with open(os.path.join(d, "native" + f), "rb") as a, open(os.path.join(d, "python" + f),
+                                                                 "rb") as b:
+            check(a.read() == b.read(), f"makedb {f} differs with and without the native library")
+    packs = {}
+    for name, env in (("native", "1"), ("python", "0")):
+        with environ(CUDASW4_TPU_TORCH_NATIVE=env):
+            t0 = time.perf_counter()
+            packs[name] = packing.pack_db(ctx["db"])
+            out[f"pack_db_{name}_seconds"] = time.perf_counter() - t0
+    for a, b in zip(packs["native"].buckets, packs["python"].buckets, strict=True):
+        check(np.array_equal(a.tiles, b.tiles) and np.array_equal(a.seq_index, b.seq_index)
+              and np.array_equal(a.lengths, b.lengths), f"pack_db bucket L={a.L} differs natively")
+    del packs
+    rc, text = run_cli(modifydb, ["verify", ctx["prefix"]])
+    check(rc == 0 and text.startswith("OK:"), f"modifydb verify failed: {text[-300:]}")
+    emit({"phase": "native", "library": str(native.library_path().name), **out,
+          "files_equal": files, "verify": text.strip(), "seconds": time.perf_counter() - t_phase})
+
+
+# ------------------------------------------------------ phase profile
+
+#: What phase profile's trace must name: the batch's kernels (the row
+#: kernel on either route) and the engine's spans.
+PROFILE_KERNELS = ("sw_cell_batch_kernel", "sw_col_flat_kernel", "sw_row(_col)?_kernel")
+PROFILE_SPANS = ("sw:scan_batch", "sw:batch_bucket cell", "sw:batch_bucket col")
+
+
+def phase_profile(ctx):
+    """align --profile DIR on the 144-aa and 464-aa queries (one batch), in
+    a fresh process as a user runs it: the Chrome trace exists and names
+    the batch's kernels and the engine's spans.  (Run in this process
+    after the phases before it, the trace lacked the batch's first
+    kernels; not explained yet, see PERF.md §7.)"""
+    t_phase = time.perf_counter()
+    trace_dir = os.path.join(WORK, "profile")
+    if os.path.exists(os.path.join(trace_dir, "trace.json")):
+        os.remove(os.path.join(trace_dir, "trace.json"))
+    res = subprocess.run([sys.executable, "-m", "cudasw4_tpu_torch.cli.align", "--query",
+                          os.path.join(WORK, "warmup", "q.fa"), "--db", ctx["prefix"], "--top",
+                          "10", "--tsv", "--profile", trace_dir], capture_output=True, text=True,
+                         timeout=600, cwd=REPO)
+    check(res.returncode == 0, f"align --profile failed: {res.stderr[-2000:]}")
+    path = os.path.join(trace_dir, "trace.json")
+    check(os.path.exists(path), "align --profile wrote no trace")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {k: sum(1 for n in names if re.search(k, n)) for k in PROFILE_KERNELS}
+    spans = {k: sum(1 for n in names if n.startswith(k)) for k in PROFILE_SPANS}
+    check(all(kernels.values()), f"the trace lacks a kernel: {kernels}")
+    check(all(spans.values()), f"the trace lacks a span: {spans}")
+    emit({"phase": "profile", "trace": os.path.relpath(path, REPO),
+          "trace_bytes": os.path.getsize(path), "kernels": kernels, "spans": spans,
+          "seconds": time.perf_counter() - t_phase})
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to check", file=sys.stderr)
@@ -1998,13 +2356,11 @@ def main() -> int:
         return 2
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
-    t0 = time.perf_counter()
-    cached = cuda_lib.library_path().exists()
-    cuda_lib.lib()
     emit({"phase": "device", "card": card, "sm_clock_max_mhz": clock_mhz,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "library_cached": cached,
-          "build_and_load_seconds": time.perf_counter() - t0})
+          "tuning_auto_applied": packaged_tuning()})
+    defaults = tuning_state()
+    phase_build()
     phase_kernels(clock_mhz)
     phase_golden()
     kernels, ctx = phase_sprot(clock_mhz)
@@ -2013,6 +2369,10 @@ def main() -> int:
     phase_stream(ctx, kernels)
     phase_mesh(ctx, kernels)
     phase_tools(kernels)
+    phase_warmup(ctx)
+    phase_tuning(ctx, defaults)
+    phase_native(ctx)
+    phase_profile(ctx)
     for k in kernels.values():
         check(k["launches"], f"{k['name']} never launched on its path")
     emit({"kernels": list(kernels.values())})
@@ -2023,4 +2383,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--warmup-child"]:
+        sys.exit(warmup_child(*sys.argv[2:]))
     sys.exit(main())

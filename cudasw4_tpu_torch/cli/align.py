@@ -7,9 +7,12 @@ kernels' plain PyTorch versions).  The packed tiles are stored beside the
 database (``<db>0.tpupack.npz``, the JAX package's tile store): built on
 the first run, memmapped on the next.  A database whose tiles and a
 streamed pass's working memory pass ``--maxGpuMem`` streams in chunks of
-``--maxBatchBytes`` and ``--maxBatchSequences``.
-Options whose paths later slices of the port bring (profiling, tuning)
-raise NotImplementedError naming the slice.
+``--maxBatchBytes`` and ``--maxBatchSequences``.  ``--tuning FILE``
+applies a gridsearch config before the engine is made (so the device's
+packaged config does not apply); ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the scans into DIR; ``--warmup`` (and
+``--interactive``) launch every kernel instance a single scan reaches at
+start-up (``SearchEngine(warmup=True)``).
 
 Usage: python -m cudasw4_tpu_torch.cli.align --query q.fa --db prefix [--top N] [--tsv]
 """
@@ -23,6 +26,7 @@ from ..db.format import LoadDBError, load_db, pseudo_to_dbdata
 from ..db.pseudo import make_pseudo_db
 from ..engine import ScanResult, SearchEngine
 from ..substitution import make_scoring_config
+from ..utils.profiling import device_trace
 
 
 def parse_memory_string(s: str) -> int:
@@ -169,7 +173,7 @@ HELP = """Usage: align [options]
       --verbose : More console output. Shows timings.
       --printLengthPartitions : Print number of sequences per length bucket in db.
       --interactive : Loads DB, then waits for sequence input by user
-      --warmup : Build the CUDA kernels at startup instead of at the first query.
+      --warmup : Launch every kernel a single scan reaches at startup, not at the first query.
       --device val : cuda (default) or cpu (the kernels' plain PyTorch versions).
       --help : Print this message
 
@@ -184,7 +188,11 @@ HELP = """Usage: align [options]
            memory). A DB whose packed tiles and a streamed pass's working memory exceed
            it streams: as much as the rest of the budget holds stays on the device, the
            rest crosses the link once per pass of up to 20 queries.
-      --tuning file.json : later slice of this port.
+      --tuning file.json : Apply a gridsearch --emit-config tuning file (kernel speed ratios
+           for the bucket layout chooser, CELL_MAX_L, the col kernels' NQC and LC; also via
+           env CUDASW4_TPU_TORCH_TUNING).  Otherwise a packaged config for the card
+           (cudasw4_tpu_torch/tuning/) applies; CUDASW4_TPU_TORCH_AUTO_TUNING=0 opts out.
+      --profile dir : Write a torch.profiler Chrome trace of the scans into dir.
       --singlePassType/--manyPassType_small/--manyPassType_large/--overflowType val, --dpx :
            Kernel family selection (Half2|DPXs16|DPXs32|Float).  The single-pass type decides:
            Half2/DPXs16 (or --dpx) run int16 DP state, re-scoring the tiles whose scores
@@ -251,10 +259,13 @@ def run(argv=None) -> int:
         if v is not None and v not in allowed:
             print(msg)
             return 1
-    if opts["profile"]:
-        raise NotImplementedError("--profile waits for the profiling slice of the port")
     if opts["tuning"]:
-        raise NotImplementedError("--tuning waits for the tuning slice of the port")
+        # gridsearch --emit-config: measured speed ratios and geometry for
+        # the layout chooser and the col kernels; an explicit config wins
+        # over the device's packaged one.
+        from ..db import packing
+
+        packing.apply_tuning(opts["tuning"])
 
     scoring = make_scoring_config(opts["mat"], gop=opts["gop"], gex=opts["gex"])
     engine = SearchEngine(
@@ -275,6 +286,7 @@ def run(argv=None) -> int:
             if opts["got_max_temp_bytes"] else None
         ),
         verbose=opts["verbose"],
+        warmup=opts["warmup"] or opts["interactive"],
     )
     # Kernel-type selection (the reference's --dpx preset and single-pass
     # type): the 16-bit families run int16 state with the exact overflow
@@ -310,8 +322,6 @@ def run(argv=None) -> int:
     # (none for a pseudo DB).
     cache = opts["db"] + "0.tpupack.npz" if opts["db"] else None
     engine.set_database(db, pack_cache=cache)
-    if opts["warmup"] or opts["interactive"]:
-        engine.warmup()
 
     if opts["verbose"]:
         engine.print_db_info()
@@ -334,31 +344,33 @@ def run(argv=None) -> int:
                         records.append(rec)
                         yield rec.sequence
 
-            for result in engine.scan_many(sequences()):
-                rec = records[query_num]
-                print(f"Processing query {query_num} ... ", end="", flush=True)
-                if opts["verbose"]:
-                    print(
-                        f"Done. Scan time: {result.stats.seconds:.6g} s, "
-                        f"{result.stats.gcups:.6g} GCUPS"
-                    )
-                else:
-                    print("Done.")
-                if opts["top"] > 0:
-                    if not opts["tsv"]:
-                        out.write(
-                            f"Query {query_num}, header{rec.header}"
-                            f", length {len(rec.sequence)}"
-                            f", num overflows {result.stats.num_overflows}\n"
+            # --profile: a torch.profiler trace of the scans (a no-op without).
+            with device_trace(opts["profile"]):
+                for result in engine.scan_many(sequences()):
+                    rec = records[query_num]
+                    print(f"Processing query {query_num} ... ", end="", flush=True)
+                    if opts["verbose"]:
+                        print(
+                            f"Done. Scan time: {result.stats.seconds:.6g} s, "
+                            f"{result.stats.gcups:.6g} GCUPS"
                         )
-                        print_scan_result_plain(out, result, engine)
                     else:
-                        print_scan_result_tsv(
-                            out, result, engine, query_num,
-                            len(rec.sequence), rec.header,
-                        )
-                    out.flush()
-                query_num += 1
+                        print("Done.")
+                    if opts["top"] > 0:
+                        if not opts["tsv"]:
+                            out.write(
+                                f"Query {query_num}, header{rec.header}"
+                                f", length {len(rec.sequence)}"
+                                f", num overflows {result.stats.num_overflows}\n"
+                            )
+                            print_scan_result_plain(out, result, engine)
+                        else:
+                            print_scan_result_tsv(
+                                out, result, engine, query_num,
+                                len(rec.sequence), rec.header,
+                            )
+                        out.flush()
+                    query_num += 1
             total = engine.total_timer_stop()
             if opts["verbose"]:
                 print(f"Total time: {total.seconds:.6g} s, {total.gcups:.6g} GCUPS")

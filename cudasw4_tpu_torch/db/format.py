@@ -1,5 +1,5 @@
 """On-disk database format, binary-compatible with the reference (the
-port's counterpart of cudasw4_tpu/db/format.py, Python reader path).
+port's counterpart of cudasw4_tpu/db/format.py).
 
 A database is a global info file plus one chunk (chunk 0):
 
@@ -249,6 +249,48 @@ def _encoded_records(records, progress_every: int = 0):
         yield encode(padded), len(seq), rec.header.encode("latin-1", errors="replace")
 
 
+def _check_limits(count: int, lengths) -> None:
+    """The reference's limits on a parsed batch: ``count`` sequences so far
+    (this batch's included) and its lengths."""
+    if count > MAX_SEQUENCES_IN_DB:
+        raise ValueError(f"more than {MAX_SEQUENCES_IN_DB} sequences")
+    longest = int(np.max(lengths, initial=0))
+    if longest > MAX_SEQUENCE_LENGTH:
+        raise ValueError(f"sequence of length {longest} exceeds maximum {MAX_SEQUENCE_LENGTH}")
+
+
+def _encoded_batches(input_path: str, progress_every: int = 0, chunk_chars: int = 64 << 20):
+    """Yield (chars int8 padded to x4, offsets, lengths, headers list of
+    bytes) batches of complete records: from the native parser where its
+    library loads (``native.stream_fasta_native``), else from the Python
+    reader (as the JAX package's ``_encoded_batches``)."""
+    from ..native import get_lib, stream_fasta_native
+
+    if get_lib() is not None:
+        count = 0
+        for batch in stream_fasta_native(input_path, chunk_chars):
+            count += len(batch[2])
+            _check_limits(count, batch[2])
+            if progress_every and count % progress_every < len(batch[2]):
+                print(f"  parsed {count} sequences ...", flush=True)
+            yield batch
+        return
+    bufs, offsets, lengths, headers, nbytes = [], [0], [], [], 0
+    for chars, length, header in _encoded_records(read_sequences(input_path), progress_every):
+        bufs.append(chars)
+        nbytes += len(chars)
+        offsets.append(offsets[-1] + len(chars))
+        lengths.append(length)
+        headers.append(header)
+        if nbytes >= chunk_chars:
+            yield (np.concatenate(bufs), np.asarray(offsets, np.int64),
+                   np.asarray(lengths, np.int32), headers)
+            bufs, offsets, lengths, headers, nbytes = [], [0], [], [], 0
+    if lengths:
+        yield (np.concatenate(bufs), np.asarray(offsets, np.int64),
+               np.asarray(lengths, np.int32), headers)
+
+
 def make_db_capped(
     input_path: str,
     prefix: str,
@@ -257,34 +299,32 @@ def make_db_capped(
     progress_every: int = 0,
 ) -> dict:
     """Memory-capped ``makedb``: spills encoded sequence/header bytes to
-    temp files during the parse, then writes the length-sorted output by
-    random access into the spill (the reference's FileBackedUVector
-    mechanism, src/mmapbuffer.hpp:332-500 and src/makedb.cpp:80-103).
-    Only the per-sequence index stays in RAM; the output is byte-identical
-    to ``make_db``."""
+    temp files during the parse (batch by batch, ``_encoded_batches``),
+    then writes the length-sorted output by random access into the spill
+    (the reference's FileBackedUVector mechanism, src/mmapbuffer.hpp:332-500
+    and src/makedb.cpp:80-103).  Only the per-sequence index stays in RAM;
+    the output is byte-identical to ``make_db``."""
     tempdir = tempdir or os.path.dirname(os.path.abspath(prefix))
     del mem_limit  # the index is O(n); char data always spills in this mode
 
     with tempfile.NamedTemporaryFile(dir=tempdir, suffix=".chars") as tc, \
          tempfile.NamedTemporaryFile(dir=tempdir, suffix=".hdrs") as th:
-        offsets = [0]
-        lengths: list[int] = []
-        hoffsets = [0]
-        for chars, length, header in _encoded_records(
-            read_sequences(input_path), progress_every
-        ):
-            tc.write(chars.tobytes())
-            offsets.append(offsets[-1] + len(chars))
-            lengths.append(length)
-            th.write(header)
-            hoffsets.append(hoffsets[-1] + len(header))
+        offsets = [np.zeros(1, np.int64)]
+        lengths = []
+        hoffsets = [np.zeros(1, np.int64)]
+        for bchars, boffs, blens, bheaders in _encoded_batches(input_path, progress_every):
+            tc.write(np.asarray(bchars, dtype=np.int8).tobytes())
+            offsets.append(offsets[-1][-1] + np.asarray(boffs[1:], np.int64))
+            lengths.append(np.asarray(blens, np.int32))
+            th.write(b"".join(bheaders))
+            hlens = np.fromiter((len(h) for h in bheaders), np.int64, count=len(bheaders))
+            hoffsets.append(hoffsets[-1][-1] + np.cumsum(hlens))
         tc.flush()
         th.flush()
 
-        n = len(lengths)
-        lengths_a = np.asarray(lengths, dtype=np.int32)
-        offsets_a = np.asarray(offsets, dtype=np.int64)
-        hoff_a = np.asarray(hoffsets, dtype=np.int64)
+        lengths_a = np.concatenate(lengths) if lengths else np.zeros(0, np.int32)
+        offsets_a = np.concatenate(offsets)
+        hoff_a = np.concatenate(hoffsets)
         chars_mm = (
             np.memmap(tc.name, dtype=np.int8, mode="r")
             if offsets_a[-1] else np.zeros(0, np.int8)
@@ -296,7 +336,7 @@ def make_db_capped(
         order = np.argsort(lengths_a, kind="stable")
         write_db_permuted(prefix, chars_mm, offsets_a, lengths_a, hdr_mm, hoff_a, order)
         return {
-            "num_sequences": n,
+            "num_sequences": len(lengths_a),
             "num_chars": int(lengths_a.astype(np.int64).sum()),
             "num_padded_chars": int(offsets_a[-1]),
         }
@@ -311,10 +351,25 @@ def make_db(
     """The ``makedb`` pipeline: FASTA(.gz) -> padded, encoded, length-sorted
     DB (the reference's src/makedb.cpp:279-374).  Returns summary stats.
 
-    The JAX package parses with a native C++ reader where it can build
-    one; this port reads with the Python reader (the native reader is a
-    later slice of the port).  Both write the same bytes.
+    Parses ``input_path`` with the native C++ parser where its library
+    loads (``native.parse_fasta_native``), else with the Python reader, as
+    the JAX package does; ``records`` (parsed records) skip the parse.
+    Both paths write the same bytes.
     """
+    if records is None:
+        from ..native import parse_fasta_native
+
+        native = parse_fasta_native(input_path, header_blob=True)
+        if native is not None:
+            chars, offsets, lengths, (hblob, hoffs) = native
+            _check_limits(len(lengths), lengths)
+            order = np.argsort(lengths, kind="stable")
+            write_db_permuted(prefix, chars, offsets, lengths, hblob, hoffs, order)
+            return {
+                "num_sequences": int(len(lengths)),
+                "num_chars": int(lengths.astype(np.int64).sum()),
+                "num_padded_chars": int(len(chars)),
+            }
     chars_parts: list[np.ndarray] = []
     offsets = [0]
     lengths: list[int] = []

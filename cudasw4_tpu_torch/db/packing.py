@@ -31,7 +31,13 @@ package's, so either package reads a store that the other wrote.  A
 per-host partial store (``tile_ranges``) packs only the tiles that one
 process of a streamed mesh reads into a sparse file of the full size and
 records its ranges; a later build with other ranges extends it in place.
-Tuning waits for its own slice.
+
+A tuning config (``apply_tuning``; ``cli/gridsearch.py --emit-config``
+writes one) sets the layout chooser's speed ratios, ``CELL_MAX_L`` and the
+col kernels' NQC and LC.  A config in ``cudasw4_tpu_torch/tuning/`` whose
+``platform`` is the CUDA device's name applies by default
+(``auto_apply_tuning``, which the engine calls on a card);
+``CUDASW4_TPU_TORCH_TUNING`` names one to apply at import.
 """
 
 from __future__ import annotations
@@ -65,14 +71,125 @@ CELL_SUBJECTS = 4096
 CELL_MAX_L = 768
 
 #: Kernel speed ratios against the row kernel that the layout chooser
-#: weighs against padding waste.  They are the JAX package's defaults, so
-#: both packages pack a database identically; ratios measured for the
-#: Hopper kernels wait for the tuning slice of the port.
+#: weighs against padding waste.  The defaults are the JAX package's, so
+#: both packages pack a database identically; a tuning config
+#: (``apply_tuning``) sets measured ones.
 CELL_SPEEDUP = 1.75
 COL_SPEEDUP = 2.8
 #: Relative speed the layout chooser assumes for row-layout buckets
 #: longer than MAX_SINGLE_PASS.
 JNP_REL_SPEED = 0.05
+
+
+#: Environment variables: a tuning config to apply at import, and "0" to
+#: keep the packaged configs from applying (``auto_apply_tuning``).
+TUNING_ENV = "CUDASW4_TPU_TORCH_TUNING"
+AUTO_TUNING_ENV = "CUDASW4_TPU_TORCH_AUTO_TUNING"
+
+#: The packaged configs, one a device: ``platform`` is the name that
+#: ``torch.cuda.get_device_name`` gives.
+TUNING_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tuning")
+
+#: Set by apply_tuning: once any config has been applied in this process
+#: (the environment, ``align --tuning`` or a packaged one),
+#: ``auto_apply_tuning`` does nothing, so an explicit config wins.
+_tuning_applied = False
+
+
+def apply_tuning(cfg) -> None:
+    """Apply a tuning config: a dict, or the path of a JSON file as
+    ``gridsearch --emit-config`` writes it (the JAX package's
+    ``apply_tuning``, with the port's limits).
+
+    Keys (others are ignored, so configs stay forward compatible):
+
+    - ``cell_speedup`` / ``col_speedup``: the cell and col kernels' speed
+      against the row kernel (floats), the layout chooser's ratios.
+    - ``cell_max_l``: the longest cell bucket, a multiple of 16 up to the
+      largest cell group instance (max G x R of ``sw_cell.CELL_SHAPES``,
+      768).
+    - ``col_nqc`` / ``col_lc``: ``sw_col.NQC`` (query rows a col call) and
+      ``sw_col.LC`` (the col buckets' length granule), multiples of 128.
+    - ``cell_unroll`` / ``col_unroll``: validated as the JAX package
+      validates them (``cell_unroll`` >= 2; ``col_unroll`` divides
+      ``sw_col.FLAT_QUANT``) and not applied: the port's kernels have no
+      unroll, and ``sw_cell.DEFAULT_UNROLL`` is the contract's row granule,
+      not a speed setting.
+
+    Every key is validated before any is applied: an invalid value raises
+    ValueError and applies nothing.
+    """
+    global CELL_SPEEDUP, COL_SPEEDUP, CELL_MAX_L, _tuning_applied
+    if isinstance(cfg, (str, os.PathLike)):
+        with open(cfg) as f:
+            cfg = json.load(f)
+    from ..ops import sw_cell, sw_col
+
+    pend: dict = {}
+    if cfg.get("cell_speedup"):
+        pend["cell_speedup"] = float(cfg["cell_speedup"])
+    if cfg.get("col_speedup"):
+        pend["col_speedup"] = float(cfg["col_speedup"])
+    if cfg.get("cell_max_l"):
+        v = int(cfg["cell_max_l"])
+        top = max(g * r for g, r in sw_cell.CELL_SHAPES)
+        if v < 16 or v % 16 or v > top:
+            raise ValueError(f"cell_max_l must be a multiple of 16 up to {top}: {v}")
+        pend["cell_max_l"] = v
+    if cfg.get("cell_unroll"):
+        v = int(cfg["cell_unroll"])
+        if v < 2:
+            raise ValueError(f"cell_unroll must be >= 2: {v}")
+    if cfg.get("col_unroll"):
+        v = int(cfg["col_unroll"])
+        if v < 1 or v > sw_col.FLAT_QUANT:
+            raise ValueError(f"col_unroll out of range: {v}")
+        if sw_col.FLAT_QUANT % v:
+            raise ValueError(f"col_unroll must divide FLAT_QUANT ({sw_col.FLAT_QUANT}): {v}")
+    for key in ("col_nqc", "col_lc"):
+        if cfg.get(key):
+            v = int(cfg[key])
+            if v < 128 or v % 128:
+                raise ValueError(f"{key} must be a multiple of 128: {v}")
+            pend[key] = v
+    CELL_SPEEDUP = pend.get("cell_speedup", CELL_SPEEDUP)
+    COL_SPEEDUP = pend.get("col_speedup", COL_SPEEDUP)
+    CELL_MAX_L = pend.get("cell_max_l", CELL_MAX_L)
+    sw_col.NQC = pend.get("col_nqc", sw_col.NQC)
+    sw_col.LC = pend.get("col_lc", sw_col.LC)
+    _tuning_applied = True
+
+
+def auto_apply_tuning(device_name: str, verbose: bool = False) -> str | None:
+    """Apply the packaged config of TUNING_DIR whose ``platform`` is
+    ``device_name`` (``torch.cuda.get_device_name``), as the reference's
+    built-in dispatch table is its default.  Returns its path, or None: no
+    config matches, a config was applied already, or
+    ``CUDASW4_TPU_TORCH_AUTO_TUNING=0``.  Never raises: a malformed
+    packaged config is skipped."""
+    if _tuning_applied or os.environ.get(AUTO_TUNING_ENV, "1") == "0":
+        return None
+    try:
+        names = sorted(os.listdir(TUNING_DIR))
+    except OSError:
+        return None
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        path = os.path.join(TUNING_DIR, name)
+        try:
+            with open(path) as f:
+                cfg = json.load(f)
+            if cfg.get("platform") != device_name:
+                continue
+            apply_tuning(cfg)
+        except (OSError, ValueError, TypeError, AttributeError):
+            continue
+        if verbose:
+            print(f"Applied the packaged {device_name} tuning: {path} "
+                  f"(opt out: {AUTO_TUNING_ENV}=0)")
+        return path
+    return None
 
 
 def ladder_length(length: int) -> int:
@@ -210,20 +327,27 @@ def pack_db(db, edges=None, slab_tiles: int = 64, pad_code: int = UNKNOWN) -> Pa
     if n and not np.all(lengths[1:] >= lengths[:-1]):
         raise ValueError("database is not sorted by length ascending")
 
+    from ..native import pack_bucket_native
+
+    lengths32 = lengths.astype(np.int32)
     buckets: list[PackedBucket] = []
     for start, stop, L, NS, kernel in plan_buckets(lengths, edges):
         T = -(-(stop - start) // NS)
-        tiles = np.full((T, L, NS), pad_code, dtype=np.int8)
-        seq_index = np.full((T, NS), -1, dtype=np.int32)
-        seq_lengths = np.zeros((T, NS), dtype=np.int32)
-        # Fill tiles in slabs to bound temp memory.
-        for t0 in range(0, T, slab_tiles):
-            t1 = min(t0 + slab_tiles, T)
-            a = start + t0 * NS
-            b = min(start + t1 * NS, stop)
-            tiles[t0:t1], seq_index[t0:t1], seq_lengths[t0:t1] = _pack_slab(
-                chars, offsets, lengths, a, b, L, NS, pad_code
-            )
+        native = pack_bucket_native(chars, offsets, lengths32, start, stop, L, NS, pad=pad_code)
+        if native is not None:
+            tiles, seq_index, seq_lengths = native
+        else:
+            tiles = np.full((T, L, NS), pad_code, dtype=np.int8)
+            seq_index = np.full((T, NS), -1, dtype=np.int32)
+            seq_lengths = np.zeros((T, NS), dtype=np.int32)
+            # Fill tiles in slabs to bound temp memory.
+            for t0 in range(0, T, slab_tiles):
+                t1 = min(t0 + slab_tiles, T)
+                a = start + t0 * NS
+                b = min(start + t1 * NS, stop)
+                tiles[t0:t1], seq_index[t0:t1], seq_lengths[t0:t1] = _pack_slab(
+                    chars, offsets, lengths, a, b, L, NS, pad_code
+                )
         if kernel in ("cell", "col"):
             tiles = tiles.reshape(T, L, 32, NS // 32)
         buckets.append(PackedBucket(
@@ -634,7 +758,14 @@ def pack_db_to_store(db, path: str, edges=None, slab_tiles: int = 64,
     req = full if tile_ranges is None else [_norm_ranges(r, T) for r, T in zip(tile_ranges, Ts)]
     partial = req != full
 
+    from ..native import pack_bucket_native
+
+    lengths32 = lengths.astype(np.int32)
+
     def pack_slab(a, b, L, NS):
+        native = pack_bucket_native(chars, offsets, lengths32, a, b, L, NS, pad=pad_code)
+        if native is not None:
+            return native
         return _pack_slab(chars, offsets, lengths, a, b, L, NS, pad_code)
 
     with _store_build_lock(path):
@@ -814,3 +945,7 @@ def unpack_tile_sequences(bucket: PackedBucket, tile: int) -> list[np.ndarray]:
             continue
         out.append(tiles[: int(bucket.lengths[tile, s]), s].copy())
     return out
+
+
+if os.environ.get(TUNING_ENV):
+    apply_tuning(os.environ[TUNING_ENV])

@@ -34,7 +34,12 @@ the database's residues once, not once a shard.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, or a mesh of CPU devices), where every wrapper takes
-its kernel's plain version.  Tuning and warmup come with later slices.
+its kernel's plain version.  On a card it applies the packaged tuning
+config of the device once, before it packs (``db.packing.auto_apply_tuning``).
+``warmup=True`` launches every kernel instance a single scan of the
+database reaches once, at ``set_database`` (``warmup``).  Each scan and
+each bucket dispatch is a profiler span and, on a card, an NVTX range
+(``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from .ops.sw_row import prepare_query
 from .parallel import sharding
 from .parallel.sharding import Candidates, shard_context
 from .substitution import ScoringConfig, make_scoring_config
+from .utils.profiling import span
 
 #: Environment switch of the oracle check: "1" re-scores each scan's top
 #: hits on the scalar CPU oracle and raises on a mismatch; "full" diffs
@@ -99,6 +105,17 @@ def resolve_device(device=None) -> torch.device:
             "the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def _kernel_launches() -> int:
+    """Launches so far of the single-scan kernels (B1 in both state modes,
+    B2, B3 in both state modes)."""
+    from .ops import sw_row
+
+    return sum(getattr(fn, name, 0)
+               for fn in (sw_cell.score_bucket_cell, sw_row.score_bucket_row,
+                          sw_col.score_bucket_col)
+               for name in ("launches", "launches16"))
 
 
 class _HostClock:
@@ -151,6 +168,9 @@ class SearchEngine(StreamingEngineMixin):
         max_batch_sequences: int | None = None,
         verbose: bool = False,
         mesh: sharding.Mesh | None = None,
+        qcap: int | None = None,
+        bucket_edges=None,
+        warmup: bool = False,
     ):
         self.scoring = scoring or make_scoring_config("blosum62")
         self.num_top = num_top
@@ -158,6 +178,26 @@ class SearchEngine(StreamingEngineMixin):
         # local device.
         self.mesh = mesh
         self.device = mesh.local_devices[0] if mesh is not None else resolve_device(device)
+        # The query block of a single scan (default sw_cell.QCAP, read
+        # now): a query grows it in steps of qcap, and one longer than qcap
+        # runs exact state (the JAX engine's qcap).  bucket_edges: the
+        # packing's bucket lengths (None: the default plan,
+        # db.packing.plan_buckets).
+        self.qcap = int(sw_cell.QCAP if qcap is None else qcap)
+        if self.qcap < 1:
+            raise ValueError(f"qcap must be positive, got {qcap}")
+        self.bucket_edges = bucket_edges
+        # Launch the kernel instances a single scan reaches at
+        # set_database (align --warmup, --interactive; ``warmup``).
+        self.warmup_on = warmup
+        if self.device.type == "cuda":
+            # The measured geometry of this card is the default, as the
+            # reference's built-in dispatch table is; an explicit config
+            # (CUDASW4_TPU_TORCH_TUNING, align --tuning) wins, and
+            # CUDASW4_TPU_TORCH_AUTO_TUNING=0 opts out.
+            from .db.packing import auto_apply_tuning
+
+            auto_apply_tuning(torch.cuda.get_device_name(self.device), verbose=verbose)
         self.max_device_bytes = max_device_bytes
         self.col_temp_bytes = col_temp_bytes
         # Streamed chunks hold at most stream_chunk_bytes of tiles
@@ -254,7 +294,7 @@ class SearchEngine(StreamingEngineMixin):
             lengths = np.asarray(db.lengths, np.int64)
             stream_codec = tile_ranges = None
             try:
-                plans = packing.plan_buckets(lengths)
+                plans = packing.plan_buckets(lengths, self.bucket_edges)
                 if self._streams([(L, NS, kernel, -(-(stop - start) // NS))
                                   for start, stop, L, NS, kernel in plans]):
                     stream_codec = choose_codec(codec_mode, int(self._pad))
@@ -267,17 +307,20 @@ class SearchEngine(StreamingEngineMixin):
                 print(f"Loaded packed tiles from {pack_cache}")
             if packed is None:
                 try:
-                    packed = packing.pack_db_to_store(db, pack_cache, pad_code=self._pad,
+                    packed = packing.pack_db_to_store(db, pack_cache, edges=self.bucket_edges,
+                                                      pad_code=self._pad,
                                                       stream_codec=stream_codec,
                                                       tile_ranges=tile_ranges)
                 except OSError:
                     packed = None  # a read-only database directory: pack in RAM
-        self.packed = packed if packed is not None else pack_db(db, pad_code=self._pad)
+        self.packed = (packed if packed is not None
+                       else pack_db(db, edges=self.bucket_edges, pad_code=self._pad))
         shapes = [(b.L, b.NS, b.kernel, b.num_tiles) for b in self.packed.buckets]
         if self.packed.tile_ranges is not None and not self._streams(shapes):
             # The budget says resident after all: the partial store's
             # tiles are not all this process's shards' slices.
-            self.packed = packing.pack_db_to_store(db, pack_cache, pad_code=self._pad)
+            self.packed = packing.pack_db_to_store(db, pack_cache, edges=self.bucket_edges,
+                                                   pad_code=self._pad)
         dev = self.device
         matrix_flat = self.scoring.matrix.astype(np.int32).reshape(-1)
         self._matrix_flat = torch.as_tensor(matrix_flat).to(dev)
@@ -318,6 +361,8 @@ class SearchEngine(StreamingEngineMixin):
                 f"{len(self.packed.buckets)} buckets, pack time {dt:.2f}s"
                 + (f", {self.mesh.size} shards" if self.mesh is not None else "")
             )
+        if self.warmup_on:
+            self.warmup()
 
     def _streams(self, shapes) -> bool:
         """``engine_streaming.streams`` under this engine's budget and
@@ -327,15 +372,66 @@ class SearchEngine(StreamingEngineMixin):
                                         self._mesh_ndev())
 
     def warmup(self) -> int:
-        """Build and load the CUDA kernel library ahead of the first scan
-        (the port's counterpart of pre-compiling the kernel programs).
-        Returns the number of libraries loaded (0 on the CPU)."""
-        if self.device.type != "cuda":
+        """Launch, once, every kernel instance that a single scan of this
+        database reaches, at the minimal query (one residue, one 8-row
+        granule), so that no user query pays the first launches: the
+        kernel library's build and load, each kernel's module load (CUDA
+        loads modules lazily), PyTorch's top-N kernels and the caching
+        allocator's first blocks (the JAX engine's ``warmup``, which
+        compiles its programs).  Per bucket: B1 (both state modes under
+        ``state16``), B2 on its route, B3; per col bucket also the carry
+        variants of a query past NQC (``_warmup_col_chunked``).  Batches
+        are not warmed, as in the JAX engine.  A streamed or mesh database
+        warms with one tiny scan.  Returns the kernel launches warmed: 0 on
+        the CPU and with no buckets, 1 for the tiny scan."""
+        if self.packed is None:
+            raise RuntimeError("set_database() must be called first")
+        t0 = time.perf_counter()
+        if self.streaming or self.mesh is not None:
+            self.scan([0])
+            if self.verbose:
+                print(f"warmup: 1 {'streaming' if self.streaming else 'mesh'} scan pass "
+                      f"({time.perf_counter() - t0:.1f}s)")
+            return 1
+        if self.device.type != "cuda" or not self.packed.buckets:
             return 0
-        from .ops import cuda_lib
+        before = _kernel_launches()
+        codes = np.zeros(1, np.int8)
+        self._top_n(self._slots(self.bucket_scores(codes)))
+        qpad, params = self._single_qpad(codes)
+        qdev = cuda_lib.to_device(qpad, self.device)
+        for tiles, kind in zip(self._bucket_tiles, self._kinds):
+            if self.state16 and kind != "row":  # the row kernel is exact only
+                self._score_bucket(tiles, kind, codes, qdev, params, False).amax(dim=1)
+            if kind == "col":
+                self._warmup_col_chunked(tiles)
+        self._sync()
+        n = _kernel_launches() - before
+        if self.verbose:
+            print(f"warmup: {n} kernel launches in {time.perf_counter() - t0:.1f}s")
+        return n
 
-        cuda_lib.lib()
-        return 1
+    def _warmup_col_chunked(self, tiles) -> None:
+        """Launch the col kernel on the carry variants that a query past
+        NQC reaches on one bucket's tiles (``score_bucket_col_any_query``):
+        take or emit the H/F carry (first, middle and last chunks) on the
+        full and the remainder tile groups of ``sw_col.col_group_tiles``,
+        each with the minimal query chunk (the JAX engine's
+        ``_warmup_col_chunked``)."""
+        T, L = tiles.shape[0], tiles.shape[1]
+        budget = cuda_lib.TEMP_BYTES if self.col_temp_bytes is None else self.col_temp_bytes
+        tc = sw_col.col_group_tiles(T, L, sw_col.NQC, 2, budget)
+        groups = [min(tc, T)] + ([T % tc] if tc < T and T % tc else [])
+        qpad, nq_pad = sw_col.pad_query_chunk(np.zeros(1, np.int8), pad=self._pad)
+        qdev = cuda_lib.to_device(qpad, self.device)
+        params = (nq_pad, self.scoring.gop, self.scoring.gex, 0)
+        for gt in groups:
+            sub = tiles[:gt]
+            zero = torch.zeros(sub.shape, dtype=torch.int32, device=self.device)
+            for take, emit in ((False, True), (True, True), (True, False)):
+                sw_col.score_bucket_col(sub, qdev, self._matrix_flat, params,
+                                        state_in=(zero, zero) if take else None,
+                                        take_init=take, emit_state=emit)
 
     @property
     def results_per_query(self) -> int:
@@ -358,11 +454,11 @@ class SearchEngine(StreamingEngineMixin):
 
     def _single_qpad(self, codes):
         """Query block and params for a single scan: the query padded with
-        the pad code to QCAP, or to the next multiple of QCAP for a longer
-        query (the kernels stop at nq, and the plain versions never walk
-        padded rows), and params [nq, gop, gex, nq_pad], nq_pad rounded up
-        to the col kernel's row granule."""
-        cap = sw_cell.QCAP
+        the pad code to ``qcap``, or to the next multiple of ``qcap`` for a
+        longer query (the kernels stop at nq, and the plain versions never
+        walk padded rows), and params [nq, gop, gex, nq_pad], nq_pad rounded
+        up to the col kernel's row granule."""
+        cap = self.qcap
         qpad, nq = prepare_query(codes, qcap=max(cap, -(-len(codes) // cap) * cap), pad=self._pad)
         params = np.array(
             [nq, self.scoring.gop, self.scoring.gex, sw_col.padded_rows(nq)], dtype=np.int32
@@ -371,9 +467,9 @@ class SearchEngine(StreamingEngineMixin):
 
     def _exact_for(self, codes) -> bool:
         """Whether a single scan of ``codes`` runs exact int32 state: always
-        without ``state16``, and for queries longer than QCAP (as the JAX
-        engine's ``_scan_long_query``)."""
-        return not self.state16 or len(codes) > sw_cell.QCAP
+        without ``state16``, and for queries longer than ``qcap`` (as the
+        JAX engine's ``_scan_long_query``)."""
+        return not self.state16 or len(codes) > self.qcap
 
     def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool, matrix=None):
         """Scores f32 [T, NS] of one query against one bucket's tiles: col
@@ -384,17 +480,18 @@ class SearchEngine(StreamingEngineMixin):
         together.  ``matrix``: the substitution matrix on the tiles' device
         (default: the engine's)."""
         matrix = self._matrix_flat if matrix is None else matrix
-        if kind == "col" and int(params[3]) > sw_col.NQC:
-            temp = self.col_temp_bytes
-            if self._temp_bytes is not None:
-                half = self._temp_bytes // 2
-                temp = half if temp is None else min(temp, half)
-            return sw_col.score_bucket_col_any_query(
-                tiles, codes, matrix, self.scoring.gop, self.scoring.gex,
-                pad=self._pad, temp_bytes=temp, exact=exact,
-            )
-        return score_bucket(tiles, qdev, matrix, params, kind, exact=exact,
-                            temp_bytes=self._temp_bytes)
+        with span(f"sw:bucket {kind} L={tiles.shape[1]}", tiles.device):
+            if kind == "col" and int(params[3]) > sw_col.NQC:
+                temp = self.col_temp_bytes
+                if self._temp_bytes is not None:
+                    half = self._temp_bytes // 2
+                    temp = half if temp is None else min(temp, half)
+                return sw_col.score_bucket_col_any_query(
+                    tiles, codes, matrix, self.scoring.gop, self.scoring.gex,
+                    pad=self._pad, temp_bytes=temp, exact=exact,
+                )
+            return score_bucket(tiles, qdev, matrix, params, kind, exact=exact,
+                                temp_bytes=self._temp_bytes)
 
     def bucket_scores(self, codes, exact: bool = True) -> list[torch.Tensor]:
         """Scores f32 [T, NS] of one query against each bucket, in bucket
@@ -446,11 +543,12 @@ class SearchEngine(StreamingEngineMixin):
         maxima), the tile maxima [T] per bucket for an int16-state scan and
         None for an exact one; on a mesh, ``_dispatch_mesh``'s."""
         exact = self._exact_for(codes)
-        if self.mesh is not None:
-            return self._dispatch_mesh(codes, exact)
-        parts = self.bucket_scores(codes, exact)
-        vals, ids = self._top_n(self._slots(parts))
-        return vals, ids, None if exact else [p.amax(dim=1) for p in parts]
+        with span("sw:scan", self.device):
+            if self.mesh is not None:
+                return self._dispatch_mesh(codes, exact)
+            parts = self.bucket_scores(codes, exact)
+            vals, ids = self._top_n(self._slots(parts))
+            return vals, ids, None if exact else [p.amax(dim=1) for p in parts]
 
     def _dispatch_mesh(self, codes, exact: bool):
         """Enqueue one query on every local shard, each on its slice of
@@ -706,33 +804,35 @@ class SearchEngine(StreamingEngineMixin):
         cell batch kernel on cell tiles, one flat-pool launch per plan pass
         on col tiles, the row kernel per slot on row tiles.  ``matrix``: on
         the tiles' device (default: the engine's)."""
-        S = qdev.shape[0]
-        matrix = self._matrix_flat if matrix is None else matrix
-        if kind == "cell":
-            s = sw_cell.score_bucket_cell_batch(tiles, qdev, matrix, params)
-        elif kind == "col":
-            got = [None] * S
-            for s_part, slots in batch_col_scores(
-                tiles, qdev, matrix, params, S, plan, rtot=self._qcap_batch,
-                temp_bytes=self._temp_bytes,
-            ):
-                for si, slot in enumerate(slots):
-                    got[slot] = s_part[si]
-            s = torch.stack(got)
-        else:
-            gop, gex = self.scoring.gop, self.scoring.gex
-            s = torch.stack([
-                score_bucket(tiles, qdev[i], matrix, (int(nqs[i]), gop, gex, int(pads[i])), kind)
-                for i in range(S)
-            ])
-        return s.reshape(S, -1)
+        with span(f"sw:batch_bucket {kind} L={tiles.shape[1]}", tiles.device):
+            S = qdev.shape[0]
+            matrix = self._matrix_flat if matrix is None else matrix
+            if kind == "cell":
+                s = sw_cell.score_bucket_cell_batch(tiles, qdev, matrix, params)
+            elif kind == "col":
+                got = [None] * S
+                for s_part, slots in batch_col_scores(
+                    tiles, qdev, matrix, params, S, plan, rtot=self._qcap_batch,
+                    temp_bytes=self._temp_bytes,
+                ):
+                    for si, slot in enumerate(slots):
+                        got[slot] = s_part[si]
+                s = torch.stack(got)
+            else:
+                gop, gex = self.scoring.gop, self.scoring.gex
+                s = torch.stack([
+                    score_bucket(tiles, qdev[i], matrix, (int(nqs[i]), gop, gex, int(pads[i])), kind)
+                    for i in range(S)
+                ])
+            return s.reshape(S, -1)
 
     def _dispatch_batch(self, group):
         """Launch one batch; returns device (scores, ids), each [S, k]
         (batches are exact); on a mesh, (Candidates, None)."""
-        if self.mesh is None:
-            return self._top_n(self.batch_slot_scores(group))
-        return self._dispatch_batch_mesh(group), None
+        with span("sw:scan_batch", self.device):
+            if self.mesh is None:
+                return self._top_n(self.batch_slot_scores(group))
+            return self._dispatch_batch_mesh(group), None
 
     def _dispatch_batch_mesh(self, group) -> Candidates:
         """Enqueue one batch on every local shard (the JAX package's

@@ -67,6 +67,7 @@ import torch
 
 from .ops import col_flat_plan, cuda_lib, sw_cell, sw_col, sw_row
 from .parallel.sharding import Candidates, shard_context, shard_ranges
+from .utils.profiling import span
 
 #: Environment switch of the resident prefix ("1" on, anything else off).
 STREAM_RESIDENT_ENV = "CUDASW4_TPU_TORCH_STREAM_RESIDENT"
@@ -656,16 +657,17 @@ class StreamingEngineMixin:
             print("NOTE: int16 kernel families are ignored in streaming mode "
                   "(always exact int32 state)", file=sys.stderr)
         t0 = time.perf_counter()
-        if self.mesh is not None:
-            vals, ids = self._stream_candidates_mesh(group).merged()
-        else:
-            cands = [self._top_n(rows, sidx.reshape(-1).long())
-                     for rows, sidx in self._stream_rows(group)]
-            if cands:  # the one read-back of the pass
-                vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
-                ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
+        with span("sw:stream_pass", self.device):
+            if self.mesh is not None:
+                vals, ids = self._stream_candidates_mesh(group).merged()
             else:
-                vals = ids = np.zeros((len(group), 0), np.int64)
+                cands = [self._top_n(rows, sidx.reshape(-1).long())
+                         for rows, sidx in self._stream_rows(group)]
+                if cands:  # the one read-back of the pass
+                    vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
+                    ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
+                else:
+                    vals = ids = np.zeros((len(group), 0), np.int64)
         seconds = time.perf_counter() - t0
         k = self.results_per_query
         db_chars = float(self.packed.total_real_chars)

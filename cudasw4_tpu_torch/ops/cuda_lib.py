@@ -2,9 +2,15 @@
 
 The library compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the repository root, at first use, under a name
-keyed by a hash of the sources and flags, so a fresh checkout builds once
-and an edited source rebuilds.  Nothing compiles when a module is
-imported: the CPU paths never call ``lib()``.
+keyed by a hash of the sources, the headers, the flags and the units, so a
+fresh checkout builds once and an edited source rebuilds.  It is several
+units (``UNITS``: the dispatch, the col kernels, the tool kernels, and the
+cell group kernels once a slice of their (G, R) instances), compiled with
+``-c`` in a pool of ``os.cpu_count()`` processes and linked once with
+``-shared``; object files and the library are written under temporary
+names and renamed, so processes that build at once never read half a
+file.  Nothing compiles when a module is imported: the CPU paths never
+call ``lib()``.
 """
 
 from __future__ import annotations
@@ -16,17 +22,28 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "sw_tiles.cu",)
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
+)
+#: Slices of the cell group kernels' (G, R) instances, one unit each
+#: (``CELL_SLICES`` in csrc/sw_cell.cuh, which names as many).
+CELL_SLICES = 8
+#: The library's units: (source, extra flags), one object each.
+UNITS = (
+    ("sw_tiles.cu", ()),
+    ("sw_col.cu", ()),
+    ("sw_tools.cu", ()),
+    *(("sw_cell_unit.cu", (f"-DSW_SLICE={k}",)) for k in range(CELL_SLICES)),
 )
 
 _P = ctypes.c_void_p
@@ -82,29 +99,69 @@ def _nvcc() -> str:
     return found
 
 
+def _sources() -> list[Path]:
+    """Every source and header of the library, in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in _sources():
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(UNITS).encode())
     return BUILD_DIR / f"libsw_tiles_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+def object_dir() -> Path:
+    """Where the units' objects of ``library_path()`` go."""
+    return library_path().with_suffix(".o.d")
+
+
+def _run(cmd) -> None:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{res.stdout}{res.stderr}"
+            f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
+            f"{res.stdout}{res.stderr}"
         )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+
+
+def _compile(nvcc: str, unit: int, objects: Path) -> Path:
+    """Compile unit ``unit`` of UNITS into ``objects`` (kept when present:
+    it is keyed by the same hash as the library)."""
+    src, flags = UNITS[unit]
+    obj = objects / f"unit{unit}.o"
+    if not obj.exists():
+        tmp = obj.with_name(f"{obj.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        _run([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(tmp), str(CSRC / src)])
+        os.replace(tmp, obj)  # atomic: a concurrent build never sees half a file
+    return obj
+
+
+def build() -> Path:
+    """Compile the kernel library if it is not built yet; returns its path.
+    The units compile in parallel, one process a CPU core."""
+    out = library_path()
+    if out.exists():
+        return out
+    objects = object_dir()
+    objects.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with ThreadPoolExecutor(max_workers=build_jobs()) as pool:
+        futures = [pool.submit(_compile, nvcc, k, objects) for k in range(len(UNITS))]
+        objs = [f.result() for f in futures]  # raises the first failed unit's error
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    os.replace(tmp, out)
     return out
+
+
+def build_jobs() -> int:
+    """nvcc processes a build runs at once: one a CPU core, at most one a
+    unit."""
+    return min(len(UNITS), os.cpu_count() or 1)
 
 
 def lib() -> ctypes.CDLL:

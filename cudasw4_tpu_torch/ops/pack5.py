@@ -48,13 +48,17 @@ def words_for21(elems: int) -> int:
     return -(-elems // CPW21)
 
 
-def _pack_slabs(tiles, out, cpw, max_code, combine, slab):
+def _pack_slabs(tiles, out, cpw, max_code, combine, slab, codec):
     """The slab loop of both codecs: range-check each slab (ValueError:
     an out-of-range code would corrupt a word silently), zero-pad it to a
     word boundary, group it into [rows, W, cpw] int32 and let ``combine``
     fold the code axis into words.  ``slab`` tiles at a time bound the
     temporaries; ``out`` may be any [T, W] int32 array (a memmap too),
-    filled in place."""
+    filled in place.  Where the native library loads, a slab whose output
+    rows are contiguous is packed in C++ instead (``codec``: "b32" or
+    "b21"; native/io.cpp range-checks inline), as the JAX package does."""
+    from ..native import pack_codes_native
+
     T = tiles.shape[0]
     E = int(np.prod(tiles.shape[1:]))
     W = -(-E // cpw)
@@ -65,6 +69,9 @@ def _pack_slabs(tiles, out, cpw, max_code, combine, slab):
         flat = np.ascontiguousarray(np.asarray(tiles[t0:t1]).reshape(t1 - t0, E))
         if flat.dtype != np.int8:
             raise ValueError("transfer pack requires int8 codes")
+        dst = out[t0:t1]
+        if dst.flags.c_contiguous and pack_codes_native(flat, dst, codec):
+            continue
         if not (int(flat.min(initial=0)) >= 0 and int(flat.max(initial=0)) <= max_code):
             raise ValueError(f"transfer pack requires codes 0..{max_code}")
         if E != W * cpw:
@@ -82,7 +89,7 @@ def pack5(tiles: np.ndarray, out: np.ndarray | None = None, slab: int = 64) -> n
             acc |= grp[:, :, k] << (5 * k)
         return acc
 
-    return _pack_slabs(tiles, out, CPW, 31, combine, slab)
+    return _pack_slabs(tiles, out, CPW, 31, combine, slab, "b32")
 
 
 def pack21(tiles: np.ndarray, out: np.ndarray | None = None, slab: int = 64) -> np.ndarray:
@@ -96,7 +103,7 @@ def pack21(tiles: np.ndarray, out: np.ndarray | None = None, slab: int = 64) -> 
             acc += grp[:, :, k]
         return acc
 
-    return _pack_slabs(tiles, out, CPW21, BASE21 - 1, combine, slab)
+    return _pack_slabs(tiles, out, CPW21, BASE21 - 1, combine, slab, "b21")
 
 
 def _unpack(packed: torch.Tensor, shape, cpw: int, digit) -> torch.Tensor:

@@ -5,8 +5,9 @@ exact int32 or int16 state), the same with the tiles staged by hand
 (score_bucket_pallas_cell_batch, exact).
 
 The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
-``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_tiles.cu (its
-note gives the design and the bound on the H100).  The cell, int16 and
+``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_cell.cuh and
+csrc/sw_tools.cu (csrc/sw_tiles.cu's note gives the design and the bound
+on the H100).  The cell, int16 and
 batch kernels are single-pass group wavefronts, one instance per (G, R) of
 CELL_SHAPES, picked for the tiles' L by ``cell_shape``; tiles longer than
 the largest instance take the col wavefront's passes (``sw_col_kernel``,
@@ -50,7 +51,7 @@ QCAP_BATCH = 8192
 #: kernels' row counts.
 DEFAULT_UNROLL = 8
 
-#: The (G, R) instances of the cell group kernels (csrc/sw_tiles.cu,
+#: The (G, R) instances of the cell group kernels (csrc/sw_cell.cuh,
 #: CELL_SHAPES): a group of G lanes scores one subject (two in the int16
 #: kernel's s16x2 lanes), each lane holding R consecutive subject columns
 #: in registers.  G = 8 up to L = 256, G = 16 up to 576, G = 32 above

@@ -5,8 +5,8 @@ the flat-pool batch of query slots (score_bucket_pallas_col_flat and
 score_bucket_pallas_col_flat_fused).
 
 The kernels are ``sw_col_kernel`` (``sw_col16_kernel`` for int16 state),
-``sw_col_flat_kernel`` and ``sw_col_fused_kernel`` in csrc/sw_tiles.cu (its
-note gives the design and the bound on the H100).  ``score_bucket_col``
+``sw_col_flat_kernel`` and ``sw_col_fused_kernel`` in csrc/sw_col.cu
+(csrc/sw_tiles.cu's note gives the design and the bound on the H100).  ``score_bucket_col``
 keeps the TPU kernel's contract: one query chunk of ``nq_pad`` rows (at
 most NQC) against cell-layout tiles whose L is a multiple of LC,
 optionally starting from the previous chunk's bottom-row H/F

@@ -1,8 +1,8 @@
 """Row-layout scoring: one query against tiles [T, L, NS] (the counterpart of
 cudasw4_tpu/ops/sw_pallas.py::score_bucket_pallas and prepare_query).
 
-The kernels are in csrc/sw_tiles.cu (its note gives the design and the
-bound on the H100): up to the largest cell instance (L <= 768) the cell
+The kernels are in csrc/sw_cell.cuh and csrc/sw_col.cu (csrc/sw_tiles.cu's
+note gives the design and the bound on the H100): up to the largest cell instance (L <= 768) the cell
 group routine at a code stride of NS (``sw_row_kernel``, at the (G, R)
 that ``sw_cell.cell_shape`` picks), past it the col wavefront without a
 carry (``sw_row_col_kernel``); ``row_route`` says which.  There is no

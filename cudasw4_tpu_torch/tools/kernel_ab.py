@@ -151,10 +151,19 @@ def _sweep(tree: str) -> dict:
     return out
 
 
+#: Lines of cuobjdump's listing that belong to a cubin, not to a kernel:
+#: the last kernel of each cubin is followed by the next cubin's header.
+_CUBIN_LINES = ("Fatbin", "=====", "arch =", "code version", "host =", "compile_size",
+                "code for", ".....")
+
+
 def _sass(lib: str) -> dict:
     """Kernel -> SASS text of a built library, keyed by the mangled name
     from the kernel's own name on (the anonymous namespace's part differs
-    between builds), with the code addresses stripped."""
+    between builds and units): each instruction and its encoding, with the
+    code addresses stripped, runs of blanks collapsed (cuobjdump pads the
+    columns to a cubin's widest line, and the library is several cubins)
+    and the cubin header lines dropped."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True)
@@ -162,7 +171,9 @@ def _sass(lib: str) -> dict:
     for part in res.stdout.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         key = re.search(r"\d+(sw_\w*?_kernel.*)$", name.strip())
-        kernels[key.group(1) if key else name.strip()] = re.sub(r"/\*[0-9a-f]{4,}\*/", "", body)
+        lines = (" ".join(line.split()) for line in re.sub(r"/\*[0-9a-f]{4,}\*/", "", body).splitlines())
+        kernels[key.group(1) if key else name.strip()] = "\n".join(
+            line for line in lines if line and not line.startswith(_CUBIN_LINES))
     return kernels
 
 

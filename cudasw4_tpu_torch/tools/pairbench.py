@@ -3,7 +3,7 @@ counterpart of tools/pairbench.py).
 
 ``score_pair`` scores P consecutive cell tiles per block: each block owns
 128 lanes of P tiles and each thread scores its P subjects one after
-another (``sw_pair_kernel`` in csrc/sw_tiles.cu, T / P x 32 blocks).  The
+another (``sw_pair_kernel`` in csrc/sw_tools.cu, T / P x 32 blocks).  The
 JAX kernel's ``unroll`` has no counterpart: the kernel's register block is
 its 8 query rows.  Its plain version is the cell kernel's.
 

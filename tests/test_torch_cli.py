@@ -81,12 +81,27 @@ def test_makedb_and_plain_output_equal_jax_cli(tmp_path, capsys):
     assert runs["jax"][0].startswith("Query 0, header")
 
 
-def test_cli_unported_options_raise(tmp_path, capsys):
+def test_cli_unported_options_raise(tmp_path, capsys, monkeypatch):
+    """The options that waited for later slices run now: --tuning applies
+    its file (the geometry restored by monkeypatch), --profile writes a
+    trace; a wrong kernel type is still refused."""
+    import json
+
+    from cudasw4_tpu_torch.db import packing
+    from cudasw4_tpu_torch.ops import sw_col
+
+    for mod, name in ((packing, "CELL_SPEEDUP"), (packing, "COL_SPEEDUP"),
+                      (packing, "CELL_MAX_L"), (packing, "_tuning_applied"),
+                      (sw_col, "NQC"), (sw_col, "LC")):
+        monkeypatch.setattr(mod, name, getattr(mod, name))
     prefix = str(tmp_path / "gdb")
     assert makedb.run([DB_FA, prefix]) == 0
-    for extra in (["--tuning", "t.json"], ["--profile", "trace"]):
-        with pytest.raises(NotImplementedError):
-            align.run(["--query", QUERIES, "--db", prefix, "--device", "cpu", *extra])
+    cfg = tmp_path / "t.json"
+    cfg.write_text(json.dumps({"cell_speedup": 2.5}))
+    trace = tmp_path / "trace"
+    for extra in (["--tuning", str(cfg)], ["--profile", str(trace)]):
+        assert align.run(["--query", QUERIES, "--db", prefix, "--device", "cpu", *extra]) == 0
+    assert packing.CELL_SPEEDUP == 2.5 and (trace / "trace.json").exists()
     assert align.run(["--query", QUERIES, "--db", prefix, "--manyPassType_small", "Float"]) == 1
     # Streaming and the tile store, which waited for a later slice, run.
     assert makedb.run([DB_FA, prefix, "--prepack"]) == 0

@@ -805,3 +805,85 @@ def test_unpack_on_card_equals_numpy(dev, codec):
     assert got.device.type == "cuda" and got.is_contiguous()
     assert np.array_equal(got.cpu().numpy(), pack5.CODECS[codec][4](words, (100, 32, 128)))
     assert np.array_equal(got.cpu().numpy(), tiles)
+
+
+def test_split_library_exports_every_launcher(dev):
+    """The library, linked from its units (cuda_lib.UNITS), exports every
+    launch function that lib() binds."""
+    import ctypes
+
+    handle = ctypes.CDLL(str(cuda_lib.build()))
+    names = {*cuda_lib.LAUNCHES.values(), *cuda_lib.CELL_LAUNCHES.values(),
+             *cuda_lib.COL_LAUNCHES.values(), *cuda_lib.TOOL_LAUNCHES.values(),
+             "sw_col_pass_columns", "sw_cell_shapes", "sw_error_string"}
+    assert sorted(n for n in names if not hasattr(handle, n)) == []
+    assert len(list(cuda_lib.object_dir().glob("unit*.o"))) == len(cuda_lib.UNITS)
+
+
+@pytest.mark.parametrize("state16", [False, True])
+@pytest.mark.parametrize("col_tiles", [None, 4])
+def test_warmup_launches_each_single_scan_kernel(dev, state16, col_tiles):
+    """warmup() on a database of one row, one cell and one col bucket
+    launches B2 once, B1 once a state mode, and B3 once plus three carry
+    variants a col tile group (two groups when the col temp budget holds
+    four of the six tiles); the results do not change."""
+    from cudasw4_tpu_torch.engine import _kernel_launches
+
+    rng = np.random.default_rng(41)
+    cfg = make_scoring_config("blosum62")
+    packed = _stream_packed(rng, cfg)
+    per_tile = 8 * 256 * 4096 + cuda_lib.col_boundary_bytes(1, sw_col.NQC)
+    temp = None if col_tiles is None else col_tiles * per_tile
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in (30, 200, 3500)]
+    cold = SearchEngine(scoring=cfg, num_top=15, device="cuda", col_temp_bytes=temp)
+    cold.state16 = state16
+    cold.set_database(None, packed=packed)
+    want = [(r.scores, r.reference_ids) for r in cold.scan_many(queries)]
+    eng = SearchEngine(scoring=cfg, num_top=15, device="cuda", col_temp_bytes=temp)
+    eng.state16 = state16
+    eng.set_database(None, packed=packed)
+    counters = (sw_cell.score_bucket_cell, "launches"), (sw_cell.score_bucket_cell, "launches16"), \
+        (sw_row.score_bucket_row, "launches"), (sw_col.score_bucket_col, "launches"), \
+        (sw_col.score_bucket_col, "launches16")
+    before = [getattr(fn, a) for fn, a in counters]
+    start = _kernel_launches()
+    n = eng.warmup()
+    got = [getattr(fn, a) - b for (fn, a), b in zip(counters, before)]
+    groups = 1 if col_tiles is None else 2
+    assert got == [1, int(state16), 1, 1 + 3 * groups, int(state16)]
+    assert n == sum(got) == _kernel_launches() - start
+    assert [(r.scores, r.reference_ids) for r in eng.scan_many(queries)] == want
+
+
+def test_gridsearch_cell_and_col_rows_on_card(dev, tmp_path):
+    from cudasw4_tpu_torch.cli import gridsearch
+
+    tsv, cfg = tmp_path / "sweep.tsv", tmp_path / "tuning.json"
+    assert gridsearch.run(["--lengths", "128,256", "--querylengths", "64", "--chars",
+                           str(4096 * 256), "--kernels", "cell,col", "--reps", "1",
+                           "--of", str(tsv), "--emit-config", str(cfg)]) == 0
+    rows = [line.split("\t") for line in tsv.read_text().splitlines()[1:]]
+    assert sorted((r[0], int(r[1])) for r in rows) == [
+        ("cell", 128), ("cell", 256), ("col", 128), ("col", 256)]
+    assert all(float(r[6]) > 0 for r in rows)
+    import json
+
+    assert json.loads(cfg.read_text())["platform"] == torch.cuda.get_device_name(0)
+
+
+def test_device_trace_names_a_port_kernel(dev, tmp_path):
+    import json
+
+    from cudasw4_tpu_torch.utils.profiling import device_trace, span
+
+    rng = np.random.default_rng(42)
+    cfg = make_scoring_config("blosum62")
+    t = torch.as_tensor(_tiles(rng, (2, 64, 32, 128), cfg.pad_code, 8000, 21)).cuda()
+    q = torch.as_tensor(rng.integers(0, 20, size=64).astype(np.int32)).cuda()
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    with device_trace(str(tmp_path)) as path:
+        with span("sw:bucket cell L=64", t.device):
+            sw_cell.score_bucket_cell(t, q, m, (64, cfg.gop, cfg.gex, 64))
+    names = [e.get("name", "") for e in json.load(open(path))["traceEvents"]]
+    assert any("sw_cell_kernel" in n for n in names)
+    assert "sw:bucket cell L=64" in names

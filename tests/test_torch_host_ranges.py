@@ -86,11 +86,15 @@ def test_range_helpers_equal_jax():
     assert tp._ranges_subtract([(0, 10)], [(2, 5)]) == [(0, 2), (5, 10)]
 
 
-def test_partial_store_built_loaded_extended_like_jax(tmp_path, pinned_zip_time):
+def test_partial_store_built_loaded_extended_like_jax(tmp_path, pinned_zip_time, monkeypatch):
     """A partial store with its b32 sidecar, built, loaded and extended,
     equals the JAX package's files byte for byte at every step; it holds
     the pack's tiles in its ranges and zeros elsewhere (a sparse file);
-    loads take it only for ranges it covers; the extension completes it."""
+    loads take it only for ranges it covers; the extension completes it.
+    Both packages pack with their Python packers (the database's padding
+    bytes are random codes, which the Python packer keeps and the native
+    one overwrites with the pad code)."""
+    monkeypatch.setenv("CUDASW4_TPU_TORCH_NATIVE", "0")
     fields = _fields()
     db, jdb = DBData(**fields), JaxDBData(**fields)
     n, nch = db.num_sequences, int(db.lengths.sum())

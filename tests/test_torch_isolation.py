@@ -1,5 +1,6 @@
 """cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu;
-importing them builds no kernel and starts no process group.
+importing them builds no kernel, compiles no native library and starts no
+process group.
 
 Each check imports in a fresh interpreter whose PYTHONPATH is the repo
 alone (the login profile's site dir can import JAX on its own).
@@ -24,12 +25,14 @@ for name in names:
 import chip_smoke
 import torch.distributed as dist
 from cudasw4_tpu_torch.ops import cuda_lib
+from cudasw4_tpu_torch import native
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cudasw4_tpu" or m.startswith("cudasw4_tpu."))
 print(len(names))
 print(",".join(bad))
-print(int(dist.is_available() and dist.is_initialized()), int(cuda_lib._lib is not None))
+print(int(dist.is_available() and dist.is_initialized()), int(cuda_lib._lib is not None),
+      int(native._tried))
 """
 
 
@@ -44,14 +47,17 @@ def _probe():
 
 def test_port_imports_no_jax_and_no_jax_package():
     count, bad, started = _probe()
-    assert count >= 15  # every module of the port was imported
+    assert count >= 20  # every module of the port was imported
     assert bad == "", f"imported: {bad}"
-    assert started == "0 0", "an import started a process group or loaded the kernels"
+    assert started == "0 0 0", \
+        "an import started a process group, loaded the kernels or built the native library"
 
 
 @pytest.mark.parametrize("cmd", [
     [sys.executable, "-m", "cudasw4_tpu_torch.cli.align", "--help"],
     [sys.executable, "-m", "cudasw4_tpu_torch.cli.makedb"],
+    [sys.executable, "-m", "cudasw4_tpu_torch.cli.gridsearch", "gridsearch", "--help"],
+    [sys.executable, "-m", "cudasw4_tpu_torch.cli.modifydb"],
 ])
 def test_cli_entry_points_start_without_jax(cmd):
     env = dict(os.environ, PYTHONPATH=REPO)
