@@ -27,9 +27,12 @@ non-zero:
    kernels on one tile (CELL_LS: subjects of L, L - 1 and 1 residues,
    empty lanes; nq = 1, 8, 9, 464; int16 under the SAT rule), B4 on
    unequal slots with 0-row and 1-row ones (1, 3 and 14 slots), and B1
-   int16 with a matrix that s16x2 lanes cannot hold; the manual-staging
-   kernel (both modes) and the pair kernel (P = 2, 4) against the cell
-   kernel's plain version, timed beside it.
+   int16 with a matrix that s16x2 lanes cannot hold; B4 int16 (its cell
+   route and, at L = 896, col flat int16), B5 and B6 int16 on unequal
+   slots, equal to the exact kernels' scores at the default SAT and under
+   the SAT rule at a lowered one; the manual-staging kernel (both modes)
+   and the pair kernel (P = 2, 4) against the cell kernel's plain version,
+   timed beside it.
 3. golden:  the port's makedb and align --tsv --top 10 on the golden
    fixtures, byte for byte against golden_top10.tsv and
    golden_top10_full.tsv.
@@ -82,33 +85,45 @@ non-zero:
    tools/run_multihost.py as two processes on the mesh over gloo and as
    one under NCCL at world size 1, every process printing phase 4's hits.
 9. tools: dmabench and pairbench at their defaults, every line OK.
-10. warmup: fresh processes search phase 4's database for the 144-aa and
+10. colstate16: the ported tools/colstate16.py in a fresh process at
+   T = 16, reps 3: B3 and B5 in int32 and int16 state at L = 1024 and
+   2048 (GCUPS of each mode), every line OK (the modes agree under the SAT
+   rule); each line's int16 scores equal the plain version's on the same
+   inputs (the first tile; every tile of the L = 1024, 2 x 1024 flat line,
+   timed).  Its counters are B5 int16's launches, and that flat line's
+   call gives B5 int16's kernels-line figures.
+11. warmup: fresh processes search phase 4's database for the 144-aa and
    then the 464-aa query, each alone, with warmup() and without (each
    query's seconds, the warmup's seconds and launches, the first batch's
    extra time over its second) and one streamed under phase stream's
    budget; the three write the same TSV.
-11. tuning: gridsearch at its defaults with the (NQC, LC) sweep, the
+12. tuning: gridsearch at its defaults with the (NQC, LC) sweep, the
    config it emits for this card; phase 4's database packed under the
    defaults and under the config (plans by kind), the 20 queries timed in
    turns (default, tuned, tuned, default) in exact and in int16 state,
    the TSV under the config phase 4's byte for byte.
-12. native: the native IO library loaded; makedb of phase 4's FASTA with
+13. native: the native IO library loaded; makedb of phase 4's FASTA with
    and without it, byte for byte equal, pack_db both ways with equal
    tiles, seconds for each; modifydb verify on the database.
-13. profile: align --profile on two queries; the trace names the batch's
+14. profile: align --profile on two queries; the trace names the batch's
    kernels and the engine's spans.
-14. kernels line: per kernel, its launches on its path (align for the
-   exact kernels, align --dpx for the int16 modes, the tools for the
-   manual and pair kernels; each path's counters are reset just before
-   it and read just after), its launches on the streamed align
+15. kernels line: per kernel, its launches on its path (align for the
+   exact kernels but B6, the fused scan_batch for B6, align --dpx for the int16 modes of B1 and B3,
+   colstate16 for B5 int16, the tools for the manual and pair kernels;
+   each path's counters are reset just before it and read just after;
+   B4 and B6 int16, which no path reaches, show 0; each row's "path"
+   names its path, null for these two), its
+   launches on the streamed align
    (``stream_launches``, B6 from the fused streamed pass) and on the mesh
    (``mesh_launches``: phase mesh's resident run, B6 its fused batch,
-   the int16 modes its int16 run; 0 for the tool kernels), and its time,
+   the int16 modes of B1 and B3 its int16 run; 0 for the tool kernels
+   and the batch kernels' int16 modes), and its time,
    bound and plain time at its
    main-path shape: the largest bucket of its kind, with the 464-aa query
    for the single-query kernels (and the manual and pair kernels), the
    batch of 14 for the cell batch, and the widest plan pass for the col
-   kernels.
+   kernels; B5 int16's is its colstate16 line (its figures at the align
+   shape under "align_shape").
 
 Bounds and per-kernel GCUPS count the DP cells the data needs: real query
 rows times real subject residues; int16 state's bound counts two cells a
@@ -156,6 +171,11 @@ CELLS_PER_LANE_OP = {"int32": 1, "int16": 2}
 SPROT_NUM, SPROT_MEDIAN, SPROT_SIGMA = 573_000, 292.0, 0.64
 #: The per-bucket breakdown's queries: these lengths of the query set.
 QUERY_LADDER = (144, 464, 1000, 3005, 5478)
+#: Each kernels-line row names the path its launches come from: "align",
+#: "align --dpx", the fused scan_batch (FUSED_PATH), a tool, or None where
+#: no entry point reaches the kernel.  The mesh runs the first three.
+FUSED_PATH = "scan_batch (fused)"
+MESH_PATHS = ("align", "align --dpx", FUSED_PATH)
 #: The planted int16 overflow: a subject of PLANTED_W W's against the same
 #: query scores 11 x 3,100 = 34,100 on blosum62, above SAT = 32,000.
 PLANTED_W = 3100
@@ -638,6 +658,64 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
                          "chunk_rows": [p[0] for _, p in qs], "sat": sat, "sat_rule": True,
                          "saturated": col_chain(name, t, qs, m, sat, ref)})
 
+    # B4 int16 (its cell route and, past the largest instance, col flat
+    # int16), B5 and B6 int16 on unequal slots (one empty), over a partial
+    # last col pass.
+    from cudasw4_tpu_torch.ops import col_flat_plan
+
+    for shape, lens in (((4, 256, 32, 128), [464, 0, 37, 201]), ((2, 896, 32, 128), [300, 0, 1, 77])):
+        t, _ = random_tiles(rng, shape, A, pad)
+        qs = torch.stack([query_block(rng, n, 512, A, pad) for n in lens])
+        p = (0, cfg.gop, cfg.gex, 0, *lens)
+        batch_state16(rows, mat, shape, lens, {
+            "B4 cell batch int16": lambda **kw: sw_cell.score_bucket_cell_batch(t, qs, m, p, **kw),
+        }, lambda **kw: sw_cell.score_bucket_cell_batch_plain(t, qs, m, p, **kw))
+    shape = (1, 1152, 32, 128)
+    t, _ = random_tiles(rng, shape, A, pad)
+    lens = [300, 1000, 0, 77]
+    pads = [n and sw_col.padded_rows(n) for n in lens]
+    (plan,) = col_flat_plan(pads)
+    offs = tuple(o for _, o in sorted(plan))
+    qs = torch.stack([query_block(rng, n, sw_col.NQC, A, pad) for n in lens])
+    p = (0, cfg.gop, cfg.gex, 0, *pads)
+    batch_state16(rows, mat, shape, pads, {
+        "B5 col flat int16": lambda **kw: sw_col.score_bucket_col_flat(t, qs, m, p, offs, **kw),
+        "B6 col fused int16": lambda **kw: sw_col.score_bucket_col_flat_fused(t, qs, m, p, **kw),
+    }, lambda **kw: sw_col.score_bucket_col_flat_plain(t, qs, m, p, **kw))
+
+
+def batch_state16(rows, mat, shape, slot_rows, kernels, plain):
+    """Batch kernels' int16 modes (``kernels``: name -> wrapper call; each
+    run with ``exact=False``) against their exact kernel's scores and
+    their shared plain version: at the default SAT equal to the exact
+    kernel's scores and to the plain int16 version's; at a SAT that most
+    subjects reach, under the SAT rule against the plain int16 and the
+    exact scores."""
+    from cudasw4_tpu_torch.ops import sw_cell
+
+    want_exact = plain()
+    exact = {}
+    for name, fn in kernels.items():
+        exact[name] = fn()
+        check(torch.equal(exact[name], want_exact), f"{name} {mat} {shape}: exact kernel != plain")
+    default = sw_cell.SAT
+    for sat in (default, lowered_sat(want_exact)):
+        sw_cell.SAT = sat
+        try:
+            want = plain(exact=False)
+            got = {name: fn(exact=False) for name, fn in kernels.items()}
+        finally:
+            sw_cell.SAT = default
+        for name, g in got.items():
+            if sat == default:
+                check(torch.equal(g, exact[name]) and torch.equal(g, want),
+                      f"{name} {mat} {shape} at the default SAT: != the exact scores")
+            check_sat_rule(f"{name} {mat} {shape}", g, want, sat)
+            check_sat_rule(f"{name} {mat} {shape} vs exact", g, want_exact, sat)
+            rows.append({"check": name, "mat": mat, "shape": list(shape),
+                         "slot_rows": list(slot_rows), "sat": sat, "sat_rule": True,
+                         "saturated": int((want_exact >= sat).sum())})
+
 
 def phase_kernels_tools(rng, rows):
     """B7 (both modes) and B8 (P = 2, 4) against B1's plain version, at the
@@ -766,8 +844,11 @@ def wrappers():
         "row": (sw_row.score_bucket_row, ""),
         "col": (sw_col.score_bucket_col, ""), "col16": (sw_col.score_bucket_col, "16"),
         "cell_batch": (sw_cell.score_bucket_cell_batch, ""),
+        "cell_batch16": (sw_cell.score_bucket_cell_batch, "16"),
         "col_flat": (sw_col.score_bucket_col_flat, ""),
+        "col_flat16": (sw_col.score_bucket_col_flat, "16"),
         "col_fused": (sw_col.score_bucket_col_flat_fused, ""),
+        "col_fused16": (sw_col.score_bucket_col_flat_fused, "16"),
         "manual": (sw_cell.score_bucket_cell_manual, ""),
         "manual16": (sw_cell.score_bucket_cell_manual, "16"),
         "pair": (score_pair, ""),
@@ -876,7 +957,8 @@ def phase_sprot(clock_mhz):
     align_peak = torch.cuda.max_memory_allocated()
     check(rc == 0, "sprot align failed")
     check_path(counts, "align", ("cell", "row", "col", "cell_batch", "col_flat"))
-    check(not any(counts[k][0] for k in ("cell16", "col16", "manual", "manual16", "pair")),
+    check(not any(counts[k][0] for k in ("cell16", "col16", "cell_batch16", "col_flat16",
+                                          "col_fused16", "manual", "manual16", "pair")),
           "align launched an int16 or tool kernel")
     per_query = [
         (float(a), float(b)) for a, b in
@@ -978,7 +1060,7 @@ def phase_sprot(clock_mhz):
                          key=lambda k: eng.packed.buckets[k].tiles.size)
                for kind in kinds}
 
-    def kernel_row(name, replaces, launches, shape, nrows, real_rows, bucket, got, want,
+    def kernel_row(name, replaces, path, launches, shape, nrows, real_rows, bucket, got, want,
                    ms, pms, slots=1, state="int32", **extra):
         err = float((got - want).abs().max())
         check(err == 0.0, f"{name} differs from plain at the main-path shape {tuple(shape)}")
@@ -987,7 +1069,7 @@ def phase_sprot(clock_mhz):
         b_ms, by = bound(real, nbytes, clock_mhz, state)
         kernels.append({
             "name": name, "route": "cuda", "source": kernel_source(name),
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "replaces": replaces, "path": path, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "state": state, "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
             "cells_real": real, "cells_padded": padded,
@@ -1026,8 +1108,9 @@ def phase_sprot(clock_mhz):
                 extra = {"row_route": route, "cell_shape": cell and list(cell),
                          "scratch_bytes": pool}
             kernel_row(kname if exact else kname.replace("_kernel", "16_kernel"), replaces,
-                       counts[kind][0] if exact else None, tuple(t.shape), nrows, len(mid), i,
-                       a, b, ms, pms, state="int32" if exact else "int16", **extra)
+                       "align" if exact else "align --dpx", counts[kind][0] if exact else 0,
+                       tuple(t.shape), nrows, len(mid), i, a, b, ms, pms,
+                       state="int32" if exact else "int16", **extra)
             if kind == "cell" and exact:
                 cell_args, cell_want, cell_pms = (i, t, q, p), b, pms
 
@@ -1036,14 +1119,14 @@ def phase_sprot(clock_mhz):
     from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     i, t, q, p = cell_args
-    for name, replaces, fn in (
-        ("sw_manual_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448",
+    for name, replaces, path, fn in (
+        ("sw_manual_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448", "dmabench",
          lambda: sw_cell.score_bucket_cell_manual(t, q, eng._matrix_flat, p)),
-        ("sw_pair_kernel", "tools/pairbench.py:45",
+        ("sw_pair_kernel", "tools/pairbench.py:45", "pairbench",
          lambda: score_pair(t, q, eng._matrix_flat, p, P=2)),
     ):
-        kernel_row(name, replaces, None, tuple(t.shape), len(mid), len(mid), i, fn(), cell_want,
-                   cuda_ms(fn), cell_pms)
+        kernel_row(name, replaces, path, 0, tuple(t.shape), len(mid), len(mid), i, fn(),
+                   cell_want, cuda_ms(fn), cell_pms)
 
     # B4 at the largest cell bucket with the batch of 14; B5 and B6 at the
     # largest col bucket with the plan's widest pass.
@@ -1053,10 +1136,22 @@ def phase_sprot(clock_mhz):
     a = sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params)
     b, pms = timed(lambda: sw_cell.score_bucket_cell_batch_plain(t, qdev, eng._matrix_flat, params))
     ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params))
-    kernel_row("sw_cell_batch_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:343",
+    kernel_row("sw_cell_batch_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:343", "align",
                counts["cell_batch"][0], tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a, b,
                ms, pms, slots=S, cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
-    del a, b
+    # B4 int16 (no path reaches it: no launches) on the same inputs: at
+    # the default SAT, equal to the exact kernel's scores.
+    def fn():
+        return sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params, exact=False)
+    a16 = fn()
+    check(torch.equal(a16, a), "B4 int16 at the main-path shape: != the exact kernel's scores")
+    b16, pms16 = timed(lambda: sw_cell.score_bucket_cell_batch_plain(
+        t, qdev, eng._matrix_flat, params, exact=False))
+    kernel_row("sw_cell16_kernel[batch]", "cudasw4_tpu/ops/sw_pallas_cell.py:343", None, 0,
+               tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a16, b16, cuda_ms(fn), pms16,
+               slots=S, state="int16", equal_to_exact=True,
+               cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
+    del a, b, a16, b16
     widest = max(plan, key=len)
     idx = [slot for slot, _ in widest]
     offs = tuple(o for _, o in widest)
@@ -1065,20 +1160,37 @@ def phase_sprot(clock_mhz):
     real_rows = int(sum(nqs[s] for s in idx))
     i = largest["col"]
     t = eng._bucket_tiles[i]
-    b, pms = timed(lambda: sw_col.score_bucket_col_flat_plain(t, qs, eng._matrix_flat, pcol))
-    for name, replaces, launches, fn in (
-        ("sw_col_flat_kernel", "cudasw4_tpu/ops/sw_pallas_col.py:721", counts["col_flat"][0],
-         lambda: sw_col.score_bucket_col_flat(t, qs, eng._matrix_flat, pcol, offs, rtot=qcap_b)),
+    plains = {exact: timed(lambda exact=exact: sw_col.score_bucket_col_flat_plain(
+        t, qs, eng._matrix_flat, pcol, exact=exact)) for exact in (True, False)}
+    check(torch.equal(plains[True][0], plains[False][0]),
+          "B5 plain int16 at the main-path shape: != exact at the default SAT")
+    # Each mode's (path, launches): B5 int16's path is phase colstate16,
+    # which replaces this row's figures with its own shape's; no path
+    # reaches B6 int16.
+    for name, replaces, modes, wrapper, args in (
+        ("sw_col_flat_kernel", "cudasw4_tpu/ops/sw_pallas_col.py:721",
+         {True: ("align", counts["col_flat"][0]), False: ("colstate16", 0)},
+         sw_col.score_bucket_col_flat, (offs,)),
         ("sw_col_fused_kernel", "cudasw4_tpu/ops/sw_pallas_col.py:796",
-         fused_counts["col_fused"][0],
-         lambda: sw_col.score_bucket_col_flat_fused(t, qs, eng._matrix_flat, pcol, rtot=qcap_b)),
+         {True: (FUSED_PATH, fused_counts["col_fused"][0]), False: (None, 0)},
+         sw_col.score_bucket_col_flat_fused, ()),
     ):
-        a = fn()
-        ms = cuda_ms(fn)
-        pool_rows = sum(pcol[4:]) if "fused" in name else qcap_b
-        temp = {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], pool_rows)}
-        kernel_row(name, replaces, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b,
-                   ms, pms, slots=len(idx), pass_offsets=list(offs), **temp)
+        for exact, (path, launches) in modes.items():
+            def fn(wrapper=wrapper, args=args, exact=exact):
+                return wrapper(t, qs, eng._matrix_flat, pcol, *args, rtot=qcap_b, exact=exact)
+            a = fn()
+            ms = cuda_ms(fn)
+            pool_rows = sum(pcol[4:]) if "fused" in name else qcap_b
+            extra = {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], pool_rows,
+                                                                   0 if exact else 1)}
+            if not exact:
+                extra["equal_to_exact"] = True
+            b, pms = plains[exact]
+            kernel_row(name if exact else name.replace("_kernel", "16_kernel"), replaces,
+                       path, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b, ms, pms,
+                       slots=len(idx), state="int32" if exact else "int16",
+                       pass_offsets=list(offs), **extra)
+    del plains, a, b
 
     # Every cell bucket with the 464-aa query, both state modes: its
     # (G, R), time, bound and share of the bound.
@@ -1224,7 +1336,8 @@ def phase_state16(ctx, kernels):
     dpx_gcups = align_dpx("hits_dpx.tsv")
     counts = read_counts()
     check_path(counts, "align --dpx", ("cell16", "row", "col16"))
-    check(counts["cell_batch"][0] == 0 and counts["col_flat"][0] == 0,
+    check(not any(counts[k][0] for k in ("cell_batch", "col_flat", "col_fused", "cell_batch16",
+                                          "col_flat16", "col_fused16")),
           "align --dpx launched a batch kernel")
     kernels["sw_cell16_kernel"]["launches"] = counts["cell16"][0]
     kernels["sw_col16_kernel"]["launches"] = counts["col16"][0]
@@ -1950,11 +2063,10 @@ def phase_mesh(ctx, kernels):
                     "sw_col_kernel": counts["col"][0], "sw_cell_batch_kernel": counts["cell_batch"][0],
                     "sw_col_flat_kernel": counts["col_flat"][0],
                     "sw_col_fused_kernel": fused_counts["col_fused"][0],
-                    "sw_cell16_kernel": dpx_counts["cell16"][0], "sw_col16_kernel": dpx_counts["col16"][0],
-                    "sw_manual_kernel": 0, "sw_pair_kernel": 0}
-    for name, v in kernels_mesh.items():
-        kernels[name]["mesh_launches"] = v
-        check(v > 0 or name in ("sw_manual_kernel", "sw_pair_kernel"), f"{name}: no launch on the mesh")
+                    "sw_cell16_kernel": dpx_counts["cell16"][0], "sw_col16_kernel": dpx_counts["col16"][0]}
+    for name, k in kernels.items():
+        k["mesh_launches"] = kernels_mesh.get(name, 0)
+        check(k["mesh_launches"] > 0 or k["path"] not in MESH_PATHS, f"{name}: no launch on the mesh")
     emit({
         "phase": "mesh", "layout": layout, "devices": devices, "shard_tiles": shard_tiles,
         "set_database_seconds": t_set, "align_seconds": t_align,
@@ -2007,6 +2119,103 @@ def phase_tools(kernels):
     kernels["sw_manual_kernel"]["launches"] = counts["manual"][0]
     kernels["sw_pair_kernel"]["launches"] = counts["pair"][0]
     emit({"phase": "tools", "lines": lines, "launches": {k: v[0] for k, v in counts.items()},
+          "seconds": time.perf_counter() - t_phase})
+
+
+# -------------------------------------------------- phase colstate16
+
+#: The colstate16 phase's arguments: T = 16 tiles (a quarter of the JAX
+#: tool's default 64), 3 timed calls after the warm-up.
+COLSTATE16_ARGS = ("16", "3")
+#: The colstate16 line whose B5 int16 call the kernels line times and holds
+#: whole against the plain version: the flat line with the fewest cells.
+COLSTATE16_ROW = {"kind": "flat", "L": 1024, "rows": [1024, 1024]}
+
+
+def colstate16_child(argv) -> int:
+    """The tool in this process, its counters reset just before it and
+    read just after.  Each line's int16 scores are held against the plain
+    version on the card on the same inputs (the plain versions count no
+    launch): the first tile of every line, and every tile of
+    COLSTATE16_ROW's line, timed.  Prints {"counts", "held", "row"} as the
+    last line."""
+    from cudasw4_tpu_torch.ops import cuda_lib, sw_col
+    from cudasw4_tpu_torch.tools import colstate16
+
+    held, row = [], {}
+
+    def inspect(line, inputs, scores):
+        tiles, q, mat, params = (inputs[k] for k in ("tiles", "queries", "matrix", "params"))
+        whole = all(line[k] == v for k, v in COLSTATE16_ROW.items())
+        n = tiles.shape[0] if whole else 1
+        if line["kind"] == "single":
+            got = scores["i16"][:n]
+            want, pms = timed(lambda: sw_col.score_bucket_col_plain(tiles[:n], q, mat, params,
+                                                                   exact=False))
+        else:
+            got = scores["i16"][:, :n]
+            want, pms = timed(lambda: sw_col.score_bucket_col_flat_plain(tiles[:n], q, mat,
+                                                                        params, exact=False))
+        err = float((got - want).abs().max())
+        held.append({"kind": line["kind"], "L": line["L"], "rows": line["rows"], "tiles": n,
+                     "max_abs_err": err})
+        if whole:
+            T, L = tiles.shape[:2]
+            row.update(shape=list(tiles.shape), nq=sum(params[4:]), real_rows=sum(line["rows"]),
+                       slots=len(line["rows"]), ms=line["ms_i16"], plain_ms=pms,
+                       pass_offsets=list(inputs["offs"]), rtot=inputs["rtot"],
+                       boundary_bytes=cuda_lib.col_boundary_bytes(T, inputs["rtot"], 1))
+
+    reset_counts()
+    rc = colstate16.main(argv, inspect=inspect)
+    emit({"counts": read_counts(), "held": held, "row": row})
+    return rc
+
+
+def phase_colstate16(kernels, clock_mhz):
+    """The ported tools/colstate16.py in a fresh process at COLSTATE16_ARGS:
+    B3 and B5 in int32 and int16 state at L = 1024 and 2048, every line OK
+    (the modes agree under the SAT rule), every line's int16 scores equal
+    to the plain version's (the first tile; every tile of COLSTATE16_ROW's
+    line).  Its counters are B5 int16's launches, and the kernels line's
+    B5 int16 figures become those of COLSTATE16_ROW's call (phase sprot's,
+    at the align shape, move under "align_shape")."""
+    t_phase = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--colstate16-child", *COLSTATE16_ARGS],
+        capture_output=True, text=True, cwd=REPO, timeout=600,
+    )
+    out = res.stdout.splitlines()
+    check(res.returncode == 0 and out, f"colstate16 exited {res.returncode}:\n{res.stderr[-3000:]}")
+    lines = [x for x in out if x.startswith(("single", "flat"))]
+    check(len(lines) == 10 and all(x.endswith("[OK]") for x in lines), f"colstate16's lines: {lines}")
+    child = json.loads(out[-1])
+    counts, held, got = child["counts"], child["held"], child["row"]
+    check_path(counts, "colstate16", ("col", "col16", "col_flat", "col_flat16"))
+    check(len(held) == 10 and all(h["max_abs_err"] == 0.0 for h in held),
+          f"colstate16: int16 scores against the plain version: {held}")
+    check(bool(got), f"colstate16 ran no line {COLSTATE16_ROW}")
+
+    row = kernels["sw_col_flat16_kernel"]
+    row["align_shape"] = {k: row.pop(k) for k in (
+        "shape", "nq", "slots", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "cells_real", "cells_padded", "gcups_real", "gcups_padded", "pass_offsets",
+        "boundary_bytes")}
+    shape, nq, slots = got["shape"], got["nq"], got["slots"]
+    real = got["real_rows"] * int(np.prod(shape))  # every subject is L residues
+    nbytes = int(np.prod(shape)) + 4 * nq + 4 * slots * shape[0] * int(np.prod(shape[2:]))
+    b_ms, by = bound(real, nbytes, clock_mhz, "int16")
+    row.update(
+        launches=counts["col_flat16"][0], shape=shape, nq=nq, slots=slots, ms=got["ms"],
+        plain_ms=got["plain_ms"], bound_ms=b_ms, bound_by=by,
+        max_abs_err=max(h["max_abs_err"] for h in held if h["kind"] == "flat"),
+        cells_real=real, cells_padded=nq * int(np.prod(shape)), gcups_real=real / got["ms"] / 1e6,
+        gcups_padded=nq * int(np.prod(shape)) / got["ms"] / 1e6, pass_offsets=got["pass_offsets"],
+        rtot=got["rtot"], boundary_bytes=got["boundary_bytes"], colstate16_line=COLSTATE16_ROW)
+    gcups = [dict(zip(("i32", "i16"), map(float, re.findall(r"([\d.]+) GCUPS", x)))) for x in lines]
+    emit({"phase": "colstate16", "args": list(COLSTATE16_ARGS), "lines": lines,
+          "gcups": [{"line": x.split(":")[0], **g} for x, g in zip(lines, gcups)],
+          "held_against_plain": held, "launches": {k: v[0] for k, v in counts.items()},
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -2369,12 +2578,13 @@ def main() -> int:
     phase_stream(ctx, kernels)
     phase_mesh(ctx, kernels)
     phase_tools(kernels)
+    phase_colstate16(kernels, clock_mhz)
     phase_warmup(ctx)
     phase_tuning(ctx, defaults)
     phase_native(ctx)
     phase_profile(ctx)
     for k in kernels.values():
-        check(k["launches"], f"{k['name']} never launched on its path")
+        check(k["launches"] or k["path"] is None, f"{k['name']} never launched on its path")
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2385,4 +2595,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--warmup-child"]:
         sys.exit(warmup_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--colstate16-child"]:
+        sys.exit(colstate16_child(sys.argv[2:]))
     sys.exit(main())

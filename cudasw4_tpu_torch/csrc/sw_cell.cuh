@@ -1,4 +1,4 @@
-// The cell group kernels (B1 in both state modes, B4, and B2 up to the
+// The cell group kernels (B1 and B4 in both state modes, and B2 up to the
 // largest instance) and their (G, R) instances, for the units that hold
 // them (sw_cell_unit.cu, one a slice of CELL_SHAPES) and the dispatch in
 // sw_tiles.cu.  The kernels are templates: a unit instantiates those of its
@@ -230,21 +230,41 @@ __launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell_batch_kernel(
                   gop, gex, out + (size_t)slot * T * kCellNS);
 }
 
-// B1 int16: group g scores the subject pair (2 (g % 2048), + 1) of tile
-// g / 2048 in s16x2 lanes.  In a cell bucket no H passes
-// min(L, nrows) x max B, so the lanes never wrap and the scores are exact
-// (which meets the SAT rule at any SAT).  bmax: the largest substitution
-// score for which the launcher proved that (cell16_bmax); a matrix with a
-// larger score, or one below -8192, runs the pair through the int32
-// routine, one subject after the other.  The dynamic shared memory holds
-// the pairwise table (40.7 KB at A = 21, 75.8 KB at A = 26), which is
-// larger than the int32 routine's.
+// The largest substitution score with which s16x2 lanes cannot wrap: every
+// H is at most min(L, nrows) x max B <= 32767, and with gop, gex in
+// [-8192, 0] and every score >= -8192 no sum falls below -32768.  Below
+// -8192 (no matrix fits) when the gaps are out of that range.
+__device__ __forceinline__ int cell16_bmax(int L, int nrows, int gop,
+                                           int gex) {
+  if (gop > 0 || gex > 0 || gop < -8192 || gex < -8192) return -8193;
+  const int n = L < nrows ? L : nrows;
+  const int b = 32767 / (n > 1 ? n : 1);
+  return b < 16383 ? b : 16383;
+}
+
+// B1 int16 and B4 int16: group g of the grid's x axis scores the subject
+// pair (2 (g % 2048), + 1) of tile g / 2048 in s16x2 lanes against slot
+// blockIdx.y: rows[slot] rows of queries[slot] (all W rows of the one
+// query when rows is null, B1); out: the slot's scores [T, 4096].  In a
+// cell bucket no H passes min(L, nrows) x max B, so the lanes never wrap
+// and the scores are exact (which meets the SAT rule at any SAT).  Each
+// block takes the largest substitution score for which its slot's rows
+// provably fit (cell16_bmax); a matrix with a larger score, or one below
+// -8192, runs the pair through the int32 routine, one subject after the
+// other.  The dynamic shared memory holds the pairwise table (40.7 KB at
+// A = 21, 75.8 KB at A = 26), which is larger than the int32 routine's.
 template <int G, int R>
 __global__ void
 __launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell16_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, int bmax, float* out) {
+    const int8_t* tiles, const int32_t* queries, const int32_t* rows,
+    const int32_t* mat, int A, int T, int L, int W, int gop, int gex,
+    float* out) {
   extern __shared__ int tab[];
+  const int slot = blockIdx.y;
+  const int nrows = rows ? rows[slot] : W;
+  const int32_t* query = queries + (size_t)slot * W;
+  const int bmax = cell16_bmax(L, nrows, gop, gex);
+  out += (size_t)slot * T * kCellNS;
   int fits = 1;
   for (int k = threadIdx.x; k < A * A; k += blockDim.x) {
     fits &= mat[k] >= -8192 && mat[k] <= bmax;
@@ -299,35 +319,24 @@ __launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_row_kernel(
   if (g < n && (threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
 }
 
-// The largest substitution score with which s16x2 lanes cannot wrap: every
-// H is at most min(L, nrows) x max B <= 32767, and with gop, gex in
-// [-8192, 0] and every score >= -8192 no sum falls below -32768.  Below
-// -8192 (no matrix fits) when the gaps are out of that range.
-int cell16_bmax(int L, int nrows, int gop, int gex) {
-  if (gop > 0 || gex > 0 || gop < -8192 || gex < -8192) return -8193;
-  const int n = L < nrows ? L : nrows;
-  const int b = 32767 / (n > 1 ? n : 1);
-  return b < 16383 ? b : 16383;
-}
-
 template <int G, int R>
 int cell_launch_at(const sw::CellArgs& a) {
   const long long threads = (long long)a.T * kCellNS * G;
-  if (a.rows) {
-    const dim3 grid((unsigned)(threads / kCellThreads), (unsigned)a.S);
-    sw_cell_batch_kernel<G, R><<<grid, kCellThreads, 0, a.stream>>>(
-        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
-        a.out);
-  } else if (a.sat) {
+  if (a.sat) {
     const int A1 = a.A + 1, smem = a.A * A1 * A1 * 4;
     const cudaError_t err = cudaFuncSetAttribute(
         sw_cell16_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    sw_cell16_kernel<G, R>
-        <<<(unsigned)(threads / 2 / kCellThreads), kCellThreads, smem,
-           a.stream>>>(a.tiles, a.queries, a.mat, a.A, a.L, a.W, a.gop,
-                       a.gex, cell16_bmax(a.L, a.W, a.gop, a.gex), a.out);
+    const dim3 grid((unsigned)(threads / 2 / kCellThreads), (unsigned)a.S);
+    sw_cell16_kernel<G, R><<<grid, kCellThreads, smem, a.stream>>>(
+        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
+        a.out);
+  } else if (a.rows) {
+    const dim3 grid((unsigned)(threads / kCellThreads), (unsigned)a.S);
+    sw_cell_batch_kernel<G, R><<<grid, kCellThreads, 0, a.stream>>>(
+        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
+        a.out);
   } else {
     sw_cell_kernel<G, R>
         <<<(unsigned)(threads / kCellThreads), kCellThreads, 0, a.stream>>>(

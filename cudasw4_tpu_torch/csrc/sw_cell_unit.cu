@@ -1,5 +1,5 @@
-// One unit of the cell group kernels' instances: B1 (both state modes),
-// B4 and B2's cell route at the (G, R) instances of slice SW_SLICE of
+// One unit of the cell group kernels' instances: B1 and B4 (both state
+// modes) and B2's cell route at the (G, R) instances of slice SW_SLICE of
 // CELL_SHAPES (sw_cell.cuh).  ops/cuda_lib.py compiles this file once a
 // slice, with -DSW_SLICE=<slice>, all slices in parallel.
 #include "sw_cell.cuh"

@@ -1,5 +1,5 @@
-// The col wavefront kernels (B3 in both state modes, B5, B6, and B2 past
-// the largest cell instance) and the col launch: one unit of the kernel
+// The col wavefront kernels (B3, B5 and B6 in both state modes, and B2
+// past the largest cell instance) and the col launch: one unit of the kernel
 // library (sw_tiles.cu gives the design).
 #include "sw_common.cuh"
 
@@ -212,6 +212,28 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_fused_ke
                              nullptr, th, te, out, 0);
 }
 
+// B5 and B6 in int16 state (the JAX kernels' exact=False): the same
+// bodies with int16 boundary columns, clamped at sat as sw_col16_kernel
+// clamps them.  The arithmetic stays int32 in registers within a pass.
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat16_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* rows,
+    const int32_t* offs, const int32_t* mat, int A, int T, int L, int W,
+    int rtot, int gop, int gex, int16_t* th, int16_t* te, float* out,
+    int sat) {
+  sw_col_body<int16_t>(tiles, queries, rows, offs, mat, A, T, L, W, rtot, gop,
+                       gex, nullptr, nullptr, nullptr, nullptr, th, te, out,
+                       sat);
+}
+
+__global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_fused16_kernel(
+    const int8_t* tiles, const int32_t* queries, const int32_t* starts,
+    const int32_t* mat, int A, int T, int L, int W, int rtot, int gop,
+    int gex, int16_t* th, int16_t* te, float* out, int sat) {
+  sw_col_body<int16_t, true>(tiles, queries, nullptr, starts, mat, A, T, L, W,
+                             rtot, gop, gex, nullptr, nullptr, nullptr,
+                             nullptr, th, te, out, sat);
+}
+
 // B2 past the largest cell instance: warp w scores subject w % NS of row
 // tile w / NS in col passes (codes NS apart), its boundary column at pool
 // rows w * nrows .. of th/te, and writes out[w].  A warp past the last
@@ -253,13 +275,14 @@ extern "C" {
 // The col launch has a signature of its own.  tiles: int8 [T, L, 32, 128];
 // queries: int32 [S, W].  With rows non-null it launches col flat (B5):
 // rows, offs are int32 [S], the slots' row counts and the first rows of
-// their boundary columns in a pool of rtot rows, with no carry, exact
-// only.  With rows null and offs non-null it launches col fused (B6): offs
-// is int32 [S + 1], the slots' gapless starts in a pool of rtot =
-// offs[S] rows, slot s running offs[s + 1] - offs[s] <= W rows; no carry,
-// exact only.  With both null it launches col (B3): one slot of W = rtot
-// rows, and hin, fin (the int32 carry in) and hout, fout (the int32 carry
-// out), each shaped as the tiles or null, in pairs; sat as above.  th, te:
+// their boundary columns in a pool of rtot rows, with no carry.  With rows
+// null and offs non-null it launches col fused (B6): offs is int32
+// [S + 1], the slots' gapless starts in a pool of rtot = offs[S] rows,
+// slot s running offs[s + 1] - offs[s] <= W rows; no carry.  With both
+// null it launches col (B3): one slot of W = rtot rows, and hin, fin (the
+// int32 carry in) and hout, fout (the int32 carry out), each shaped as the
+// tiles or null, in pairs.  Each in int32 state, or in int16 for sat > 0
+// (sw_col16_kernel, sw_col_flat16_kernel, sw_col_fused16_kernel).  th, te:
 // the boundary columns [T * 4096, rtot], int32 (int16 when sat > 0), null
 // allowed when L <= sw_col_pass_columns() or rtot is 0; out: f32
 // [S, T, 4096].
@@ -270,7 +293,7 @@ int sw_col_launch(const void* tiles, const void* queries, const void* rows,
                   void* out, int sat, void* stream) {
   const bool carry_ok = !hin == !fin && !hout == !fout;
   const bool slots_ok =
-      rows || offs ? offs && !hin && !hout && !sat && (!rows || W <= rtot)
+      rows || offs ? offs && !hin && !hout && (!rows || W <= rtot)
                    : S == 1 && W == rtot;
   if (!carry_ok || !slots_ok || !sat_ok(sat) || S < 1 || S > 65535 ||
       W < 0 || (L > kColPass && rtot > 0 && !(th && te))) {
@@ -279,11 +302,21 @@ int sw_col_launch(const void* tiles, const void* queries, const void* rows,
   if (T == 0) return 0;
   const dim3 grid((unsigned)((long long)T * kCellNS / kColWarps), (unsigned)S);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (rows) {
+  if (rows && sat) {
+    sw_col_flat16_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
+        (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
+        (int16_t*)th, (int16_t*)te, (float*)out, sat);
+  } else if (rows) {
     sw_col_flat_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
         (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
         (int32_t*)th, (int32_t*)te, (float*)out);
+  } else if (offs && sat) {
+    sw_col_fused16_kernel<<<grid, kColWarps * 32, 0, st>>>(
+        (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)offs,
+        (const int32_t*)mat, A, T, L, W, rtot, gop, gex, (int16_t*)th,
+        (int16_t*)te, (float*)out, sat);
   } else if (offs) {
     sw_col_fused_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)offs,

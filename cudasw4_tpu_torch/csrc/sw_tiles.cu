@@ -34,20 +34,24 @@
 // * sw_cell_launch with rows non-null replaces
 //   cudasw4_tpu/ops/sw_pallas_cell.py score_bucket_pallas_cell_batch
 //   (_sw_cell_batch_kernel): QB queries [QB, W] against cell tiles in one
-//   launch, out [QB, T, 4096] (sw_cell_batch_kernel).
+//   launch, out [QB, T, 4096] (sw_cell_batch_kernel), or with sat > 0 the
+//   int16 contract (sw_cell16_kernel with its slot axis, exact scores).
 // * sw_col_launch with slots (rows non-null) replaces
 //   cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
 //   nqp rows each against col tiles in one launch.  As the TPU kernel
 //   gives each slot a row range of one VMEM state pool, each slot's
-//   boundary columns take rows [off, off + nqp) of one pool of rtot rows.
+//   boundary columns take rows [off, off + nqp) of one pool of rtot rows
+//   (sw_col_flat_kernel; sw_col_flat16_kernel for int16 state, whose pool
+//   is int16).
 // * sw_col_launch with gapless starts (rows null, offs non-null) replaces
 //   cudasw4_tpu/ops/sw_pallas_col.py score_bucket_pallas_col_flat_fused
 //   (_sw_col_flat_fused_kernel): the same slots packed without gaps, the
 //   DP restarting at each slot (sw_col_fused_kernel).  The TPU kernel
 //   walks the packed rows as one run; here each (slot, subject) warp runs
 //   its slot's rows from the top of the matrix, its boundary columns at
-//   the slot's pool rows [starts[s], starts[s + 1]).
+//   the slot's pool rows [starts[s], starts[s + 1]) (sw_col_fused16_kernel
+//   for int16 state).
 // * sw_cell_manual_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell_manual (_sw_cell_kernel_manual): B1's
 //   contract with the tiles staged by hand through a 2-deep ring in shared
@@ -71,14 +75,16 @@
 // the shifted table, so no column mask is needed.  The arithmetic is the
 // col kernel's (below): 5.5 DPX operations a cell plus one shared-memory
 // lookup.  B4 runs the same routine with slots on the grid's y axis, each
-// slot its own row count; B1 int16 runs two subjects a group in s16x2
+// slot its own row count; B1 and B4 int16 (one kernel, the slot on the
+// grid's y axis, B1 its one-slot case) run two subjects a group in s16x2
 // lanes (the tile's subjects s and s + 1, one 16-bit load a column), with
 // __viaddmax_s16x2 and __vimax_s16x2_relu and one lookup a column pair in
 // a pairwise table [A][(A + 1)^2] of both shifted scores.  In a cell
 // bucket no H passes min(L, nq) x max B (11,520 at L = 768 and max B =
 // 15), so those lanes never wrap and the int16 scores are exact, which
 // meets the SAT rule at any SAT; where the launcher cannot prove the fit
-// for the matrix and gaps, the kernel runs the int32 routine.  Tiles with
+// for the matrix, the gaps and the block's slot, the block runs the int32
+// routine.  Tiles with
 // L beyond the largest instance go to the col kernels (ops/sw_cell.py).
 // The row kernel (sw_row_kernel) is B1's routine at a code stride of NS
 // in place of 4096: group g scores subject g % NS of row tile g / NS.
@@ -118,7 +124,8 @@
 // hide latency.
 //
 // The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel,
-// sw_col_fused_kernel, and the row kernel past L = 768, sw_row_col_kernel,
+// sw_col_fused_kernel, their int16 instances sw_col_flat16_kernel and
+// sw_col_fused16_kernel, and the row kernel past L = 768, sw_row_col_kernel,
 // at a code stride of NS) are a warp per (slot, subject) register-tiled
 // wavefront, the shape of the reference CUDASW++4.0's DPX-s32 multi-pass
 // kernels.  What bounds the
@@ -212,18 +219,19 @@ extern "C" {
 // codes must lie in [0, A), A <= 26; sat = 0 is exact int32 state, and
 // 0 < sat <= 32767 int16 state.
 //
-// The cell launch (B1 in both state modes, B4).  tiles: int8
+// The cell launch (B1 and B4 in both state modes).  tiles: int8
 // [T, L, 32, 128]; queries: int32 [S, W]; out: f32 [S, T, 4096]; (G, R):
 // an instance of CELL_SHAPES with G x R >= L.  With rows null it launches
 // B1: one query of W rows (S = 1), sw_cell_kernel, or sw_cell16_kernel
-// for sat > 0.  With rows non-null it launches B4, sw_cell_batch_kernel:
-// rows int32 [S], the slots' row counts (each <= W), exact only.  No
-// scratch: the cell kernels keep the whole DP row in registers.
+// for sat > 0.  With rows non-null it launches B4: rows int32 [S], the
+// slots' row counts (each <= W), sw_cell_batch_kernel, or
+// sw_cell16_kernel for sat > 0.  No scratch: the cell kernels keep the
+// whole DP row in registers.
 int sw_cell_launch(const void* tiles, const void* queries, const void* rows,
                    const void* mat, int A, int T, int L, int S, int W,
                    int gop, int gex, int G, int R, int sat, void* out,
                    void* stream) {
-  if (!sat_ok(sat) || (rows ? sat != 0 : S != 1) || S < 1 || S > 65535 ||
+  if (!sat_ok(sat) || (!rows && S != 1) || S < 1 || S > 65535 ||
       W < 0 || L < 0 || G * R < L) {
     return (int)cudaErrorInvalidValue;
   }

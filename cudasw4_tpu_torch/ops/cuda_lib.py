@@ -54,17 +54,17 @@ _I = ctypes.c_int
 #: route's per-warp boundary columns, ``launch_row``).
 LAUNCHES = {"sw_row_kernel": "sw_row_launch"}
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
-#: The launch function of the cell group kernels (B1 in both state modes,
-#: B4), with a fifth signature: tiles, queries, rows, mat, A, T, L, S, W,
+#: The launch function of the cell group kernels (B1 and B4 in both state
+#: modes), with a fifth signature: tiles, queries, rows, mat, A, T, L, S, W,
 #: gop, gex, G, R, sat, out, stream (``launch_cell``).
 CELL_LAUNCHES = {
     "sw_cell_kernel": "sw_cell_launch",
     "sw_cell_batch_kernel": "sw_cell_launch",
 }
 _CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
-#: The launch function of the col wavefront kernels (B3 in both state
-#: modes, B5, B6; col flat when rows is non-null, col fused when rows is
-#: null and offs holds the gapless starts), with a fourth signature:
+#: The launch function of the col wavefront kernels (B3, B5 and B6 in
+#: both state modes; col flat when rows is non-null, col fused when rows
+#: is null and offs holds the gapless starts), with a fourth signature:
 #: tiles, queries, rows, offs, mat, A, T, L, S, W, rtot, gop, gex, hin,
 #: fin, hout, fout, th, te, out, sat, stream; th and te are the per-warp
 #: boundary columns (``launch_col``).
@@ -316,9 +316,9 @@ def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex
     count the launch on the wrapper (``count``).
 
     ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].
-    ``rows``: an int, the one query's rows (S = 1; sw_cell_kernel, or
-    sw_cell16_kernel for ``sat`` > 0), or host ints, the slots' row counts
-    (sw_cell_batch_kernel, exact), copied to the device without blocking.
+    ``rows``: an int, the one query's rows (S = 1; sw_cell_kernel), or
+    host ints, the slots' row counts (sw_cell_batch_kernel), copied to the
+    device without blocking; either in sw_cell16_kernel for ``sat`` > 0.
     Allocates only the f32 scores [S, T, 4096]: the kernels keep the DP in
     registers.  Raises if the launch reports an error.  Never synchronises.
     """

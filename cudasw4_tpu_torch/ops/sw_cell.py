@@ -2,16 +2,18 @@
 counterpart of cudasw4_tpu/ops/sw_pallas_cell.py::score_bucket_pallas_cell,
 exact int32 or int16 state), the same with the tiles staged by hand
 (score_bucket_pallas_cell_manual), or a batch of queries in one launch
-(score_bucket_pallas_cell_batch, exact).
+(score_bucket_pallas_cell_batch, exact int32 or int16 state).
 
 The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
 ``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_cell.cuh and
 csrc/sw_tools.cu (csrc/sw_tiles.cu's note gives the design and the bound
 on the H100).  The cell, int16 and
 batch kernels are single-pass group wavefronts, one instance per (G, R) of
-CELL_SHAPES, picked for the tiles' L by ``cell_shape``; tiles longer than
-the largest instance take the col wavefront's passes (``sw_col_kernel``,
-``sw_col16_kernel``, ``sw_col_flat_kernel``) on the same layout.  The
+CELL_SHAPES, picked for the tiles' L by ``cell_shape``; the int16 kernel
+serves the batch too, a slot on the grid's y axis.  Tiles longer than the
+largest instance take the col wavefront's passes (``sw_col_kernel``,
+``sw_col16_kernel``, ``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on
+the same layout.  The
 wrappers launch them for CUDA tensors and take their plain versions only
 for CPU tensors.
 Each counts its launches and plain calls per mode (``launches`` and
@@ -163,20 +165,21 @@ score_bucket_cell_manual.launches = score_bucket_cell_manual.launches16 = 0
 score_bucket_cell_manual.plain_calls = score_bucket_cell_manual.plain_calls16 = 0
 
 
-def score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params):
+def score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params, exact: bool = True):
     """Plain PyTorch version of the cell batch kernel: each slot scored
     alone over its nq rows, f32 [QB, T, 4096]."""
     gop, gex = int(params[1]), int(params[2])
     T, L, g, nsl = tiles.shape
     A = cuda_lib.alphabet_dim(matrix_flat)
     x, mat = tiles.reshape(T, L, g * nsl), matrix_flat.view(A, A)
+    sat = sat_state(exact)
     return torch.stack([
-        score_tiles_torch(x, queries[qb], mat, gop, gex, int(params[4 + qb]))
+        score_tiles_torch(x, queries[qb], mat, gop, gex, int(params[4 + qb]), sat=sat)
         for qb in range(queries.shape[0])
     ])
 
 
-def score_bucket_cell_batch(tiles, queries, matrix_flat, params):
+def score_bucket_cell_batch(tiles, queries, matrix_flat, params, exact: bool = True):
     """Scores f32 [QB, T, 4096] of QB queries against a cell bucket in one
     launch.
 
@@ -184,7 +187,10 @@ def score_bucket_cell_batch(tiles, queries, matrix_flat, params):
     ``queries``: int32 [QB, W] padded with the pad code; ``params``: host
     ints [4 + QB (+ QB)] = _, gop, gex, _, nq_0.. (further entries, the
     batch layout's padded row counts, are ignored).  A slot with nq = 0
-    scores 0.  Codes must lie in [0, A).
+    scores 0.  Codes must lie in [0, A).  ``exact=False``: the int16
+    contract, saturating at SAT (``sat_match``); the card's s16x2 kernel
+    returns the exact scores, and past the largest instance the col flat
+    kernel runs in int16 state.
     """
     _cell_tiles(tiles)
     if tiles.shape[1] % DEFAULT_UNROLL:
@@ -199,18 +205,19 @@ def score_bucket_cell_batch(tiles, queries, matrix_flat, params):
         if not 0 <= nq <= W:
             raise ValueError(f"slot {qb}: {nq} query rows outside the query block of {W}")
     if tiles.device.type == "cpu":
-        score_bucket_cell_batch.plain_calls += 1
-        return score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params)
+        cuda_lib.count(score_bucket_cell_batch, exact, plain=True)
+        return score_bucket_cell_batch_plain(tiles, queries, matrix_flat, params, exact)
     gop, gex = int(params[1]), int(params[2])
+    sat = sat_state(exact) or 0
     shape = cell_shape(tiles.shape[1])
     if shape is None:  # each slot's boundary columns in its own pool range
         offs = list(itertools.accumulate(nqs, initial=0))[:-1]
         slots = (nqs, offs, max(W, sum(nqs)))
         return cuda_lib.launch_col(score_bucket_cell_batch, "sw_col_flat_kernel", tiles,
-                                   queries, matrix_flat, gop, gex, slots=slots)[0]
+                                   queries, matrix_flat, gop, gex, slots=slots, sat=sat)[0]
     return cuda_lib.launch_cell(score_bucket_cell_batch, "sw_cell_batch_kernel", tiles,
-                                queries, matrix_flat, gop, gex, nqs, shape)
+                                queries, matrix_flat, gop, gex, nqs, shape, sat)
 
 
-score_bucket_cell_batch.launches = 0
-score_bucket_cell_batch.plain_calls = 0
+score_bucket_cell_batch.launches = score_bucket_cell_batch.launches16 = 0
+score_bucket_cell_batch.plain_calls = score_bucket_cell_batch.plain_calls16 = 0

@@ -2,10 +2,11 @@
 query chunks (the counterpart of cudasw4_tpu/ops/sw_pallas_col.py:
 score_bucket_pallas_col, pad_query_chunk, score_bucket_col_any_query), and
 the flat-pool batch of query slots (score_bucket_pallas_col_flat and
-score_bucket_pallas_col_flat_fused).
+score_bucket_pallas_col_flat_fused), each in exact int32 or int16 state.
 
-The kernels are ``sw_col_kernel`` (``sw_col16_kernel`` for int16 state),
-``sw_col_flat_kernel`` and ``sw_col_fused_kernel`` in csrc/sw_col.cu
+The kernels are ``sw_col_kernel``, ``sw_col_flat_kernel`` and
+``sw_col_fused_kernel`` (``sw_col16_kernel``, ``sw_col_flat16_kernel`` and
+``sw_col_fused16_kernel`` for int16 state) in csrc/sw_col.cu
 (csrc/sw_tiles.cu's note gives the design and the bound on the H100).  ``score_bucket_col``
 keeps the TPU kernel's contract: one query chunk of ``nq_pad`` rows (at
 most NQC) against cell-layout tiles whose L is a multiple of LC,
@@ -16,7 +17,7 @@ both modes); ``exact=False`` runs int16 state saturating at
 ``score_bucket_col_any_query``; per-chunk scores combine by max.
 ``score_bucket_col_flat`` and ``score_bucket_col_flat_fused`` keep the
 flat-pool contracts: S slots of nqp rows each, whose rows fit a pool of
-``rtot`` rows.
+``rtot`` rows; ``exact=False`` runs them in int16 state too.
 """
 
 from __future__ import annotations
@@ -208,7 +209,7 @@ def _flat_contract(tiles, queries, params, rtot):
     return rtot, nqps
 
 
-def score_bucket_col_flat_plain(tiles, queries, matrix_flat, params):
+def score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact: bool = True):
     """Plain PyTorch version of the flat and fused col kernels: each slot
     swept alone over its nqp rows, f32 [S, T, 4096] (the pool layout
     places nothing here)."""
@@ -216,13 +217,16 @@ def score_bucket_col_flat_plain(tiles, queries, matrix_flat, params):
     T, L, g, nsl = tiles.shape
     A = cuda_lib.alphabet_dim(matrix_flat)
     x, mat = tiles.reshape(T, L, g * nsl), matrix_flat.view(A, A)
+    sat = sw_cell.sat_state(exact)
     return torch.stack([
-        sweep_tiles_torch(x, queries[s, : int(params[4 + s])].tolist(), mat, gop, gex)[0].float()
+        sweep_tiles_torch(x, queries[s, : int(params[4 + s])].tolist(), mat, gop, gex,
+                          sat=sat)[0].float()
         for s in range(queries.shape[0])
     ])
 
 
-def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None):
+def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None,
+                          exact: bool = True):
     """Scores f32 [S, T, 4096]: S flat-pool slots against a col bucket in
     one launch.
 
@@ -230,7 +234,9 @@ def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None):
     [S, W <= rtot] padded with the pad code; ``params``: host ints [4 + S]
     = _, gop, gex, _, nqp_0.., each nqp a multiple of DEFAULT_UNROLL;
     ``offs``: slot s owns pool rows [offs[s], offs[s] + nqp_s), which must
-    not overlap nor pass ``rtot`` (default NQC).
+    not overlap nor pass ``rtot`` (default NQC).  ``exact=False``: int16
+    state saturating at ``sw_cell.SAT`` (``sw_cell.sat_match``), the
+    boundary pool int16.
     """
     rtot, nqps = _flat_contract(tiles, queries, params, rtot)
     offs = tuple(int(o) for o in offs)
@@ -246,23 +252,26 @@ def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None):
         if a1 < b0:
             raise ValueError(f"pool rows [{a1}, {b1}) overlap a slot ending at {b0}")
     if tiles.device.type == "cpu":
-        score_bucket_col_flat.plain_calls += 1
-        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
+        cuda_lib.count(score_bucket_col_flat, exact, plain=True)
+        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact)
     return cuda_lib.launch_col(
         score_bucket_col_flat, "sw_col_flat_kernel", tiles, queries, matrix_flat,
         int(params[1]), int(params[2]), slots=(nqps, offs, rtot),
+        sat=sw_cell.sat_state(exact) or 0,
     )[0]
 
 
-score_bucket_col_flat.launches = 0
-score_bucket_col_flat.plain_calls = 0
+score_bucket_col_flat.launches = score_bucket_col_flat.launches16 = 0
+score_bucket_col_flat.plain_calls = score_bucket_col_flat.plain_calls16 = 0
 
 
-def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
+def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None,
+                                exact: bool = True):
     """Scores f32 [S, T, 4096]: the flat contract with the slots' rows
     packed without gaps (sum of nqp <= ``rtot``, a multiple of
     DEFAULT_UNROLL), slot s's boundary columns in rows [starts[s],
-    starts[s + 1]) of one gapless pool of sum(nqp) rows.
+    starts[s + 1]) of one gapless pool of sum(nqp) rows.  ``exact``: as
+    ``score_bucket_col_flat``.
     """
     rtot, nqps = _flat_contract(tiles, queries, params, rtot)
     if rtot % DEFAULT_UNROLL:
@@ -270,14 +279,15 @@ def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None):
     if sum(nqps) > rtot:
         raise ValueError(f"slots of {sum(nqps)} rows exceed the pool of {rtot} rows")
     if tiles.device.type == "cpu":
-        score_bucket_col_flat_fused.plain_calls += 1
-        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params)
+        cuda_lib.count(score_bucket_col_flat_fused, exact, plain=True)
+        return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact)
     starts = [0, *itertools.accumulate(nqps)]
     return cuda_lib.launch_col(
         score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, matrix_flat,
         int(params[1]), int(params[2]), slots=(None, starts, starts[-1]),
+        sat=sw_cell.sat_state(exact) or 0,
     )[0]
 
 
-score_bucket_col_flat_fused.launches = 0
-score_bucket_col_flat_fused.plain_calls = 0
+score_bucket_col_flat_fused.launches = score_bucket_col_flat_fused.launches16 = 0
+score_bucket_col_flat_fused.plain_calls = score_bucket_col_flat_fused.plain_calls16 = 0

@@ -8,7 +8,8 @@ Each round runs A, B, B, A, every run in a fresh process that builds its
 checkout's kernels (``cuda_lib.lib()``) and times the cell, row and col
 kernels (cell and col also in int16 state), the manual-staging and pair
 kernels, and the batch kernels on the same seeded inputs: CUDA events,
-the mean of 5 launches after one warm-up.  Prints one JSON line per run,
+the mean of 5 launches after one warm-up (the batch kernels' int16 modes
+too, where the checkout has them).  Prints one JSON line per run,
 with the card's name and power limit, then a summary line with each
 kernel's median per checkout and the seconds each checkout's first run
 took to build and load its library, then one line naming the kernels
@@ -25,6 +26,7 @@ with the 464-aa query; one JSON line.  Needs CUDA.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -118,6 +120,10 @@ def _child(tree: str) -> dict:
         else:
             args, fn = (t, q, m, p), sw_col.score_bucket_col_flat_fused
         out[f"{name} {list(shape)} x{sum(rows)}"] = _ms(fn, *args)
+        # The int16 mode, where the checkout's wrapper has one.
+        if "exact" in inspect.signature(fn).parameters:
+            out[f"{name}16 {list(shape)} x{sum(rows)}"] = _ms(
+                lambda *a: fn(*a, exact=False), *args)
     return out
 
 

@@ -149,7 +149,7 @@ def test_fused_wrapper_device_arguments(monkeypatch):
     got = sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, *nqps), rtot=3072)
     assert got.shape == (5, 1, 4096)
     assert calls == [(sw_col.score_bucket_col_flat_fused, "sw_col_fused_kernel", -11, -1,
-                      (None, [0, 16, 16, 24, 64, 88], 88), {})]
+                      (None, [0, 16, 16, 24, 64, 88], 88), {"sat": 0})]
 
 
 # ---------------------------------------------------------------- plan

@@ -617,6 +617,76 @@ def test_col16_kernel_carry_meets_sat_rule(dev, monkeypatch, mat, sat):
     assert bool(sw_cell.sat_match(torch.maximum(s1, s2).cpu(), both_w).all())
 
 
+@pytest.mark.parametrize("sat", SATS)
+@pytest.mark.parametrize("L", [64, 296, 896])
+@pytest.mark.parametrize("slots", ["S3", "S14"])
+def test_cell_batch16_kernel_meets_sat_rule(dev, monkeypatch, slots, L, sat):
+    """B4 int16 at a G x R = L instance (64), one with G x R > L (296) and
+    past the largest instance (896: col flat in int16 state), unequal
+    slots with 0-row and 1-row ones: against its plain int16 and exact
+    versions under the SAT rule, and slot by slot equal to the single-query
+    int16 kernel (B1 int16, or B3 int16 at 896)."""
+    monkeypatch.setattr(sw_cell, "SAT", sat)
+    rng = np.random.default_rng(25)
+    lengths = CELL_BATCH_LENGTHS[slots]
+    tiles, q, m, cfg = _batch_inputs(rng, "blosum62", (2, L, 32, 128), lengths, 256)
+    _edge_lanes(tiles, cfg.pad_code, rng)
+    params = (0, cfg.gop, cfg.gex, 0, *lengths)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    want16 = sw_cell.score_bucket_cell_batch_plain(t, qd, md, params, exact=False)
+    exact = sw_cell.score_bucket_cell_batch_plain(t, qd, md, params)
+    fn = sw_cell.score_bucket_cell_batch
+    before = (fn.launches, fn.launches16)
+    got = fn(t, qd, md, params, exact=False)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches16) == (before[0], before[1] + 1)
+    assert bool(sw_cell.sat_match(got, want16).all())
+    assert bool(sw_cell.sat_match(got, exact).all())
+    if sat == 30:
+        assert int((exact >= sat).sum()) > 100  # the lowered SAT flags subjects
+    else:
+        assert torch.equal(got, exact)
+    for s, n in enumerate(lengths):
+        single = sw_cell.score_bucket_cell(t, qd[s].contiguous(), md, (n, cfg.gop, cfg.gex, n),
+                                           exact=False)
+        assert torch.equal(got[s], single), f"slot {s} ({n} rows)"
+
+
+@pytest.mark.parametrize("sat", SATS)
+@pytest.mark.parametrize("L", [256, 1152])
+@pytest.mark.parametrize("mat", MATS)
+def test_col_flat16_and_fused16_kernels_meet_sat_rule(dev, monkeypatch, mat, L, sat):
+    """B5 and B6 int16 on eight ragged slots (one empty), in one pass (256)
+    and over three passes through the int16 pool (1152), against the plain
+    int16 and exact versions under the SAT rule; the two kernels agree."""
+    monkeypatch.setattr(sw_cell, "SAT", sat)
+    rng = np.random.default_rng(26)
+    lengths = BATCH_LENGTHS["S8"]
+    nqps = [max(8, -(-n // 8) * 8) for n in lengths]
+    tiles, q, m, cfg = _batch_inputs(rng, mat, (2, L, 32, 128), lengths, 64)
+    _edge_lanes(tiles, cfg.pad_code, rng)
+    params = (0, cfg.gop, cfg.gex, 0, *nqps)
+    offs = tuple(64 * s for s in range(len(nqps)))
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    want16 = sw_col.score_bucket_col_flat_plain(t, qd, md, params, exact=False)
+    exact = sw_col.score_bucket_col_flat_plain(t, qd, md, params)
+    flat, fused = sw_col.score_bucket_col_flat, sw_col.score_bucket_col_flat_fused
+    before = (flat.launches16, fused.launches16, flat.launches, fused.launches)
+    got = flat(t, qd, md, params, offs, rtot=512, exact=False)
+    got_f = fused(t, qd, md, params, rtot=512, exact=False)
+    torch.cuda.synchronize()
+    assert (flat.launches16, fused.launches16, flat.launches, fused.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    for g in (got, got_f):
+        assert bool(sw_cell.sat_match(g, want16).all())
+        assert bool(sw_cell.sat_match(g, exact).all())
+    assert torch.equal(got, got_f)
+    if sat == 30:
+        assert int((exact >= sat).sum()) > 100
+    else:
+        assert torch.equal(got, exact)
+
+
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("L", [40, 64, 136])
 def test_manual_kernel_equals_cell_plain(dev, monkeypatch, exact, L):
