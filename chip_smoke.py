@@ -30,9 +30,12 @@ non-zero:
    int16 with a matrix that s16x2 lanes cannot hold; B4 int16 (its cell
    route and, at L = 896, col flat int16), B5 and B6 int16 on unequal
    slots, equal to the exact kernels' scores at the default SAT and under
-   the SAT rule at a lowered one; the manual-staging kernel (both modes)
-   and the pair kernel (P = 2, 4) against the cell kernel's plain version,
-   timed beside it.
+   the SAT rule at a lowered one; the manual-staging kernel (B7, on the
+   cell group routine fed from a shared-memory ring; int16 under the SAT
+   rule at the default and a lowered SAT) and the pair kernel (B8, P = 2,
+   4) against the cell kernel's plain version, up to the largest cell
+   instance and past it (their col route), each timed beside the cell
+   kernel in the same mode.
 3. golden:  the port's makedb and align --tsv --top 10 on the golden
    fixtures, byte for byte against golden_top10.tsv and
    golden_top10_full.tsv.
@@ -49,7 +52,9 @@ non-zero:
    3 (its counters show the fused kernel) gives the same scores; the
    batch and the singles are timed on the same queries; device time by
    kernel kind per ladder query and for the batch; and the card's idle
-   share over the 20-query scan from a torch.profiler trace; every cell
+   share over the 20-query scan from a torch.profiler trace, given only
+   where the trace's kernels number the launch counters' (else null, with
+   the kernels that differ; phase 7's traces too); every cell
    bucket with the 464-aa query in both state modes (its (G, R), ms,
    bound and share); the align's peak device memory, and the flat and
    fused batches' peaks above what is live before them.
@@ -109,10 +114,10 @@ non-zero:
    kernels and the engine's spans.
 15. kernels line: per kernel, its launches on its path (align for the
    exact kernels but B6, the fused scan_batch for B6, align --dpx for the int16 modes of B1 and B3,
-   colstate16 for B5 int16, the tools for the manual and pair kernels;
-   each path's counters are reset just before it and read just after;
-   B4 and B6 int16, which no path reaches, show 0; each row's "path"
-   names its path, null for these two), its
+   colstate16 for B5 int16, the tools for the exact manual and pair
+   kernels; each path's counters are reset just before it and read just
+   after; B4, B6 and B7 int16, which no path reaches, show 0; each row's
+   "path" names its path, null for these three), its
    launches on the streamed align
    (``stream_launches``, B6 from the fused streamed pass) and on the mesh
    (``mesh_launches``: phase mesh's resident run, B6 its fused batch,
@@ -120,7 +125,8 @@ non-zero:
    and the batch kernels' int16 modes), and its time,
    bound and plain time at its
    main-path shape: the largest bucket of its kind, with the 464-aa query
-   for the single-query kernels (and the manual and pair kernels), the
+   for the single-query kernels (and the manual and pair kernels, B7
+   int16 on B1 int16's inputs), the
    batch of 14 for the cell batch, and the widest plan pass for the col
    kernels; B5 int16's is its colstate16 line (its figures at the align
    shape under "align_shape").
@@ -719,8 +725,11 @@ def batch_state16(rows, mat, shape, slot_rows, kernels, plain):
 
 def phase_kernels_tools(rng, rows):
     """B7 (both modes) and B8 (P = 2, 4) against B1's plain version, at the
-    cell shapes above and at the top Swiss-Prot-scale cell bucket's
-    [12, 640, 32, 128] x 464, each timed beside B1 on the same inputs."""
+    cell shapes above, at the top Swiss-Prot-scale cell bucket's
+    [12, 640, 32, 128] x 464 and past the largest cell instance (their col
+    route), each timed beside B1 in the same mode on the same inputs; B7
+    int16 under the SAT rule at the default SAT and at one that most
+    subjects reach."""
     from cudasw4_tpu_torch import make_scoring_config
     from cudasw4_tpu_torch.ops import sw_cell
     from cudasw4_tpu_torch.tools.pairbench import score_pair
@@ -728,28 +737,38 @@ def phase_kernels_tools(rng, rows):
     cfg = make_scoring_config("blosum62")
     A, pad = cfg.alphabet_size, cfg.pad_code
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
-    for shape in ((8, 256, 32, 128), (4, 768, 32, 128), (12, 640, 32, 128)):
+    default = sw_cell.SAT
+    for shape in ((8, 256, 32, 128), (4, 768, 32, 128), (12, 640, 32, 128), (4, 896, 32, 128)):
         t, real_chars = random_tiles(rng, shape, A, pad)
         q = query_block(rng, 464, sw_cell.QCAP, A, pad)
         p = (464, cfg.gop, cfg.gex, 464)
         want = sw_cell.score_bucket_cell_plain(t, q, m, p)
-        b1_ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, q, m, p))
+        b1_ms = {exact: cuda_ms(lambda exact=exact: sw_cell.score_bucket_cell(
+            t, q, m, p, exact=exact)) for exact in (True, False)}
         for exact in (True, False):
             def fn(exact=exact):
                 return sw_cell.score_bucket_cell_manual(t, q, m, p, exact=exact)
-            got = fn()
             name = f"B7 manual {'int32' if exact else 'int16'}"
-            if exact:
-                check(torch.equal(got, want), f"{name} {shape}: != B1 plain")
-            else:
-                check_sat_rule(f"{name} {shape}", got, want, sw_cell.SAT)
+            sats = [None] if exact else [default, lowered_sat(want)]
+            for sat in sats:
+                sw_cell.SAT = sat or default
+                try:
+                    got = fn()
+                    want16 = sat and sw_cell.score_bucket_cell_plain(t, q, m, p, exact=False)
+                finally:
+                    sw_cell.SAT = default
+                if sat is None:
+                    check(torch.equal(got, want), f"{name} {shape}: != B1 plain")
+                else:
+                    check_sat_rule(f"{name} {shape}", got, want16, sat)
+                    check_sat_rule(f"{name} {shape} vs exact", got, want, sat)
             rows.append({"check": name, "shape": list(shape), "nq": 464,
-                         "equal" if exact else "sat_rule": True,
-                         "ms": cuda_ms(fn), "b1_ms": b1_ms})
+                         **({"equal": True} if exact else {"sat_rule": True, "sat": sats}),
+                         "ms": cuda_ms(fn), "b1_ms": b1_ms[exact]})
         for P in (2, 4):
             check(torch.equal(score_pair(t, q, m, p, P=P), want), f"B8 P={P} {shape}: != B1 plain")
             rows.append({"check": f"B8 pair P={P}", "shape": list(shape), "nq": 464, "equal": True,
-                         "ms": cuda_ms(lambda: score_pair(t, q, m, p, P=P)), "b1_ms": b1_ms})
+                         "ms": cuda_ms(lambda: score_pair(t, q, m, p, P=P)), "b1_ms": b1_ms[True]})
 
 
 # --------------------------------------------------------------- phase 3
@@ -875,18 +894,66 @@ def check_path(counts, path, launched):
         check(counts[name][0] > 0, f"{path}: the {name} kernel never launched")
 
 
+#: The kernels each launch counter (``wrappers``) can stand for: its state
+#: modes and its routes (past the largest cell instance, the col kernels).
+COUNTER_KERNELS = {
+    "cell": ("sw_cell_kernel", "sw_col_kernel"),
+    "cell16": ("sw_cell16_kernel", "sw_col16_kernel"),
+    "row": ("sw_row_kernel", "sw_row_col_kernel"),
+    "col": ("sw_col_kernel",), "col16": ("sw_col16_kernel",),
+    "cell_batch": ("sw_cell_batch_kernel", "sw_col_flat_kernel"),
+    "cell_batch16": ("sw_cell16_kernel", "sw_col_flat16_kernel"),
+    "col_flat": ("sw_col_flat_kernel",), "col_flat16": ("sw_col_flat16_kernel",),
+    "col_fused": ("sw_col_fused_kernel",), "col_fused16": ("sw_col_fused16_kernel",),
+    "manual": ("sw_manual_kernel", "sw_col_kernel"),
+    "manual16": ("sw_manual16_kernel", "sw_col16_kernel"),
+    "pair": ("sw_pair_kernel", "sw_col_kernel"),
+}
+
+
+def trace_mismatch(traced, launched):
+    """Where a trace's kernel counts by name (``traced``) differ from the
+    launch counters' deltas (``launched``, by counter name): counters that
+    can stand for a common kernel form one group with their kernels, and a
+    group's traced kernels must number its counters' launches.  Returns the
+    groups that differ: [{"kernels", "traced", "launched"}]; a traced port
+    kernel that no counter stands for is a group of its own."""
+    groups = []
+    for counter, names in COUNTER_KERNELS.items():
+        g = (set(names), {counter})
+        for other in [o for o in groups if o[0] & g[0]]:
+            groups.remove(other)
+            g[0].update(other[0])
+            g[1].update(other[1])
+        groups.append(g)
+    known = set().union(*(g[0] for g in groups))
+    groups += [({n}, set()) for n in traced if n != "other" and n not in known]
+    out = []
+    for names, counters in groups:
+        t = sum(traced.get(n, 0) for n in names)
+        n = sum(launched.get(c, 0) for c in counters)
+        if t != n:
+            out.append({"kernels": sorted(names), "traced": t, "launched": n})
+    return out
+
+
 def device_idle_share(run, name="queries_trace.json"):
     """Trace ``run`` with torch.profiler into WORK/``name`` and measure the
     card's idle share:
     1 - (union of the device's kernel, copy and set intervals) / (first
     device start to last device end).  Returns a dict with the share, the
-    spans in microseconds and the kernel launches (the port's by name,
-    PyTorch's as "other"); the share is None when the trace holds no
-    device events."""
+    spans in microseconds, the trace's kernels (the port's by name,
+    PyTorch's as "other") and the launch counters' deltas across ``run``.
+    The share is None, with the reason, when the trace holds no device
+    events or when its port kernels do not number the launches (a trace
+    that dropped kernels would understate the busy time)."""
     from cudasw4_tpu_torch.utils.profiling import device_trace
 
+    before = read_counts()
     with device_trace(WORK, name) as path:
         run()
+    after = read_counts()
+    launched = {k: after[k][0] - before[k][0] for k in after if after[k][0] != before[k][0]}
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans, names = [], {}
@@ -898,7 +965,15 @@ def device_idle_share(run, name="queries_trace.json"):
                 name = m.group(0) if m else "other"
                 names[name] = names.get(name, 0) + 1
     if not spans:
-        return {"device_idle_share": None, "reason": "no device events in the trace"}
+        return {"device_idle_share": None, "reason": "no device events in the trace",
+                "launches": launched}
+    mismatch = trace_mismatch(names, launched)
+    if mismatch:
+        return {"device_idle_share": None,
+                "reason": "the trace's kernels do not number the launches: " + "; ".join(
+                    f"{'/'.join(m['kernels'])} traced {m['traced']}, launched {m['launched']}"
+                    for m in mismatch),
+                "kernels": names, "launches": launched, "mismatch": mismatch}
     spans.sort()
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -909,14 +984,12 @@ def device_idle_share(run, name="queries_trace.json"):
     busy += hi - lo
     span = max(b for _, b in spans) - spans[0][0]
     return {"device_idle_share": 1.0 - busy / span, "device_busy_us": busy,
-            "device_span_us": span, "kernels": names}
+            "device_span_us": span, "kernels": names, "launches": launched}
 
 
 def kernel_source(name: str) -> str:
     """The source file of a kernel of the library (csrc/)."""
-    unit = ("sw_col.cu" if name.startswith(("sw_col", "sw_row_col"))
-            else "sw_tools.cu" if name in ("sw_manual_kernel", "sw_pair_kernel")
-            else "sw_cell.cuh")
+    unit = "sw_col.cu" if name.startswith(("sw_col", "sw_row_col")) else "sw_cell.cuh"
     return f"cudasw4_tpu_torch/csrc/{unit}"
 
 
@@ -1084,6 +1157,7 @@ def phase_sprot(clock_mhz):
         "col": (sw_col.score_bucket_col, sw_col.score_bucket_col_plain,
                 "cudasw4_tpu/ops/sw_pallas_col.py:220", "sw_col_kernel"),
     }
+    cell_plain = {}  # B1's plain scores and ms by mode, for B7 and B8
     for kind, (fn, plain, replaces, kname) in singles_kernels.items():
         i = largest[kind]
         t = eng._bucket_tiles[i]
@@ -1111,22 +1185,28 @@ def phase_sprot(clock_mhz):
                        "align" if exact else "align --dpx", counts[kind][0] if exact else 0,
                        tuple(t.shape), nrows, len(mid), i, a, b, ms, pms,
                        state="int32" if exact else "int16", **extra)
-            if kind == "cell" and exact:
-                cell_args, cell_want, cell_pms = (i, t, q, p), b, pms
+            if kind == "cell":
+                cell_args, cell_plain[exact] = (i, t, q, p), (b, pms)
 
-    # B7 and B8 at the same bucket and query as B1, against B1's plain
-    # version; their launches come from the tools phase.
+    # B7 (both modes) and B8 at the same bucket and query as B1, against
+    # B1's plain version in the same mode; the exact kernels' launches
+    # come from the tools phase; no path reaches B7 int16 (the tools run
+    # exact).
     from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     i, t, q, p = cell_args
-    for name, replaces, path, fn in (
-        ("sw_manual_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448", "dmabench",
+    for name, replaces, path, exact, fn in (
+        ("sw_manual_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448", "dmabench", True,
          lambda: sw_cell.score_bucket_cell_manual(t, q, eng._matrix_flat, p)),
-        ("sw_pair_kernel", "tools/pairbench.py:45", "pairbench",
+        ("sw_manual16_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:448", None, False,
+         lambda: sw_cell.score_bucket_cell_manual(t, q, eng._matrix_flat, p, exact=False)),
+        ("sw_pair_kernel", "tools/pairbench.py:45", "pairbench", True,
          lambda: score_pair(t, q, eng._matrix_flat, p, P=2)),
     ):
-        kernel_row(name, replaces, path, 0, tuple(t.shape), len(mid), len(mid), i, fn(),
-                   cell_want, cuda_ms(fn), cell_pms)
+        want, pms = cell_plain[exact]
+        kernel_row(name, replaces, path, 0, tuple(t.shape), len(mid), len(mid), i, fn(), want,
+                   cuda_ms(fn), pms, state="int32" if exact else "int16",
+                   cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
 
     # B4 at the largest cell bucket with the batch of 14; B5 and B6 at the
     # largest col bucket with the plan's widest pass.
@@ -1509,7 +1589,8 @@ def phase_stream(ctx, kernels):
     engine's; then streamed against resident in turns (the 20 queries, and
     the 144-aa and 464-aa ones alone), the copy stream's and the link's GB/s, the
     unpack's ms per chunk, the idle share from traces of the 20 queries
-    and of the 464-aa one, and a projection to a TrEMBL-sized database."""
+    and of the 464-aa one (in a fresh process, ``stream_trace_child``), and
+    a projection to a TrEMBL-sized database."""
     import shutil
 
     from cudasw4_tpu_torch.cli import align, makedb
@@ -1669,7 +1750,6 @@ def phase_stream(ctx, kernels):
             _, sec = wall(lambda: e.scan(q))
             single[qlen][who].append(sec)
         single_stats[qlen] = seng.stream_copy_stats()
-    mid = next(q for q in queries if len(q) == 464)
 
     # The link: one 256 MiB page-locked -> device copy.
     host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
@@ -1693,8 +1773,13 @@ def phase_stream(ctx, kernels):
                 "ms": ms, "bytes_out": tiles.size, "bytes_in": words.numel() * 4,
                 "out_gb_per_s": tiles.size / ms / 1e6}
 
-    profiled = device_idle_share(lambda: list(seng.scan_many(queries)), "stream_trace.json")
-    profiled_single = device_idle_share(lambda: seng.scan(mid), "stream_464_trace.json")
+    # The traces in a fresh process: in this one, after the phases before,
+    # the profiler dropped device records (PERF.md §7).
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--stream-trace-child",
+                          sprefix, store], capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(res.returncode == 0, f"the streamed trace child failed: {res.stderr[-2000:]}")
+    traced = json.loads(res.stdout.strip().splitlines()[-1])
+    profiled, profiled_single = traced["profiled_streamed_20"], traced["profiled_streamed_464"]
 
     # A projection, not a run: TREMBL_SEQUENCES with this length model
     # (every bucket's tiles scaled), 0.7 of this card's memory as the
@@ -2132,6 +2217,33 @@ COLSTATE16_ARGS = ("16", "3")
 COLSTATE16_ROW = {"kind": "flat", "L": 1024, "rows": [1024, 1024]}
 
 
+def stream_trace_child(prefix: str, store: str) -> int:
+    """Phase stream's traces in a fresh process (``chip_smoke.py
+    --stream-trace-child PREFIX STORE``): phase stream's streamed engine
+    on the database ``prefix`` and its tile store, one untraced pass of the
+    20 queries, then ``device_idle_share`` of a pass of the 20 and of the
+    464-aa query alone.  Prints {"profiled_streamed_20",
+    "profiled_streamed_464"} as the last line."""
+    from cudasw4_tpu_torch import make_scoring_config
+    from cudasw4_tpu_torch.cli.align import parse_memory_string
+    from cudasw4_tpu_torch.db.format import load_db
+    from cudasw4_tpu_torch.engine import SearchEngine
+
+    seng = SearchEngine(scoring=make_scoring_config("blosum62"), num_top=10,
+                        max_device_bytes=parse_memory_string(STREAM_GPU_MEM),
+                        stream_chunk_bytes=parse_memory_string(STREAM_BATCH_BYTES))
+    seng.set_database(load_db(prefix), pack_cache=store)
+    check(seng.streaming, "the trace child's engine does not stream")
+    queries = [seq for _, seq in read_query_set()]
+    mid = next(q for q in queries if len(q) == 464)
+    list(seng.scan_many(queries))
+    emit({"profiled_streamed_20": device_idle_share(lambda: list(seng.scan_many(queries)),
+                                                    "stream_trace.json"),
+          "profiled_streamed_464": device_idle_share(lambda: seng.scan(mid),
+                                                     "stream_464_trace.json")})
+    return 0
+
+
 def colstate16_child(argv) -> int:
     """The tool in this process, its counters reset just before it and
     read just after.  Each line's int16 scores are held against the plain
@@ -2529,7 +2641,8 @@ def phase_profile(ctx):
     a fresh process as a user runs it: the Chrome trace exists and names
     the batch's kernels and the engine's spans.  (Run in this process
     after the phases before it, the trace lacked the batch's first
-    kernels; not explained yet, see PERF.md §7.)"""
+    kernels: the profiler drops device records in this long process, see
+    PERF.md §7.)"""
     t_phase = time.perf_counter()
     trace_dir = os.path.join(WORK, "profile")
     if os.path.exists(os.path.join(trace_dir, "trace.json")):
@@ -2597,4 +2710,6 @@ if __name__ == "__main__":
         sys.exit(warmup_child(*sys.argv[2:]))
     if sys.argv[1:2] == ["--colstate16-child"]:
         sys.exit(colstate16_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--stream-trace-child"]:
+        sys.exit(stream_trace_child(*sys.argv[2:]))
     sys.exit(main())

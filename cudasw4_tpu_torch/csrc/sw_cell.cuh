@@ -1,8 +1,8 @@
-// The cell group kernels (B1 and B4 in both state modes, and B2 up to the
-// largest instance) and their (G, R) instances, for the units that hold
-// them (sw_cell_unit.cu, one a slice of CELL_SHAPES) and the dispatch in
-// sw_tiles.cu.  The kernels are templates: a unit instantiates those of its
-// slice only.
+// The cell group kernels (B1, B4 and B7 in both state modes, B8, and B2
+// up to the largest instance) and their (G, R) instances, for the units
+// that hold them (sw_cell_unit.cu, one a slice of CELL_SHAPES) and the
+// dispatch in sw_tiles.cu.  The kernels are templates: a unit instantiates
+// those of its slice only.
 #pragma once
 
 #include "sw_common.cuh"
@@ -46,11 +46,12 @@
 namespace sw {
 
 // A unit's launchers: the cell launch at an instance (G, R) of its slice,
-// and the row launch (B2's cell route) at one; kNotHere for another
-// instance.
+// the row launch (B2's cell route) and the tool launch (B7, B8) at one;
+// kNotHere for another instance.
 #define CELL_UNIT_DECL(s)                                    \
   int cell_unit_##s(const CellArgs& a, int G, int R);        \
-  int row_unit_##s(const RowArgs& a, int G, int R);
+  int row_unit_##s(const RowArgs& a, int G, int R);          \
+  int tool_unit_##s(const ToolArgs& a, int G, int R);
 CELL_SLICES(CELL_UNIT_DECL)
 #undef CELL_UNIT_DECL
 
@@ -317,6 +318,223 @@ __launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_row_kernel(
                                           L, NS, query, nrows, tab, A + 1, A,
                                           gop, gex);
   if (g < n && (threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
+}
+
+// ----------------------------- B7 and B8: the tool kernels on cell_group
+
+// B8: group g of the grid's x axis scores subject g % 4096 of the P tiles
+// (g / 4096) P, .. + P - 1, one after the other, each from the top of the
+// DP matrix, in int32 lanes.  The shifted table is loaded once a block for
+// its P tiles: the fixed cost that the JAX experiment amortises.
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_pair_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int L, int nrows, int gop, int gex, int P, float* out) {
+  __shared__ int tab[kMaxAlphabet * (kMaxAlphabet + 1)];
+  load_cell_table<false>(tab, mat, A, gop, kNeg);
+  __syncthreads();
+  const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
+  const size_t s = g % kCellNS, t0 = g / kCellNS * P;
+  for (size_t t = t0; t < t0 + P; ++t) {
+    const int m = cell_group<G, R, LaneS32>(tiles + t * L * kCellNS + s, L,
+                                            kCellNS, query, nrows, tab, A + 1,
+                                            A, gop, gex);
+    if ((threadIdx.x & (G - 1)) == 0) out[t * kCellNS + s] = (float)m;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// B7's unit of subjects: a block's groups score kRound subjects at once
+// (one a group in int32 lanes, two in s16x2 lanes); a unit is kWidth >=
+// kRound of them, so that each position of it is whole 16-byte copies
+// (cp.async.cg moves 16 bytes), swept in kWidth / kRound rounds.
+template <int G, bool k16>
+struct ManualUnit {
+  static constexpr int kRound = kCellThreads / G * (k16 ? 2 : 1);
+  static constexpr int kWidth = kRound > 16 ? kRound : 16;
+};
+
+// Ints of B7's table in dynamic shared memory, before its ring: [A][A + 1]
+// shifted scores, or for s16x2 lanes the pairwise [A][(A + 1)^2]; a
+// multiple of 4, so the ring starts 16-byte aligned.
+__host__ __device__ __forceinline__ int manual_table_ints(int A, bool k16) {
+  return (A * (A + 1) * (k16 ? A + 1 : 1) + 3) / 4 * 4;
+}
+
+// Start the copies of unit u's codes into dst, [L][W] bytes: subjects
+// (u % (4096 / W)) W, .. + W - 1 of tile u / (4096 / W), as one group.
+template <int W>
+__device__ __forceinline__ void stage_unit(int8_t* dst,
+                                           const int8_t* __restrict__ tiles,
+                                           size_t u, int L) {
+  constexpr int kParts = W / 16;
+  const int8_t* src = tiles + u / (kCellNS / W) * L * kCellNS +
+                      u % (kCellNS / W) * W;
+  for (int i = threadIdx.x; i < L * kParts; i += kCellThreads) {
+    const int j = i / kParts, part = i % kParts * 16;
+    cp_async16(dst + j * W + part, src + (size_t)j * kCellNS + part);
+  }
+  cp_async_commit();
+}
+
+// B7, B1's contract with the tiles staged by hand: a persistent grid whose
+// blocks walk the units u = blockIdx.x, + gridDim.x, ... (ManualUnit).  A
+// unit's codes go through a 2-deep ring in dynamic shared memory (smem,
+// after the table) by cp.async, the next unit's copy started before the
+// current one is swept; the groups then run cell_group on the ring's codes
+// (stride W), kWidth / kRound rounds a unit.  In int32 lanes (k16 false)
+// the scores are exact.  In s16x2 lanes (k16) each block tests the fit
+// of sw_cell16_kernel (cell16_bmax) and otherwise runs each subject pair
+// through the int32 routine: exact scores either way, which meets the SAT
+// rule.  No scratch: the DP lives in registers.
+template <int G, int R, bool k16>
+__device__ __forceinline__ void manual_body(
+    int* smem, const int8_t* __restrict__ tiles, const int32_t* query,
+    const int32_t* __restrict__ mat, int A, int T, int L, int nrows, int gop,
+    int gex, float* __restrict__ out) {
+  using Unit = ManualUnit<G, k16>;
+  constexpr int W = Unit::kWidth;
+  int* tab = smem;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + manual_table_ints(A, k16));
+  const size_t units = (size_t)T * (kCellNS / W);
+  if (blockIdx.x < units) stage_unit<W>(ring, tiles, blockIdx.x, L);
+  int fits = 0;
+  if constexpr (k16) {
+    const int bmax = cell16_bmax(L, nrows, gop, gex);
+    fits = 1;
+    for (int k = threadIdx.x; k < A * A; k += blockDim.x) {
+      fits &= mat[k] >= -8192 && mat[k] <= bmax;
+    }
+    fits = __syncthreads_and(fits);
+  }
+  if (fits) {
+    load_cell_table<true>(tab, mat, A, gop, kNeg16);
+  } else {
+    load_cell_table<false>(tab, mat, A, gop, kNeg);
+  }
+  const int grp = threadIdx.x / G;
+  const bool lead = (threadIdx.x & (G - 1)) == 0;
+  int slot = 0;
+  for (size_t u = blockIdx.x; u < units; u += gridDim.x) {
+    __syncthreads();  // nobody still reads the slot the next copy fills
+    if (u + gridDim.x < units) {
+      stage_unit<W>(ring + (slot ^ 1) * L * W, tiles, u + gridDim.x, L);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // unit u and the table are in, for every thread
+    const int8_t* xs = ring + slot * L * W;
+    float* o = out + u / (kCellNS / W) * kCellNS + u % (kCellNS / W) * W;
+    for (int r0 = 0; r0 < W; r0 += Unit::kRound) {
+      if constexpr (k16) {
+        const int sub = r0 + 2 * grp;
+        int m0, m1;
+        if (fits) {
+          const unsigned m = cell_group<G, R, LaneS16>(
+              xs + sub, L, W, query, nrows, tab, (A + 1) * (A + 1), A, gop,
+              gex);
+          m0 = (int16_t)(m & 0xffffu);
+          m1 = (int16_t)(m >> 16);
+        } else {
+          m0 = cell_group<G, R, LaneS32>(xs + sub, L, W, query, nrows, tab,
+                                         A + 1, A, gop, gex);
+          m1 = cell_group<G, R, LaneS32>(xs + sub + 1, L, W, query, nrows,
+                                         tab, A + 1, A, gop, gex);
+        }
+        if (lead) {
+          o[sub] = (float)m0;
+          o[sub + 1] = (float)m1;
+        }
+      } else {
+        const int sub = r0 + grp;
+        const int m = cell_group<G, R, LaneS32>(xs + sub, L, W, query, nrows,
+                                                tab, A + 1, A, gop, gex);
+        if (lead) o[sub] = (float)m;
+      }
+    }
+    slot ^= 1;
+  }
+}
+
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_manual_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int nrows, int gop, int gex, float* out) {
+  extern __shared__ int4 manual_smem[];
+  manual_body<G, R, false>(reinterpret_cast<int*>(manual_smem), tiles, query,
+                           mat, A, T, L, nrows, gop, gex, out);
+}
+
+template <int G, int R>
+__global__ void
+__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_manual16_kernel(
+    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
+    int T, int L, int nrows, int gop, int gex, float* out) {
+  extern __shared__ int4 manual_smem[];
+  manual_body<G, R, true>(reinterpret_cast<int*>(manual_smem), tiles, query,
+                          mat, A, T, L, nrows, gop, gex, out);
+}
+
+using ManualKernel = void (*)(const int8_t*, const int32_t*, const int32_t*,
+                              int, int, int, int, int, int, float*);
+
+// B7's launch: as many blocks as fit on the card at once (at most one a
+// unit), each with the table and a ring of 2 x L x W bytes.
+inline int manual_launch(ManualKernel kernel, int W, bool k16,
+                         const sw::ToolArgs& a) {
+  const int smem = 4 * manual_table_ints(a.A, k16) + 2 * a.L * W;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kCellThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long units = (long long)a.T * (kCellNS / W);
+  const long long resident = (long long)per_sm * sms;
+  kernel<<<(unsigned)(units < resident ? units : resident), kCellThreads, smem,
+           a.stream>>>(a.tiles, a.query, a.mat, a.A, a.T, a.L, a.nrows, a.gop,
+                       a.gex, a.out);
+  return (int)cudaGetLastError();
+}
+
+template <int G, int R>
+int tool_launch_at(const sw::ToolArgs& a) {
+  if (a.P) {
+    const long long threads = (long long)(a.T / a.P) * kCellNS * G;
+    sw_pair_kernel<G, R>
+        <<<(unsigned)(threads / kCellThreads), kCellThreads, 0, a.stream>>>(
+            a.tiles, a.query, a.mat, a.A, a.L, a.nrows, a.gop, a.gex, a.P,
+            a.out);
+    return (int)cudaGetLastError();
+  }
+  if (a.sat) {
+    return manual_launch(sw_manual16_kernel<G, R>,
+                         ManualUnit<G, true>::kWidth, true, a);
+  }
+  return manual_launch(sw_manual_kernel<G, R>, ManualUnit<G, false>::kWidth,
+                       false, a);
 }
 
 template <int G, int R>

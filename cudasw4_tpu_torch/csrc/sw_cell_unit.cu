@@ -1,6 +1,6 @@
-// One unit of the cell group kernels' instances: B1 and B4 (both state
-// modes) and B2's cell route at the (G, R) instances of slice SW_SLICE of
-// CELL_SHAPES (sw_cell.cuh).  ops/cuda_lib.py compiles this file once a
+// One unit of the cell group kernels' instances: B1, B4 and B7 (both state
+// modes), B8 and B2's cell route at the (G, R) instances of slice SW_SLICE
+// of CELL_SHAPES (sw_cell.cuh).  ops/cuda_lib.py compiles this file once a
 // slice, with -DSW_SLICE=<slice>, all slices in parallel.
 #include "sw_cell.cuh"
 
@@ -27,6 +27,14 @@ int SW_CAT(row_unit_, SW_SLICE)(const RowArgs& a, int G, int R) {
   if (G == g && R == r) return row_launch_at<g, r>(a);
   SW_SLICE_SHAPES(ROW_CASE)
 #undef ROW_CASE
+  return kNotHere;
+}
+
+int SW_CAT(tool_unit_, SW_SLICE)(const ToolArgs& a, int G, int R) {
+#define TOOL_CASE(g, r) \
+  if (G == g && R == r) return tool_launch_at<g, r>(a);
+  SW_SLICE_SHAPES(TOOL_CASE)
+#undef TOOL_CASE
   return kNotHere;
 }
 

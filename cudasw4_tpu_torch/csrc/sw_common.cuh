@@ -1,7 +1,7 @@
 // The device code that the units of the kernel library share: constants,
 // the int16 state store, the shifted substitution table, and the launch
-// arguments that cross units.  Each unit (sw_tiles.cu, sw_col.cu,
-// sw_tools.cu, and sw_cell_unit.cu once a slice of CELL_SHAPES) includes it;
+// arguments that cross units.  Each unit (sw_tiles.cu, sw_col.cu, and
+// sw_cell_unit.cu once a slice of CELL_SHAPES) includes it;
 // ops/cuda_lib.py compiles the units in parallel and links them into one
 // library.  No device function crosses units: each kernel and every device
 // function it calls live in its own unit, so no relocatable device code is
@@ -17,9 +17,6 @@ namespace {
 
 constexpr int kNeg = -(1 << 24);  // -inf stand-in, safe from int32 underflow
 constexpr int kMaxAlphabet = 26;
-constexpr int kRows = 8;      // query rows per register block
-constexpr int kCols = 8;      // subject positions loaded ahead per step
-constexpr int kThreads = 128; // subjects per block
 constexpr int kCellNS = 4096; // subjects per cell tile: [T, L, 32, 128]
 
 // A stored state value: int32 as it is; int16 clamped at sat.
@@ -87,8 +84,10 @@ __device__ __forceinline__ void load_cell_table(
 
 namespace sw {
 
-// The arguments of one cell launch (sw_cell_launch) and one row launch
-// (sw_row_launch), as the units that hold the kernels' instances take them.
+// The arguments of one cell launch (sw_cell_launch), one row launch
+// (sw_row_launch) and one tool launch (sw_cell_manual_launch,
+// sw_cell_pair_launch), as the units that hold the kernels' instances take
+// them.
 struct CellArgs {
   const int8_t* tiles;
   const int32_t* queries;
@@ -104,6 +103,16 @@ struct RowArgs {
   const int32_t* query;
   const int32_t* mat;
   int A, T, L, NS, nrows, gop, gex;
+  float* out;
+  cudaStream_t stream;
+};
+
+struct ToolArgs {
+  const int8_t* tiles;
+  const int32_t* query;
+  const int32_t* mat;
+  int A, T, L, nrows, gop, gex, sat;
+  int P;  // B8: tiles a block; 0 for B7
   float* out;
   cudaStream_t stream;
 };

@@ -1,12 +1,12 @@
 // Affine-gap Smith-Waterman over packed subject tiles, for Hopper (sm_90a).
 //
 // The library is several units, which ops/cuda_lib.py compiles in
-// parallel and links once: this file (the exported cell and row launches,
-// dispatching to the units that hold each (G, R) instance), sw_col.cu (the
-// col wavefront kernels and their launch), sw_tools.cu (the tool kernels
-// and theirs) and sw_cell_unit.cu, once a slice of CELL_SHAPES (the cell
-// group kernels' instances of that slice).  sw_common.cuh holds what they
-// share, sw_cell.cuh the cell group kernels.
+// parallel and links once: this file (the exported cell, row and tool
+// launches, dispatching to the units that hold each (G, R) instance),
+// sw_col.cu (the col wavefront kernels and their launch) and
+// sw_cell_unit.cu, once a slice of CELL_SHAPES (the cell group kernels'
+// instances of that slice).  sw_common.cuh holds what they share,
+// sw_cell.cuh the cell group kernels.
 //
 // Replaces the eight TPU kernels of the JAX package, all computing the same
 // recurrence over int8 subject codes and an int32 AxA substitution matrix
@@ -55,12 +55,16 @@
 // * sw_cell_manual_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell_manual (_sw_cell_kernel_manual): B1's
 //   contract with the tiles staged by hand through a 2-deep ring in shared
-//   memory (int32 or int16 state).
+//   memory (sw_manual_kernel, or sw_manual16_kernel for sat > 0, whose
+//   scores are exact).
 // * sw_cell_pair_launch replaces tools/pairbench.py score_pair
-//   (_kernel_pair): B1's contract, exact, P consecutive tiles per block.
+//   (_kernel_pair): B1's contract, exact, P consecutive tiles per block
+//   (sw_pair_kernel).
 //
 // The cell kernels (sw_cell_kernel, sw_cell16_kernel, sw_cell_batch_kernel,
-// and the row kernel up to L = 768) are single-pass register-tiled group wavefronts, the shape of the
+// the tool kernels sw_manual_kernel, sw_manual16_kernel and sw_pair_kernel,
+// and the row kernel up to L = 768) are single-pass register-tiled group
+// wavefronts, the shape of the
 // reference CUDASW++4.0's short-subject kernels.  A cell tile's L is at
 // most CELL_MAX_L = 768, so a group of G lanes (8, 16 or 32 of a warp)
 // holds a whole subject in registers: lane k keeps R consecutive columns
@@ -85,25 +89,17 @@
 // meets the SAT rule at any SAT; where the launcher cannot prove the fit
 // for the matrix, the gaps and the block's slot, the block runs the int32
 // routine.  Tiles with
-// L beyond the largest instance go to the col kernels (ops/sw_cell.py).
-// The row kernel (sw_row_kernel) is B1's routine at a code stride of NS
-// in place of 4096: group g scores subject g % NS of row tile g / NS.
+// L beyond the largest instance go to the col kernels (ops/sw_cell.py),
+// those of the tool kernels too.  The row kernel (sw_row_kernel) is B1's
+// routine at a code stride of NS in place of 4096: group g scores subject
+// g % NS of row tile g / NS.  The pair kernel is B1's routine over P
+// consecutive tiles a group, the shifted table loaded once a block.  The
+// manual-staging kernels (below) feed the same routine from shared memory.
+// Padded query rows and subject positions carry the pad code, whose matrix
+// row is all negative, so they never raise the max.
 //
-// The two tool kernels (manual staging, pair) are the first slice's simple
-// design: one thread per subject, neighbouring threads owning neighbouring
-// subjects, so each load of x[t, j, :] and of the H/F row is coalesced.
-// The query streams in blocks of kRows rows; each thread keeps E and
-// H[i][j-1] of its kRows rows in registers and sweeps j over the whole
-// subject.  The H and F of the row above each block live in a scratch row
-// [T, L, 4096] in device memory (read, then overwritten with the block's
-// bottom row), so neither the subject length nor the query length is
-// capped.  The substitution scores of a block's kRows rows sit in shared
-// memory as a query profile prof[c][r] = B[q_{i0+r}, c], one 32-byte read
-// per column.  Padded query rows and subject positions carry the pad code,
-// whose matrix row is all negative, so they never raise the max.
-//
-// int16 state (the JAX kernels' exact=False) in the manual-staging and col
-// kernels: the arithmetic stays int32 in registers; only the stored state
+// int16 state (the JAX kernels' exact=False) in the col kernels: the
+// arithmetic stays int32 in registers; only the stored state
 // is int16, and every store of it clamps H, E and F at sat (<= 32767).
 // The TPU kernel clamps H after each query row, which keeps its F below
 // sat; here many cells live in registers between stores, so an unclamped
@@ -117,21 +113,19 @@
 // 16.7 Tops/s at 1.98 GHz): with the DPX instructions a cell update is 5.5
 // int32 operations (below; two cells an operation in s16x2 lanes), and
 // the inputs are about one byte per subject position, so every contract
-// is bound by operations, by a factor of ~nrows over bytes.  The
-// one-thread-per-subject tool kernels move 16 bytes of scratch per kRows
-// cells besides (2 B/cell at kRows = 8; 1 B/cell with int16 state), spend
-// 11 operations a cell, and leave small buckets without enough warps to
-// hide latency.
+// is bound by operations, by a factor of ~nrows over bytes.  No cell group
+// kernel, the tool kernels included, moves any scratch.
 //
 // The col kernels (sw_col_kernel, sw_col16_kernel, sw_col_flat_kernel,
 // sw_col_fused_kernel, their int16 instances sw_col_flat16_kernel and
 // sw_col_fused16_kernel, and the row kernel past L = 768, sw_row_col_kernel,
 // at a code stride of NS) are a warp per (slot, subject) register-tiled
 // wavefront, the shape of the reference CUDASW++4.0's DPX-s32 multi-pass
-// kernels.  What bounds the
-// one-thread design at long L is parallelism and scratch: a col tile is
-// 4096 subjects, 32 blocks of one thread each, on 132 SMs, and every 8
-// rows re-read and re-wrote the L-long H/F row.  Here the parallelism
+// kernels.  What bounds a
+// one-thread-per-subject design at long L is parallelism and scratch: a
+// col tile is 4096 subjects, 32 blocks of 128 threads, on 132 SMs, and
+// every 8 rows re-read and re-wrote the L-long H/F row.  Here the
+// parallelism
 // comes from the subject's length (> 768 aa in a col bucket), not from the
 // query's (which can be 8 rows): a tile is 4096 warps.  Lane k holds
 // kColRegs consecutive subject columns in registers (code, H + gop and F
@@ -165,21 +159,21 @@
 // (int32, clamped) at sat.  kColRegs, kColWarps and kColMinBlocks were
 // chosen on the H100: see their definitions.
 //
-// The manual-staging kernel is the Hopper form of the TPU kernel's copy of
-// tile t+1 started before tile t's compute: a persistent grid (as
-// many blocks as fit on the card at once) whose blocks each walk 128-
-// subject stripes k = blockIdx.x, + gridDim.x, ...  A stripe is L x 128
-// bytes; the block stages it through a 2-deep ring of CH-column chunks
-// in dynamic shared memory with cp.async (16 B a copy, commit/wait_group)
-// and starts the next chunk's copy before it sweeps the current one.
-// The wrapper passes CH = min(64, L): the chunks of a longer stripe
-// stream again for every 8-row block, 2 x 8 KB a block; a stripe of
-// L <= 64 is one chunk, copied once and held for all its query rows.  (A
-// whole-stripe ring at L = 640 takes 160 KB, one block per SM, and ran at
-// about 1.9 times the chunked ring's time.)  The pair kernel gives each
-// block 128 lanes of P consecutive tiles and scores them one after
-// another: T / P x 32 blocks.  The JAX tool's unroll has no counterpart:
-// the register block is kRows.
+// The manual-staging kernels are the Hopper form of the TPU kernel's copy
+// of tile t+1 started before tile t's compute: a persistent grid (as many
+// blocks as fit on the card at once) whose blocks each walk units of W
+// subjects, u = blockIdx.x, + gridDim.x, ...  A unit is L x W bytes, W the
+// block's groups' subjects (one a group, two in s16x2 lanes), at least 16
+// so that a position is whole 16-byte cp.async copies; the block stages
+// each unit whole through a 2-deep ring in dynamic shared memory, after
+// the table (commit/wait_group), and starts the next unit's copy before
+// its groups sweep the current one from the ring: each code byte is copied
+// once and read once a subject, as B1 reads it from device memory, so the
+// staging stays off the wavefront's path.  The ring is 2 x L x W bytes (24
+// KB at L = 768, W = 16) beside a table of up to 75.8 KB (the int16
+// pairwise one at A = 26); the launcher takes the blocks an SM that the
+// registers and this shared memory allow.  The JAX tool's unroll has no
+// counterpart: a lane's register block is R columns.
 
 #include "sw_cell.cuh"
 
@@ -202,12 +196,25 @@ bool cell_pick(int L, int& G, int& R) {
 
 #define CELL_UNIT_REF(s) sw::cell_unit_##s,
 #define ROW_UNIT_REF(s) sw::row_unit_##s,
+#define TOOL_UNIT_REF(s) sw::tool_unit_##s,
 int (*const kCellUnits[])(const sw::CellArgs&, int, int) = {
     CELL_SLICES(CELL_UNIT_REF)};
 int (*const kRowUnits[])(const sw::RowArgs&, int, int) = {
     CELL_SLICES(ROW_UNIT_REF)};
+int (*const kToolUnits[])(const sw::ToolArgs&, int, int) = {
+    CELL_SLICES(TOOL_UNIT_REF)};
 #undef CELL_UNIT_REF
 #undef ROW_UNIT_REF
+#undef TOOL_UNIT_REF
+
+// A tool launch at the instance (G, R), through the unit that holds it.
+int tool_launch(const sw::ToolArgs& a, int G, int R) {
+  for (auto unit : kToolUnits) {
+    const int rc = unit(a, G, R);
+    if (rc != sw::kNotHere) return rc;
+  }
+  return (int)cudaErrorInvalidValue;  // not an instance
+}
 
 }  // namespace
 
@@ -287,6 +294,41 @@ int sw_row_launch(const void* tiles, const void* query, const void* mat,
     return (int)cudaErrorInvalidValue;
   }
   return sw::row_col_launch(a, th, te);
+}
+
+// The tool launches (B7, B8) share a third signature: cell tiles
+// [T, L, 32, 128], one query of nrows rows, out f32 [T, 4096], (G, R) an
+// instance of CELL_SHAPES with G x R >= L; arg is the pair kernel's tiles a
+// block P (exact only, T % P == 0) and 0 for the manual kernel.  No
+// scratch.  The manual launch runs sw_manual_kernel, or sw_manual16_kernel
+// for sat > 0; its tiles must be 16-byte aligned (cp.async).
+int sw_cell_manual_launch(const void* tiles, const void* query,
+                          const void* mat, int A, int T, int L, int nrows,
+                          int gop, int gex, int G, int R, int sat, int arg,
+                          void* out, void* stream) {
+  if (!sat_ok(sat) || arg || L < 0 || nrows < 0 || G * R < L ||
+      (uintptr_t)tiles % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T == 0) return 0;
+  return tool_launch({(const int8_t*)tiles, (const int32_t*)query,
+                      (const int32_t*)mat, A, T, L, nrows, gop, gex, sat, 0,
+                      (float*)out, (cudaStream_t)stream},
+                     G, R);
+}
+
+int sw_cell_pair_launch(const void* tiles, const void* query, const void* mat,
+                        int A, int T, int L, int nrows, int gop, int gex,
+                        int G, int R, int sat, int arg, void* out,
+                        void* stream) {
+  if (sat || arg < 1 || T % arg || L < 0 || nrows < 0 || G * R < L) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (T == 0) return 0;
+  return tool_launch({(const int8_t*)tiles, (const int32_t*)query,
+                      (const int32_t*)mat, A, T, L, nrows, gop, gex, 0, arg,
+                      (float*)out, (cudaStream_t)stream},
+                     G, R);
 }
 
 const char* sw_error_string(int code) {

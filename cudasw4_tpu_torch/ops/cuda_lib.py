@@ -4,8 +4,8 @@ The library compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the repository root, at first use, under a name
 keyed by a hash of the sources, the headers, the flags and the units, so a
 fresh checkout builds once and an edited source rebuilds.  It is several
-units (``UNITS``: the dispatch, the col kernels, the tool kernels, and the
-cell group kernels once a slice of their (G, R) instances), compiled with
+units (``UNITS``: the dispatch, the col kernels, and the cell group
+kernels once a slice of their (G, R) instances), compiled with
 ``-c`` in a pool of ``os.cpu_count()`` processes and linked once with
 ``-shared``; object files and the library are written under temporary
 names and renamed, so processes that build at once never read half a
@@ -42,7 +42,6 @@ CELL_SLICES = 8
 UNITS = (
     ("sw_tiles.cu", ()),
     ("sw_col.cu", ()),
-    ("sw_tools.cu", ()),
     *(("sw_cell_unit.cu", (f"-DSW_SLICE={k}",)) for k in range(CELL_SLICES)),
 )
 
@@ -74,15 +73,15 @@ COL_LAUNCHES = {
     "sw_col_fused_kernel": "sw_col_launch",
 }
 _COL_SIGNATURE = [_P] * 5 + [_I] * 8 + [_P] * 7 + [_I, _P]
-#: The launch functions of the tool kernels (B7, B8), with a third
-#: signature: tiles, query, mat, A, T, L, nrows, gop, gex, sat, arg, hs,
-#: fs, out, stream; arg is the manual kernel's ring chunk columns or the
-#: pair kernel's tiles per block.
+#: The launch functions of the tool kernels (B7 in both state modes, B8),
+#: with a third signature: tiles, query, mat, A, T, L, nrows, gop, gex, G,
+#: R, sat, arg, out, stream; arg is the pair kernel's tiles per block and 0
+#: for the manual kernel (``launch_tool``).
 TOOL_LAUNCHES = {
     "sw_manual_kernel": "sw_cell_manual_launch",
     "sw_pair_kernel": "sw_cell_pair_launch",
 }
-_TOOL_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_TOOL_SIGNATURE = [_P] * 3 + [_I] * 10 + [_P, _P]
 
 _lock = threading.Lock()
 _lib = None
@@ -251,24 +250,6 @@ def check_query_rows(query, nrows: int, dev) -> None:
         raise ValueError(f"{nrows} query rows outside the query block of {query.numel()}")
 
 
-def _single_io(tiles, query, matrix_flat, params, sat: int):
-    """Checks and buffers of a tool launch: device, dtype and contiguity of
-    cell ``tiles`` and ``matrix_flat``, the ``params[0]`` query rows within
-    the query block; allocates the f32 scores [T, 4096] and the H/F
-    scratch shaped as ``tiles`` (int32, or int16 for ``sat`` > 0).
-    Returns (A, nrows, gop, gex, out, hs, fs)."""
-    dev = tiles.device
-    require(tiles, "tiles", torch.int8, 4, dev)
-    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
-    A = alphabet_dim(matrix_flat)
-    nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    check_query_rows(query, nrows, dev)
-    out = torch.empty((tiles.shape[0], math.prod(tiles.shape[2:])), dtype=torch.float32,
-                      device=dev)
-    hs = torch.empty(tiles.shape, dtype=torch.int16 if sat else torch.int32, device=dev)
-    return A, nrows, gop, gex, out, hs, torch.empty_like(hs)
-
-
 def launch_row(wrapper, tiles, query, matrix_flat, nrows: int, gop: int, gex: int,
                pool: bool):
     """Launch the row kernel (``sw_row_kernel``, LAUNCHES) on the tiles'
@@ -427,19 +408,30 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
     return out, state
 
 
-def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, sat: int, arg: int):
-    """Launch the tool kernel ``kernel`` (a key of TOOL_LAUNCHES) on cell
-    tiles [T, L, 32, 128] on their device and stream, and count the launch
-    on the wrapper (``count``).  Checks and allocates as ``_single_io``
-    (``arg``: see TOOL_LAUNCHES); raises if the launch reports an error.
-    Returns the scores.  Never synchronises."""
+def launch_tool(wrapper, kernel: str, tiles, query, matrix_flat, params, shape, sat: int,
+                arg: int):
+    """Launch the tool kernel ``kernel`` (a key of TOOL_LAUNCHES) at the
+    cell instance ``shape`` = (G, R) on cell tiles [T, L, 32, 128] on their
+    device and stream, and count the launch on the wrapper (``count``).
+
+    ``query``: int32, ``params[0]`` real rows (gop, gex next); ``arg``: see
+    TOOL_LAUNCHES.  Allocates only the f32 scores [T, 4096]: the kernels
+    keep the DP in registers.  Raises if the launch reports an error.
+    Never synchronises.
+    """
     dev = tiles.device
-    A, nrows, gop, gex, out, hs, fs = _single_io(tiles, query, matrix_flat, params, sat)
+    require(tiles, "tiles", torch.int8, 4, dev)
+    require(matrix_flat, "matrix_flat", torch.int32, 1, dev)
+    A = alphabet_dim(matrix_flat)
+    nrows, gop, gex = int(params[0]), int(params[1]), int(params[2])
+    check_query_rows(query, nrows, dev)
+    out = torch.empty((tiles.shape[0], math.prod(tiles.shape[2:])), dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):
         code = getattr(lib(), TOOL_LAUNCHES[kernel])(
             tiles.data_ptr(), query.data_ptr(), matrix_flat.data_ptr(),
-            A, tiles.shape[0], tiles.shape[1], nrows, gop, gex, sat, arg,
-            hs.data_ptr(), fs.data_ptr(), out.data_ptr(), stream_handle(dev),
+            A, tiles.shape[0], tiles.shape[1], nrows, gop, gex, *shape, sat, arg,
+            out.data_ptr(), stream_handle(dev),
         )
     check_launch(code, kernel)
     count(wrapper, not sat)

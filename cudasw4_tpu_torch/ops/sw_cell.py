@@ -5,17 +5,17 @@ exact int32 or int16 state), the same with the tiles staged by hand
 (score_bucket_pallas_cell_batch, exact int32 or int16 state).
 
 The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
-``sw_manual_kernel`` and ``sw_cell_batch_kernel`` in csrc/sw_cell.cuh and
-csrc/sw_tools.cu (csrc/sw_tiles.cu's note gives the design and the bound
-on the H100).  The cell, int16 and
-batch kernels are single-pass group wavefronts, one instance per (G, R) of
-CELL_SHAPES, picked for the tiles' L by ``cell_shape``; the int16 kernel
-serves the batch too, a slot on the grid's y axis.  Tiles longer than the
-largest instance take the col wavefront's passes (``sw_col_kernel``,
-``sw_col16_kernel``, ``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on
-the same layout.  The
-wrappers launch them for CUDA tensors and take their plain versions only
-for CPU tensors.
+``sw_cell_batch_kernel``, ``sw_manual_kernel`` and ``sw_manual16_kernel``
+in csrc/sw_cell.cuh (csrc/sw_tiles.cu's note gives the design and the
+bound on the H100).  All are single-pass group wavefronts
+(``cell_group``), one instance per (G, R) of CELL_SHAPES, picked for the
+tiles' L by ``cell_shape``; the int16 kernel serves the batch too, a slot
+on the grid's y axis, and the manual kernels feed the same routine from a
+ring in shared memory.  Tiles longer than the largest instance take the
+col wavefront's passes (``sw_col_kernel``, ``sw_col16_kernel``,
+``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on the same layout,
+counted on the wrapper that was called.  The wrappers launch them for
+CUDA tensors and take their plain versions only for CPU tensors.
 Each counts its launches and plain calls per mode (``launches`` and
 ``plain_calls`` for exact state, ``launches16`` and ``plain_calls16`` for
 int16 state).
@@ -74,13 +74,6 @@ def cell_shape(L: int) -> tuple[int, int] | None:
     return min(fits)[1:] if fits else None
 
 
-#: Ring chunk of the manual-staging kernel, in subject positions: a stripe
-#: of L > 64 streams as 64-position chunks (2 x 8 KB of shared memory)
-#: again for each 8-row block; a shorter stripe is one chunk, held for all
-#: query rows.
-MANUAL_CHUNK = 64
-
-
 def sat_state(exact: bool) -> int | None:
     """The int16 ceiling of a call: None for exact state, else SAT (read
     now, so a lowered SAT takes effect)."""
@@ -125,28 +118,39 @@ def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
     if tiles.device.type == "cpu":
         cuda_lib.count(score_bucket_cell, exact, plain=True)
         return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
-    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
-    cuda_lib.check_query_rows(query, nq, tiles.device)
     sat = sat_state(exact) or 0
-    q = query[:nq].view(1, nq)
     shape = cell_shape(tiles.shape[1])
     if shape is None:
-        return cuda_lib.launch_col(score_bucket_cell, "sw_col_kernel", tiles, q, matrix_flat,
-                                   gop, gex, sat=sat)[0][0]
-    return cuda_lib.launch_cell(score_bucket_cell, "sw_cell_kernel", tiles, q, matrix_flat,
-                                gop, gex, nq, shape, sat)[0]
+        return col_route(score_bucket_cell, tiles, query, matrix_flat, params, sat)
+    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
+    cuda_lib.check_query_rows(query, nq, tiles.device)
+    return cuda_lib.launch_cell(score_bucket_cell, "sw_cell_kernel", tiles,
+                                query[:nq].view(1, nq), matrix_flat, gop, gex, nq, shape, sat)[0]
 
 
 score_bucket_cell.launches = score_bucket_cell.launches16 = 0
 score_bucket_cell.plain_calls = score_bucket_cell.plain_calls16 = 0
 
 
+def col_route(wrapper, tiles, query, matrix_flat, params, sat: int):
+    """One query against cell tiles longer than the largest cell instance:
+    the col wavefront's passes (``sw_col_kernel``, ``sw_col16_kernel`` for
+    ``sat`` > 0) on the same layout, counted on ``wrapper``; f32 [T, 4096].
+    Arguments as ``score_bucket_cell``'s."""
+    nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
+    cuda_lib.check_query_rows(query, nq, tiles.device)
+    return cuda_lib.launch_col(wrapper, "sw_col_kernel", tiles, query[:nq].view(1, nq),
+                               matrix_flat, gop, gex, sat=sat)[0][0]
+
+
 def score_bucket_cell_manual(tiles, query, matrix_flat, params, exact: bool = True):
     """``score_bucket_cell`` with the tiles staged by hand (the counterpart
     of score_bucket_pallas_cell_manual): a persistent grid whose blocks
-    copy 128-subject stripes into a 2-deep shared-memory ring of
-    MANUAL_CHUNK-position chunks with cp.async, starting the next copy
-    before sweeping the current chunk.
+    copy units of 16 or 32 subjects' codes, whole, into a 2-deep
+    shared-memory ring with cp.async, starting the next unit's copy before
+    their groups sweep the current one with B1's routine (s16x2 lanes
+    under ``exact=False``, exact scores as B1 int16's).  Past the largest
+    cell instance it takes B1's route, the col kernel, counted here.
 
     Same contract and results as ``score_bucket_cell``.  The TPU kernel's
     ``priority`` (its DMA queue) has no Hopper counterpart and is not
@@ -156,9 +160,12 @@ def score_bucket_cell_manual(tiles, query, matrix_flat, params, exact: bool = Tr
     if tiles.device.type == "cpu":
         cuda_lib.count(score_bucket_cell_manual, exact, plain=True)
         return score_bucket_cell_plain(tiles, query, matrix_flat, params, exact)
-    chunk = max(1, min(MANUAL_CHUNK, tiles.shape[1]))
+    sat = sat_state(exact) or 0
+    shape = cell_shape(tiles.shape[1])
+    if shape is None:
+        return col_route(score_bucket_cell_manual, tiles, query, matrix_flat, params, sat)
     return cuda_lib.launch_tool(score_bucket_cell_manual, "sw_manual_kernel", tiles, query,
-                                matrix_flat, params, sat_state(exact) or 0, chunk)
+                                matrix_flat, params, shape, sat, 0)
 
 
 score_bucket_cell_manual.launches = score_bucket_cell_manual.launches16 = 0

@@ -40,8 +40,8 @@ import time
 #: Swiss-Prot-scale database's buckets with the 464-aa query (the cell
 #: buckets of L = 64, 128, 256 and the largest, 640, at their tile counts;
 #: the largest row and col buckets), the largest cell bucket in int16
-#: state ("cell16") and through the manual-staging and pair (P = 2)
-#: kernels, row buckets on the row kernel's cell route at (16, 32) and on
+#: state ("cell16") and through the manual-staging kernel in both states
+#: ("manual", "manual16") and the pair kernel (P = 2), row buckets on the row kernel's cell route at (16, 32) and on
 #: its col route (L = 2304), the top col bucket with the 144-aa query and
 #: in int16 state ("col16"), and one full col chunk.
 CASES = (
@@ -51,6 +51,7 @@ CASES = (
     ("cell", (12, 256, 32, 128), 464),
     ("cell16", (12, 640, 32, 128), 464),
     ("manual", (12, 640, 32, 128), 464),
+    ("manual16", (12, 640, 32, 128), 464),
     ("pair", (12, 640, 32, 128), 464),
     ("row", (11, 48, 128), 464),
     ("row", (16, 512, 128), 464),
@@ -100,6 +101,7 @@ def _child(tree: str) -> dict:
         fn = {"cell": sw_cell.score_bucket_cell, "row": sw_row.score_bucket_row,
               "cell16": lambda *a: sw_cell.score_bucket_cell(*a, exact=False),
               "manual": sw_cell.score_bucket_cell_manual,
+              "manual16": lambda *a: sw_cell.score_bucket_cell_manual(*a, exact=False),
               "pair": lambda *a: score_pair(*a, P=2),
               "col": sw_col.score_bucket_col,
               "col16": lambda *a: sw_col.score_bucket_col(*a, exact=False)}[kind]

@@ -1,11 +1,15 @@
 """Experiment: P tiles per block for the cell kernel (the port's
 counterpart of tools/pairbench.py).
 
-``score_pair`` scores P consecutive cell tiles per block: each block owns
-128 lanes of P tiles and each thread scores its P subjects one after
-another (``sw_pair_kernel`` in csrc/sw_tools.cu, T / P x 32 blocks).  The
-JAX kernel's ``unroll`` has no counterpart: the kernel's register block is
-its 8 query rows.  Its plain version is the cell kernel's.
+``score_pair`` scores P consecutive cell tiles per block: each group of
+the cell kernel's routine (``cell_group``) scores its subject in P tiles
+one after another, the block's shifted table loaded once for all P
+(``sw_pair_kernel<G, R>`` in csrc/sw_cell.cuh, the (G, R) instance that
+``sw_cell.cell_shape`` picks; T / P x 4096 x G / 128 blocks).  Past the
+largest instance it takes the cell kernel's route, the col kernel, counted
+on ``score_pair``.  The JAX kernel's ``unroll`` has no counterpart: a
+lane's register block is R columns.  Its plain version is the cell
+kernel's.
 
 Usage: python -m cudasw4_tpu_torch.tools.pairbench [L] [num_subjects] [reps] [--device cpu]
 
@@ -33,8 +37,11 @@ def score_pair(tiles, query, matrix_flat, params, P: int = 2):
     if tiles.device.type == "cpu":
         cuda_lib.count(score_pair, True, plain=True)
         return sw_cell.score_bucket_cell_plain(tiles, query, matrix_flat, params)
+    shape = sw_cell.cell_shape(tiles.shape[1])
+    if shape is None:
+        return sw_cell.col_route(score_pair, tiles, query, matrix_flat, params, 0)
     return cuda_lib.launch_tool(score_pair, "sw_pair_kernel", tiles, query, matrix_flat,
-                                params, 0, P)
+                                params, shape, 0, P)
 
 
 score_pair.launches = score_pair.launches16 = 0

@@ -687,45 +687,75 @@ def test_col_flat16_and_fused16_kernels_meet_sat_rule(dev, monkeypatch, mat, L, 
         assert torch.equal(got, exact)
 
 
+def _no_scratch(dev, fn, out_bytes, L):
+    """Call ``fn`` on the card; on the cell route (``L`` of a cell
+    instance) assert that it allocated at most its scores (``out_bytes``)
+    plus 1 MB.  Returns its result."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = fn()
+    torch.cuda.synchronize(dev)
+    if sw_cell.cell_shape(L):
+        assert torch.cuda.max_memory_allocated(dev) - base <= out_bytes + (1 << 20)
+    return got
+
+
+@pytest.mark.parametrize("mat", MATS)
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("L", [40, 64, 136])
-def test_manual_kernel_equals_cell_plain(dev, monkeypatch, exact, L):
-    """B7 over 3 tiles (96 stripes): a stripe of one short chunk, of one
-    full 64-column chunk, and of two full chunks plus a ragged one."""
+@pytest.mark.parametrize("L", [40, 136, 300, 640, 768, 800])
+def test_manual_kernel_equals_cell_plain(dev, monkeypatch, mat, exact, L):
+    """B7 over 4 tiles at SAT 30: one instance of each group width (8, 16
+    and 32 lanes) up to the largest, L = 768, with several ring units a
+    block at the longer L, the int16 pairwise table of both alphabets (75.8
+    KB at A = 26), and the col route past 768, each launch counted on B7's
+    wrapper; an empty query scores 0.  On the cell route (L <= 768) the
+    call allocates no scratch."""
     monkeypatch.setattr(sw_cell, "SAT", 30)
     rng = np.random.default_rng(23)
-    cfg = make_scoring_config("blosum62")
+    cfg = make_scoring_config(mat)
     A, pad = cfg.alphabet_size, cfg.pad_code
-    tiles = torch.as_tensor(_tiles(rng, (3, L, 32, 128), pad, 3 * 4096 - 9, A))
+    tiles = torch.as_tensor(_tiles(rng, (4, L, 32, 128), pad, 4 * 4096 - 9, A))
+    _edge_lanes(tiles, pad, rng)
     q = torch.as_tensor(_query(rng, 45, 128, pad, A))
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
     params = (45, cfg.gop, cfg.gex, 48)
     want = sw_cell.score_bucket_cell_plain(tiles, q, m, params, exact=exact)
-    got = sw_cell.score_bucket_cell_manual(tiles.to(dev), q.to(dev), m.to(dev), params,
-                                           exact=exact).cpu()
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
+    fn = sw_cell.score_bucket_cell_manual
+    mode = "launches" if exact else "launches16"
+    before = (getattr(fn, mode), fn.plain_calls + fn.plain_calls16)
+    got = _no_scratch(dev, lambda: fn(t, qd, md, params, exact=exact), 4 * 4096 * 4, L)
+    assert (getattr(fn, mode), fn.plain_calls + fn.plain_calls16) == (before[0] + 1, before[1])
+    got = got.cpu()
     if exact:
         assert torch.equal(got, want)
     else:
         assert bool(sw_cell.sat_match(got, want).all())
-    empty = sw_cell.score_bucket_cell_manual(tiles.to(dev), q.to(dev), m.to(dev),
-                                             (0, cfg.gop, cfg.gex, 8))
+        assert int((want >= 30).sum()) > 0
+    empty = fn(t, qd, md, (0, cfg.gop, cfg.gex, 8), exact=exact)
     assert not bool(empty.any())
 
 
+@pytest.mark.parametrize("L", [40, 640, 800])
 @pytest.mark.parametrize("P", [1, 2, 4])
-def test_pair_kernel_equals_cell_plain(dev, P):
+def test_pair_kernel_equals_cell_plain(dev, P, L):
+    """B8 over 4 tiles at P tiles a block, on one instance of each end of
+    the cell shapes and on the col route past 768; on the cell route the
+    call allocates no scratch."""
     from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     rng = np.random.default_rng(24)
     cfg = make_scoring_config("blosum62_full")
     A, pad = cfg.alphabet_size, cfg.pad_code
-    tiles = torch.as_tensor(_tiles(rng, (4, 40, 32, 128), pad, 4 * 4096 - 3, A))
+    tiles = torch.as_tensor(_tiles(rng, (4, L, 32, 128), pad, 4 * 4096 - 3, A))
     q = torch.as_tensor(_query(rng, 37, 64, pad, A))
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1))
     params = (37, cfg.gop, cfg.gex, 40)
     want = sw_cell.score_bucket_cell_plain(tiles, q, m, params)
+    t, qd, md = tiles.to(dev), q.to(dev), m.to(dev)
     before = score_pair.launches
-    got = score_pair(tiles.to(dev), q.to(dev), m.to(dev), params, P=P)
+    got = _no_scratch(dev, lambda: score_pair(t, qd, md, params, P=P), 4 * 4096 * 4, L)
     assert score_pair.launches == before + 1
     assert torch.equal(got.cpu(), want)
 
@@ -957,3 +987,29 @@ def test_device_trace_names_a_port_kernel(dev, tmp_path):
     names = [e.get("name", "") for e in json.load(open(path))["traceEvents"]]
     assert any("sw_cell_kernel" in n for n in names)
     assert "sw:bucket cell L=64" in names
+
+
+def test_device_trace_holds_every_launch(dev, tmp_path):
+    """Twenty traces in one process, each of a row and a cell launch made
+    as soon as the trace starts: every trace holds both kernels, as
+    chip_smoke's idle shares require (they are given only where a trace's
+    kernels number the wrappers' launches)."""
+    import json
+
+    from cudasw4_tpu_torch.utils.profiling import device_trace
+
+    rng = np.random.default_rng(43)
+    cfg = make_scoring_config("blosum62")
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    rt = torch.as_tensor(rng.integers(0, 20, size=(2, 48, 128)).astype(np.int8)).cuda()
+    ct = torch.as_tensor(rng.integers(0, 20, size=(1, 64, 32, 128)).astype(np.int8)).cuda()
+    q = torch.as_tensor(rng.integers(0, 20, size=64).astype(np.int32)).cuda()
+    p = (64, cfg.gop, cfg.gex, 64)
+    for k in range(20):
+        with device_trace(str(tmp_path), f"t{k}.json") as path:
+            sw_row.score_bucket_row(rt, q, m, p)
+            sw_cell.score_bucket_cell(ct, q, m, p)
+        names = [e["name"] for e in json.load(open(path))["traceEvents"]
+                 if e.get("cat") == "kernel"]
+        assert [sum(f"::{kernel}<" in n for n in names)
+                for kernel in ("sw_row_kernel", "sw_cell_kernel")] == [1, 1]
