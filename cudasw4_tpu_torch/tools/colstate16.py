@@ -38,8 +38,9 @@ QUERY_LENGTHS = (1024, 2048)
 SLOT_SETS = ((1024, 1024), (1024, 1024, 1024), (512,) * 6)
 
 
-def parse_argv(argv):
-    """(T, reps, device) from ``[T] [reps] [--device D]``."""
+def parse_argv(argv, doc=__doc__):
+    """(T, reps, device) from ``[T] [reps] [--device D]``; a malformed
+    command line exits with the usage ``doc``."""
     argv = list(argv)
     device = "cuda"
     if "--device" in argv:
@@ -47,7 +48,7 @@ def parse_argv(argv):
         device = argv[i + 1]
         del argv[i : i + 2]
     if len(argv) > 2 or any(not a.isdigit() for a in argv):
-        raise SystemExit(__doc__)
+        raise SystemExit(doc)
     T, reps = [int(a) for a in argv] + [64, 3][len(argv):]
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -760,13 +760,15 @@ def test_pair_kernel_equals_cell_plain(dev, P, L):
     assert torch.equal(got.cpu(), want)
 
 
-def _stream_packed(rng, cfg):
-    """A packed database of many small tiles: 24 row tiles (L = 32), 10 cell
-    tiles (L = 64) and 6 col tiles (L = 256), the last tile of each bucket
-    partly empty."""
+def _stream_packed(rng, cfg, layout=((32, "row", 128, 24), (64, "cell", 4096, 10),
+                                      (256, "col", 4096, 6))):
+    """A packed database of many small tiles, by default 24 row tiles (L =
+    32), 10 cell tiles (L = 64) and 6 col tiles (L = 256); ``layout``:
+    (L, kind, NS, T) a bucket.  The last tile of each bucket is partly
+    empty."""
     pad = cfg.pad_code
     buckets, base = [], 0
-    for L, kind, ns, T in ((32, "row", 128, 24), (64, "cell", 4096, 10), (256, "col", 4096, 6)):
+    for L, kind, ns, T in layout:
         cnt = T * ns - 7
         shape = (T, L, ns) if kind == "row" else (T, L, 32, 128)
         tiles = _tiles(rng, shape, pad, cnt, cfg.alphabet_size)
@@ -1013,3 +1015,59 @@ def test_device_trace_holds_every_launch(dev, tmp_path):
                  if e.get("cat") == "kernel"]
         assert [sum(f"::{kernel}<" in n for n in names)
                 for kernel in ("sw_row_kernel", "sw_cell_kernel")] == [1, 1]
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_fuzz_modes_agree_on_card(dev, trial):
+    """tests/test_torch_fuzz_modes.py's trial on the card: single, batched,
+    streamed and two-shard mesh scans of random databases (length-1
+    subjects, duplicates, empty and 1-residue queries) equal the resident
+    single scan."""
+    from test_torch_fuzz_modes import fuzz_trial
+
+    fuzz_trial(trial, "cuda")
+
+
+#: Cell buckets of L = 128 and 256 route (L % LC == 0), L = 64 does not;
+#: a col bucket of L = 256 keeps B3.
+ROUTING_LAYOUT = ((64, "cell", 4096, 2), (128, "cell", 4096, 2), (256, "cell", 4096, 1),
+                  (256, "col", 4096, 2))
+
+
+@pytest.mark.parametrize("state16", [False, True])
+def test_routed_single_scan_equals_unrouted_on_card(dev, state16):
+    """With COL_SINGLE_MIN_ROWS lowered to 8, single scans of queries of
+    one NQC pass score the cell buckets whose L is a multiple of LC on B3
+    (B3 int16 under state16) in place of B1 and give the closed window's
+    results; a query past NQC keeps B1; warmup launches B3 once more a
+    routed bucket and mode."""
+    rng = np.random.default_rng(45)
+    cfg = make_scoring_config("blosum62")
+    packed = _stream_packed(rng, cfg, ROUTING_LAYOUT)
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in (30, 600, 3000, 3500)]
+    eng = SearchEngine(scoring=cfg, num_top=15, device="cuda")
+    eng.state16 = state16
+    eng.set_database(None, packed=packed)
+    mode = "launches16" if state16 else "launches"
+    runs = {}
+    for window in (sw_col.NQC + 1, 8):
+        eng.COL_SINGLE_MIN_ROWS = window
+        before = (getattr(sw_cell.score_bucket_cell, mode), getattr(sw_col.score_bucket_col, mode))
+        res = [(r.scores, r.reference_ids) for r in map(eng.scan, queries)]
+        runs[window] = res, (getattr(sw_cell.score_bucket_cell, mode) - before[0],
+                             getattr(sw_col.score_bucket_col, mode) - before[1])
+    (closed, (cell_c, col_c)), (routed, (cell_r, col_r)) = runs[sw_col.NQC + 1], runs[8]
+    assert routed == closed
+    assert eng._single_kinds(600) == ("cell", "col", "col", "col")
+    assert eng._single_kinds(3504) == ("cell", "cell", "cell", "col")
+    assert (cell_c - cell_r, col_r - col_c) == (6, 6)  # three queries, two routed buckets
+    counters = [(fn, m) for fn in (sw_cell.score_bucket_cell, sw_col.score_bucket_col)
+                for m in ("launches", "launches16")]
+    warmed = {}
+    for window in (sw_col.NQC + 1, 8):
+        eng.COL_SINGLE_MIN_ROWS = window
+        before = [getattr(fn, m) for fn, m in counters]
+        eng.warmup()
+        warmed[window] = [getattr(fn, m) - b for (fn, m), b in zip(counters, before)]
+    extra = [a - b for a, b in zip(warmed[8], warmed[sw_col.NQC + 1])]
+    assert extra == [0, 0, 2, 2 * state16]

@@ -69,3 +69,20 @@ def test_cli_entry_points_start_without_jax(cmd):
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("tool", ["bigsingle", "sweepdiag", "tremblbench"])
+def test_engine_tools_import_without_jax(tool):
+    """The engine tools import with JAX and the JAX package blocked, and
+    their usage texts name their module."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    name = f"cudasw4_tpu_torch.tools.{tool}"
+    code = (
+        "import importlib, sys; "
+        "sys.modules['jax'] = None; sys.modules['cudasw4_tpu'] = None; "
+        f"print(importlib.import_module({name!r}).__doc__)"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert f"python -m {name}" in r.stdout

@@ -5,11 +5,18 @@ modes (SAT lowered to 30 for int16, under the SAT rule); the P-tiles-per-
 block kernel (B8, ``tools.pairbench.score_pair``) against the cell kernel
 in interpret mode (JAX's ``score_pair`` has no interpret mode, and
 pairbench itself checks against the cell kernel); and both tools' ``main``
-at L = 32, n = 8192.  Inputs are made with numpy from seeds.
+at L = 32, n = 8192.  The engine tools' bodies at tiny sizes: bigsingle
+(B1 against B3 on the same tiles, LC 16 and NQC 24 so that the longer
+query chunks with the carry), sweepdiag, and tremblbench, which must
+stream under a tiny budget and give a resident scan's hits on a database
+equal to the JAX tools/dbbench.py's.  Inputs are made with numpy from
+seeds.
 """
 
 import contextlib
+import importlib.util
 import io
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +25,12 @@ import torch
 
 from cudasw4_tpu import make_scoring_config as jax_scoring
 from cudasw4_tpu.ops import sw_pallas_cell
-from cudasw4_tpu_torch.ops import sw_cell
-from cudasw4_tpu_torch.tools import dmabench, pairbench
+from cudasw4_tpu_torch.engine import SearchEngine
+from cudasw4_tpu_torch.engine_streaming import STREAM_CHUNK_BYTES
+from cudasw4_tpu_torch.ops import sw_cell, sw_col
+from cudasw4_tpu_torch.tools import bigsingle, dmabench, pairbench, sweepdiag, tremblbench
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,3 +115,78 @@ def test_tool_main_prints_only_ok(tool, checks):
     assert sum("[OK]" in line for line in lines) == checks
     assert not any("MISMATCH" in line for line in lines)
     assert all("GCUPS" in line or "skipped" in line for line in lines)
+
+
+# ------------------------------------------------------- engine tools
+
+
+def _load(relpath):
+    """A module of the repository by path (the root tools/ and
+    benchmarks/ are not packages)."""
+    spec = importlib.util.spec_from_file_location(os.path.basename(relpath)[:-3],
+                                                  os.path.join(REPO, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bigsingle_body_on_cpu(monkeypatch, capsys):
+    """Both routes on one tile of subjects of 32 residues, queries of 8 and
+    40 rows (two chunks with the carry at NQC = 24), both states: four
+    lines, each OK, and each route's plain version called once a line and
+    mode besides the warm-up."""
+    monkeypatch.setattr(sw_col, "LC", 16)
+    monkeypatch.setattr(sw_col, "NQC", 24)
+    counters = [(fn, name) for fn in (sw_cell.score_bucket_cell, sw_col.score_bucket_col)
+                for name in ("plain_calls", "plain_calls16")]
+    before = [getattr(fn, name) for fn, name in counters]
+    lines = bigsingle.run(1, 1, torch.device("cpu"), lengths=(32,), query_lengths=(8, 40))
+    calls = [getattr(fn, name) - b for (fn, name), b in zip(counters, before)]
+    assert [(x["q"], x["state"], x["ok"]) for x in lines] == [
+        (8, "i32", True), (8, "i16", True), (40, "i32", True), (40, "i16", True)]
+    assert calls == [4, 4, 6, 6]  # B3: one chunk at q = 8, two at q = 40
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 4 and all(x.endswith("[OK]") and "col" in x for x in out)
+
+
+def test_sweepdiag_body_on_cpu(capsys):
+    make_queries = _load("benchmarks/make_queries.py")
+    assert list(sweepdiag.QUERY_LENGTHS) == make_queries.QUERY_LENGTHS
+    res = sweepdiag.run(48, 300, torch.device("cpu"), query_lengths=(5, 30, 60))
+    assert [q["q"] for q in res["queries"]] == [5, 30, 60]
+    assert all(q["gcups"] > 0 and q["seconds"] > 0 for q in res["queries"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 5 and out[-1].startswith("TOTAL: ")
+    assert sweepdiag.parse_argv(["512", "1000", "--device", "cpu"])[:2] == (512, 1000)
+
+
+def test_tremblbench_streams_and_equals_resident(tmp_path, monkeypatch, capsys):
+    """The port's sprot-like database equals the JAX tools/dbbench.py's
+    (drawn in several calls here); the rehearsal on 600 sequences streams
+    under a budget of 64 KiB in 16 KiB chunks, and its last pass gives a
+    resident engine's hits; the chunk is divided by the scale only where
+    the working memory needs it."""
+    monkeypatch.setattr(tremblbench, "GEN_CHUNK", 1000)
+    monkeypatch.delenv("DBBENCH_CACHE", raising=False)
+    jax_db = _load("tools/dbbench.py").make_sprotlike_db(300)
+    db = tremblbench.make_sprotlike_db(300)
+    for k in ("chars", "offsets", "lengths", "headers", "header_offsets"):
+        assert np.array_equal(getattr(db, k), np.asarray(getattr(jax_db, k))), k
+    assert int(db.lengths.sum()) > 300 * 1000 // tremblbench.GEN_CHUNK
+
+    res = tremblbench.run(600, 1, 64 << 10, str(tmp_path / "store"), torch.device("cpu"),
+                          chunk_bytes=16 << 10, query_lengths=(20, 45))
+    assert res["copy"]["chunks"] > 1 and res["peak_device_bytes"] is None
+    resident = SearchEngine(num_top=10, device="cpu")
+    resident.set_database(res["db"])
+    assert not resident.streaming
+    want = [(r.scores, r.reference_ids) for r in resident.scan_many(res["queries"])]
+    assert [(r.scores, r.reference_ids) for r in res["results"]] == want
+    out = capsys.readouterr().out
+    assert "BEST trembl rehearsal" in out and "copy stream:" in out
+
+    lengths = res["db"].lengths
+    assert tremblbench.chunk_for(lengths, 1 << 40, 20.0) == STREAM_CHUNK_BYTES
+    assert tremblbench.chunk_for(lengths, 1 << 20, 20.0) == int(STREAM_CHUNK_BYTES / 20)
+    assert tremblbench.parse_argv(["3", "--scale", "20", "--device", "cpu"]) == \
+        (3, 20.0, torch.device("cpu"))
