@@ -125,7 +125,18 @@ non-zero:
    tiles, seconds for each; modifydb verify on the database.
 15. profile: align --profile on two queries; the trace names the batch's
    kernels and the engine's spans.
-16. kernels line: per kernel, its launches on its path (align for the
+16. bench: the benchmark entry points.  python -m cudasw4_tpu_torch.bench
+   (bench.py's peak protocol on the port) as a child process at 100,000
+   sequences and one rep, in sweep and in peak mode: exactly one stdout
+   line with bench.py's keys and metric and a value > 0, six ``# L=``
+   lines in sweep mode, every config resident, the child's launch
+   counters on its path; the sweep's results, which num_top=0 hides: at
+   each sweep L, 8,192 copies of the pseudo subject, every hit of the 20
+   queries its oracle score on ids 0-9; runpeakbenchmark.sh's command for
+   L = 1024 on the port's align (--top 0 --verbose --uploadFull
+   --pseudodb 100000 1024), its Total time line; tools.dbbench at 200,000
+   sequences, 2 reps, its BEST line and every hit against the oracle.
+17. kernels line: per kernel, its launches on its path (align for the
    exact kernels but B6, the fused scan_batch for B6, align --dpx for the int16 modes of B1 and B3,
    colstate16 for B5 int16, the tools for the exact manual and pair
    kernels; each path's counters are reset just before it and read just
@@ -135,7 +146,8 @@ non-zero:
    (``stream_launches``, B6 from the fused streamed pass) and on the mesh
    (``mesh_launches``: phase mesh's resident run, B6 its fused batch,
    the int16 modes of B1 and B3 its int16 run; 0 for the tool kernels
-   and the batch kernels' int16 modes), and its time,
+   and the batch kernels' int16 modes), its launches in phase bench's
+   sweep (``bench_launches``), and its time,
    bound and plain time at its
    main-path shape: the largest bucket of its kind, with the 464-aa query
    for the single-query kernels (and the manual and pair kernels, B7
@@ -2871,6 +2883,176 @@ def phase_profile(ctx):
 
 
 
+# --------------------------------------------------------------- phase bench
+
+#: Phase bench's cut of the benchmark protocol (python -m
+#: cudasw4_tpu_torch.bench): BENCH_NUM_SEQS from 1M (sweep) and 500k (peak)
+#: to 100k, one rep; the pseudo databases of the hit check; the CLI's
+#: config, runpeakbenchmark.sh's L = 1024 one at 100k sequences; and
+#: dbbench's sequences and reps (its defaults).
+BENCH_ENV = {"BENCH_NUM_SEQS": "100000", "BENCH_REPS": "1"}
+BENCH_HIT_SEQS = 8192
+BENCH_CLI_PSEUDO = (100_000, 1024)
+DBBENCH_ARGS = (200_000, 2)
+BENCH_L_LINE = re.compile(r"^# L=(\d+): ([0-9.]+) GCUPS \(([0-9.]+)s\)$")
+BENCH_REP_LINE = re.compile(r"^# rep (\d+) at (\d+): ([0-9.]+)s ([0-9.]+) GCUPS$")
+BENCH_RESIDENT_LINE = re.compile(r"^# resident (\d+) x (\d+): tiles (\d+) B, peak device memory (\d+) B$")
+#: The kernels-line rows that the benchmark's launch counters stand for.
+BENCH_COUNTERS = {
+    "sw_cell_kernel": "cell", "sw_cell16_kernel": "cell16", "sw_row_kernel": "row",
+    "sw_col_kernel": "col", "sw_col16_kernel": "col16", "sw_cell_batch_kernel": "cell_batch",
+    "sw_cell16_kernel[batch]": "cell_batch16", "sw_col_flat_kernel": "col_flat",
+    "sw_col_flat16_kernel": "col_flat16", "sw_col_fused_kernel": "col_fused",
+    "sw_col_fused16_kernel": "col_fused16",
+}
+
+
+def bench_child(mode: str) -> dict:
+    """python -m cudasw4_tpu_torch.bench in a child process under BENCH_ENV
+    and BENCH_MODE=``mode``: exactly one stdout line, bench.py's keys and
+    metric with a value > 0; one ``# L=`` line per sweep config; every
+    config resident; the child's launch counters show the path.  Returns
+    the line and the stderr figures."""
+    from cudasw4_tpu_torch.bench import SWEEP_LENGTHS, metric_name
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cudasw4_tpu_torch.bench"], capture_output=True,
+                       text=True, cwd=REPO, timeout=900,
+                       env=dict(os.environ, BENCH_MODE=mode, **BENCH_ENV))
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"bench {mode}: exit {r.returncode}: {r.stderr[-3000:]}")
+    out = r.stdout.splitlines()
+    check(len(out) == 1, f"bench {mode}: {len(out)} stdout lines: {out[:5]}")
+    line = json.loads(out[0])
+    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
+          and line["metric"] == metric_name(mode) and line["unit"] == "GCUPS"
+          and line["value"] > 0, f"bench {mode}: {out[0]}")
+    err = r.stderr.splitlines()
+    configs = [m for m in map(BENCH_L_LINE.match, err) if m]
+    n_configs = len(SWEEP_LENGTHS) if mode == "sweep" else 1
+    check(len(configs) == (n_configs if mode == "sweep" else 0),
+          f"bench {mode}: {len(configs)} '# L=' lines")
+    resident = [m for m in map(BENCH_RESIDENT_LINE.match, err) if m]
+    check(len(resident) == n_configs, f"bench {mode}: {len(resident)} resident configs")
+    counts = {k: tuple(v) for k, v in json.loads(
+        [x for x in err if x.startswith("# launches: ")][-1][len("# launches: "):]).items()}
+    check_path(counts, f"bench {mode}", ("cell", "cell_batch", "col", "col_flat")
+               if mode == "sweep" else ("cell", "cell_batch"))
+    return {**line, "env": BENCH_ENV,
+            "configs": [{"L": int(m[1]), "gcups": float(m[2]), "seconds": float(m[3])}
+                        for m in configs],
+            "reps": [{"rep": int(m[1]), "L": int(m[2]), "seconds": float(m[3]),
+                      "gcups": float(m[4])} for m in map(BENCH_REP_LINE.match, err) if m],
+            "resident": [{"num": int(m[1]), "L": int(m[2]), "tile_bytes": int(m[3]),
+                          "peak_device_bytes": int(m[4])} for m in resident],
+            "launches": {k: v[0] for k, v in counts.items()}, "seconds": seconds}
+
+
+def check_hits(name, db, queries, results, cfg) -> None:
+    """Each query's hits: in (descending score, ascending id) order, and
+    each score the vectorised oracle's for its subject."""
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.ops import oracle
+
+    for qi, (q, res) in enumerate(zip(queries, results)):
+        hs = list(zip(res.scores, res.reference_ids))
+        check(hs == sorted(hs, key=lambda h: (-h[0], h[1])), f"{name} query {qi}: tie order")
+        subs = [db.get_sequence(r) for r in res.reference_ids]
+        block = np.full((len(subs), max(len(x) for x in subs)), cfg.pad_code, np.int8)
+        for k, x in enumerate(subs):
+            block[k, : len(x)] = x
+        want = oracle.sw_score_rowvec(encode(q), block, cfg.matrix, cfg.gop, cfg.gex)
+        check(res.scores == [int(v) for v in want], f"{name} query {qi}: scores differ from the oracle")
+
+
+def phase_bench(kernels):
+    """The benchmark entry points (``bench_child``): the sweep and the peak
+    mode; the sweep's results, which num_top=0 does not show: at each sweep L
+    a pseudo database of BENCH_HIT_SEQS copies of one subject, every hit of
+    the 20 queries (two single scans, then scan_many, as the sweep runs
+    them) its oracle score with ids 0-9 (the tie rule); the
+    reference's peak command for one config on the port's CLI (``align
+    --top 0 --verbose --uploadFull --pseudodb``, its Total time line); and
+    tools.dbbench at DBBENCH_ARGS, every hit against the oracle.  The
+    sweep's launches become the kernels line's ``bench_launches``."""
+    from cudasw4_tpu_torch import make_scoring_config
+    from cudasw4_tpu_torch.bench import SWEEP_LENGTHS, make_queries
+    from cudasw4_tpu_torch.cli import align
+    from cudasw4_tpu_torch.constants import encode
+    from cudasw4_tpu_torch.db.format import pseudo_to_dbdata
+    from cudasw4_tpu_torch.db.pseudo import make_pseudo_db
+    from cudasw4_tpu_torch.engine import SearchEngine
+    from cudasw4_tpu_torch.ops import oracle
+    from cudasw4_tpu_torch.tools import dbbench
+
+    t_phase = time.perf_counter()
+    runs = {mode: bench_child(mode) for mode in ("sweep", "peak")}
+    for name, k in kernels.items():
+        k["bench_launches"] = runs["sweep"]["launches"].get(BENCH_COUNTERS.get(name), 0)
+
+    # Every subject of a pseudo database is one sequence: each query's ten
+    # hits score the oracle's score of it, on ids 0-9.  As in the sweep,
+    # two single scans (the single-query kernels) and one scan_many (the
+    # batch kernels, and singles where a query is past the batch cap).
+    t0 = time.perf_counter()
+    cfg = make_scoring_config("blosum62")
+    queries = make_queries()
+    pdbs = {L: make_pseudo_db(BENCH_HIT_SEQS, L) for L in SWEEP_LENGTHS}
+    block = np.full((len(SWEEP_LENGTHS), max(SWEEP_LENGTHS)), cfg.pad_code, np.int8)
+    for k, L in enumerate(SWEEP_LENGTHS):
+        block[k, :L] = pdbs[L].chars[:L]
+    want = [oracle.sw_score_rowvec(encode(q), block, cfg.matrix, cfg.gop, cfg.gex) for q in queries]
+    reset_counts()
+    for k, L in enumerate(SWEEP_LENGTHS):
+        eng = SearchEngine(num_top=10)
+        eng.set_database(pseudo_to_dbdata(pdbs[L]))
+        results = [eng.scan(queries[0]), eng.scan(queries[-1]), *eng.scan_many(queries)]
+        for qi, res in zip([0, len(queries) - 1, *range(len(queries))], results):
+            check(res.scores == [int(want[qi][k])] * 10 and res.reference_ids == list(range(10)),
+                  f"pseudo L={L} query {qi}: {res.scores} {res.reference_ids}, oracle {want[qi][k]}")
+        del eng
+    hit_counts = read_counts()
+    check_path(hit_counts, "pseudo hits", ("cell", "cell_batch", "col", "col_flat"))
+    t_hits = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rc, out = run_cli(align, ["--query", QUERY_SET, "--top", "0", "--verbose", "--uploadFull",
+                              "--mat", "blosum62", "--pseudodb", *map(str, BENCH_CLI_PSEUDO)])
+    cli_counts = read_counts()
+    check(rc == 0, "align --pseudodb failed")
+    total = [x for x in out.splitlines() if x.startswith("Total time: ")]
+    check(len(total) == 1, f"align --pseudodb: {len(total)} Total time lines")
+    total_s, total_gcups = (float(v) for v in
+                            total[0].replace("Total time: ", "").replace(" GCUPS", "").split(" s, "))
+    check_path(cli_counts, "align --pseudodb", ("col", "col_flat"))
+    t_cli = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reset_counts()
+    db_res, db_lines = captured(dbbench.run, *DBBENCH_ARGS, torch.device("cuda"))
+    db_counts = read_counts()
+    best = [x for x in db_lines if x.startswith("BEST sprot-like total: ")]
+    check(len(best) == 1 and db_res["best_gcups"] > 0, f"dbbench: {db_lines[-3:]}")
+    check_path(db_counts, "dbbench", ("cell", "cell_batch", "col", "col_flat"))
+    check_hits("dbbench", db_res["db"], db_res["queries"], db_res["results"], cfg)
+    t_db = time.perf_counter() - t0
+    emit({"phase": "bench", **runs,
+          "pseudo_hits": {"sequences": BENCH_HIT_SEQS, "lengths": list(SWEEP_LENGTHS),
+                          "oracle_equal": True, "seconds": t_hits,
+                          "launches": {k: v[0] for k, v in hit_counts.items()}},
+          "cli": {"pseudodb": list(BENCH_CLI_PSEUDO), "total_seconds": total_s,
+                  "total_gcups": total_gcups, "seconds": t_cli,
+                  "launches": {k: v[0] for k, v in cli_counts.items()}},
+          "dbbench": {"args": list(DBBENCH_ARGS), "residues": db_res["residues"],
+                      "set_database_s": db_res["set_database_s"],
+                      "first_pass_s": db_res["first_pass_s"], "passes": db_res["passes"],
+                      "best_gcups": db_res["best_gcups"],
+                      "peak_device_bytes": db_res["peak_device_bytes"], "hits_equal_oracle": True,
+                      "seconds": t_db, "launches": {k: v[0] for k, v in db_counts.items()}},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to check", file=sys.stderr)
@@ -2901,6 +3083,7 @@ def main() -> int:
     phase_tuning(ctx, defaults)
     phase_native(ctx)
     phase_profile(ctx)
+    phase_bench(kernels)
     for k in kernels.values():
         check(k["launches"] or k["path"] is None, f"{k['name']} never launched on its path")
     emit({"kernels": list(kernels.values())})

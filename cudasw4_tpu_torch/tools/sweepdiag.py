@@ -7,7 +7,7 @@ Usage: python -m cudasw4_tpu_torch.tools.sweepdiag [L] [nseq] [--device cpu]
 The database is the pseudo database of ``nseq`` copies of one random
 sequence of L residues (``db.pseudo.make_pseudo_db``, default L = 1024,
 nseq = 1,000,000); the queries are random sequences of the 20
-``QUERY_LENGTHS`` from ``np.random.default_rng(123)``, searched with
+``bench.QUERY_LENGTHS`` from ``np.random.default_rng(123)``, searched with
 ``num_top=0``.  After one scan of the shortest and of the longest query
 and one warm ``scan_many`` of all 20, a timed ``scan_many`` prints one
 line per query (its GCUPS and seconds: a batch's span split by each
@@ -20,20 +20,10 @@ from __future__ import annotations
 import sys
 import time
 
-import numpy as np
-
+from ..bench import QUERY_LENGTHS, make_queries
 from ..db.format import pseudo_to_dbdata
 from ..db.pseudo import make_pseudo_db
 from ..engine import SearchEngine, resolve_device
-
-#: The lengths of the reference's 20 benchmark queries (allqueries.fasta;
-#: benchmarks/make_queries.py holds the same list).
-QUERY_LENGTHS = (
-    144, 189, 222, 375, 464, 567, 657, 729, 850, 1000,
-    1500, 2005, 2504, 3005, 3564, 4061, 4548, 4743, 5147, 5478,
-)
-
-AAS = "ARNDCQEGHILKMFPSTWYV"
 
 
 def parse_argv(argv):
@@ -54,8 +44,7 @@ def run(L: int, nseq: int, device, query_lengths=QUERY_LENGTHS) -> dict:
     """Run the diagnostic and print its lines; returns {"set_database_s",
     "queries": [{"q", "gcups", "seconds"}], "total_gcups",
     "total_seconds"}."""
-    rng = np.random.default_rng(123)
-    queries = ["".join(AAS[c] for c in rng.integers(0, 20, n)) for n in query_lengths]
+    queries = make_queries(query_lengths)
     engine = SearchEngine(num_top=0, device=device)
     t0 = time.perf_counter()
     engine.set_database(pseudo_to_dbdata(make_pseudo_db(nseq, L)))

@@ -1,4 +1,5 @@
-"""cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu;
+"""cudasw4_tpu_torch and chip_smoke.py import neither JAX nor cudasw4_tpu
+(nor the root benchmarks/ scripts);
 importing them builds no kernel, compiles no native library and starts no
 process group.
 
@@ -28,7 +29,8 @@ from cudasw4_tpu_torch.ops import cuda_lib
 from cudasw4_tpu_torch import native
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "cudasw4_tpu" or m.startswith("cudasw4_tpu."))
+             or m == "cudasw4_tpu" or m.startswith("cudasw4_tpu.")
+             or m == "benchmarks" or m.startswith("benchmarks."))
 print(len(names))
 print(",".join(bad))
 print(int(dist.is_available() and dist.is_initialized()), int(cuda_lib._lib is not None),
@@ -71,15 +73,17 @@ def test_cli_entry_points_start_without_jax(cmd):
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("tool", ["bigsingle", "sweepdiag", "tremblbench"])
+@pytest.mark.parametrize("tool", ["bigsingle", "sweepdiag", "tremblbench", "dbbench", "bench"])
 def test_engine_tools_import_without_jax(tool):
-    """The engine tools import with JAX and the JAX package blocked, and
-    their usage texts name their module."""
+    """The engine tools and the benchmark entry point import with JAX, the
+    JAX package and benchmarks/ blocked, and their usage texts name their
+    module."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    name = f"cudasw4_tpu_torch.tools.{tool}"
+    name = "cudasw4_tpu_torch.bench" if tool == "bench" else f"cudasw4_tpu_torch.tools.{tool}"
     code = (
         "import importlib, sys; "
         "sys.modules['jax'] = None; sys.modules['cudasw4_tpu'] = None; "
+        "sys.modules['benchmarks'] = None; "
         f"print(importlib.import_module({name!r}).__doc__)"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
