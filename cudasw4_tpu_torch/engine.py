@@ -28,8 +28,7 @@ the mesh's shards, resident or streamed: each shard runs the same kernels
 on its slice, reduces it to its top N, and the host merges the shards'
 candidates under the same tie rule (``_dispatch_mesh``,
 ``_dispatch_batch_mesh``, ``_rescore_overflow_mesh``), so a mesh gives
-exactly what one device gives.  A mesh scan is timed on the host clock,
-from its launch to the merged result on the host.
+exactly what one device gives.
 GCUPS = query length x sum of real DB lengths / 1e9 / seconds, as the
 reference's makeBenchmarkStats (src/cudasw4.cuh:2264-2271); a mesh counts
 the database's residues once, not once a shard.
@@ -39,9 +38,22 @@ The engine runs on the card unless the caller asks for the CPU
 its kernel's plain version.  On a card it applies the packaged tuning
 config of the device once, before it packs (``db.packing.auto_apply_tuning``).
 ``warmup=True`` launches every kernel instance a single scan of the
-database reaches once, at ``set_database`` (``warmup``).  Each scan and
-each bucket dispatch is a profiler span and, on a card, an NVTX range
-(``utils.profiling.span``).
+database reaches once, at ``set_database`` (``warmup``).
+
+Every scan's seconds are host-clock seconds, from its launch to its result
+on the host; a launch of ``scan_many`` queued behind others counts from
+the later of its launch and the previous result's arrival (``_seconds``),
+so the per-query seconds of one call sum to at most its wall time.
+
+Each layer boundary of a scan is a profiler span and, on a card, an NVTX
+range (``utils.profiling.span``), all named ``sw:*``: ``sw:scan`` the
+whole ``scan`` call; inside it ``sw:enqueue`` (the query upload, one
+``sw:bucket <kind> L=<L>`` a bucket, the slot concatenation and the top N)
+and ``sw:finish`` (the read-back, an overflow re-score, the wait for the
+card and the result).  ``scan_many`` gives its singles the same
+``sw:enqueue`` and ``sw:finish``, and its batches ``sw:scan_batch`` (one
+``sw:batch_bucket <kind> L=<L>`` a bucket) and ``sw:finish``.  A streamed
+pass's spans are listed in engine_streaming.py.
 """
 
 from __future__ import annotations
@@ -118,13 +130,6 @@ def _kernel_launches() -> int:
                for fn in (sw_cell.score_bucket_cell, sw_row.score_bucket_row,
                           sw_col.score_bucket_col)
                for name in ("launches", "launches16"))
-
-
-class _HostClock:
-    """The host-clock start of a mesh launch (``SearchEngine._timed``)."""
-
-    def __init__(self, t0: float):
-        self.t0 = t0
 
 
 def _merge_rescored(vals, ids, cand_v, cand_i):
@@ -242,7 +247,7 @@ class SearchEngine(StreamingEngineMixin):
         self._shards: list[sharding.Shard] = []
         self._total_t0 = None
         self._total_cells = 0.0
-        self._host_done = 0.0  # when the last mesh result reached the host
+        self._host_done = 0.0  # when the last scan_many result reached the host
 
     # ------------------------------------------------------------------ DB
 
@@ -578,7 +583,7 @@ class SearchEngine(StreamingEngineMixin):
         maxima), the tile maxima [T] per bucket for an int16-state scan and
         None for an exact one; on a mesh, ``_dispatch_mesh``'s."""
         exact = self._exact_for(codes)
-        with span("sw:scan", self.device):
+        with span("sw:enqueue", self.device):
             if self.mesh is not None:
                 return self._dispatch_mesh(codes, exact)
             parts = self.bucket_scores(codes, exact)
@@ -727,50 +732,29 @@ class SearchEngine(StreamingEngineMixin):
         """Search one query against the resident database."""
         if self.packed is None:
             raise RuntimeError("set_database() must be called before scan()")
-        codes = self._encode(sequence)
-        if self.streaming:  # one pass of the streamed batch, exact state
-            return self._scan_streaming_batch([codes])[0]
-        t0 = time.perf_counter()
-        vals, ids, overflows = self._finish_single(codes, *self._dispatch(codes))
-        self._sync()
-        seconds = time.perf_counter() - t0
-        result = self._result(vals, ids, len(codes), seconds, overflows)
+        with span("sw:scan", self.device):
+            codes = self._encode(sequence)
+            if self.streaming:  # one pass of the streamed batch, exact state
+                return self._scan_streaming_batch([codes])[0]
+            t0 = time.perf_counter()
+            out = self._dispatch(codes)
+            with span("sw:finish", self.device):
+                vals, ids, overflows = self._finish_single(codes, *out)
+                self._sync()
+                result = self._result(vals, ids, len(codes), time.perf_counter() - t0, overflows)
         if self.debug_check:
             self._debug_check_result(codes, result)
         return result
 
-    def _timed(self, fn, *args):
-        """Run ``fn(*args)``; returns (its result, its clock): CUDA events
-        around its launches on the card, so work queued before it does not
-        count, and its wall seconds on the CPU.  A mesh launch's clock is
-        the host's (``_HostClock``)."""
-        if self.mesh is not None:
-            t0 = time.perf_counter()
-            return fn(*args), _HostClock(t0)
-        if self.device.type != "cuda":
-            t0 = time.perf_counter()
-            return fn(*args), time.perf_counter() - t0
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args)
-        stop.record()
-        return out, (start, stop)
-
-    def _seconds(self, clock) -> float:
-        """Seconds of a clock from ``_timed`` (waits for its events).  A mesh
-        launch's, read once its result is on the host: from the later of
-        its launch and the previous mesh result's arrival to now, so that
-        launches queued ahead share the wall time without counting it
-        twice."""
-        if isinstance(clock, _HostClock):
-            now = time.perf_counter()
-            seconds = now - max(clock.t0, self._host_done)
-            self._host_done = now
-            return seconds
-        if isinstance(clock, tuple):
-            return clock[0].elapsed_time(clock[1]) / 1e3
-        return clock
+    def _seconds(self, t0: float) -> float:
+        """Host seconds of a launch made at ``t0``, read once its result is
+        on the host: from the later of its launch and the previous result's
+        arrival to now, so that launches queued ahead share the wall time
+        without counting it twice."""
+        now = time.perf_counter()
+        seconds = now - max(t0, self._host_done)
+        self._host_done = now
+        return seconds
 
     # ------------------------------------------------------------ batching
 
@@ -880,20 +864,21 @@ class SearchEngine(StreamingEngineMixin):
                 cands.add(sh, *self._top_n(rows, sh.ids))
         return cands
 
-    def _materialize_batch(self, vals, ids, group, clock) -> list[ScanResult]:
-        """Per-query ScanResults of one batch, in order.  A query's seconds
-        are the batch's split in proportion to its cells (queries are not
-        separately observable inside one batch).  On a mesh ``vals`` is the
-        batch's Candidates, merged here."""
-        if isinstance(vals, Candidates):
-            vals, ids = vals.merged()
-        vals, ids = vals.tolist(), ids.tolist()  # waits for the batch
-        seconds = self._seconds(clock)
-        total = sum(len(c) for c in group)
-        out = [
-            self._result(v, i, len(c), seconds * len(c) / total if total else seconds)
-            for v, i, c in zip(vals, ids, group)
-        ]
+    def _materialize_batch(self, vals, ids, group, t0: float) -> list[ScanResult]:
+        """Per-query ScanResults of one batch launched at ``t0``, in order.
+        A query's seconds are the batch's (``_seconds``) split in proportion
+        to its cells (queries are not separately observable inside one
+        batch).  On a mesh ``vals`` is the batch's Candidates, merged here."""
+        with span("sw:finish", self.device):
+            if isinstance(vals, Candidates):
+                vals, ids = vals.merged()
+            vals, ids = vals.tolist(), ids.tolist()  # waits for the batch
+            seconds = self._seconds(t0)
+            total = sum(len(c) for c in group)
+            out = [
+                self._result(v, i, len(c), seconds * len(c) / total if total else seconds)
+                for v, i, c in zip(vals, ids, group)
+            ]
         if self.debug_check:
             for c, r in zip(group, out):
                 self._debug_check_result(c, r)
@@ -923,8 +908,9 @@ class SearchEngine(StreamingEngineMixin):
             )
         if not group:
             return []
-        (vals, ids), clock = self._timed(self._dispatch_batch, group)
-        return self._materialize_batch(vals, ids, group, clock)
+        t0 = time.perf_counter()
+        vals, ids = self._dispatch_batch(group)
+        return self._materialize_batch(vals, ids, group, t0)
 
     def scan_many(self, sequences, window: int = 3):
         """Pipelined scans: yields one ScanResult per input sequence, in
@@ -934,9 +920,10 @@ class SearchEngine(StreamingEngineMixin):
         every query runs alone (the batch kernels are exact), as in the JAX
         engine.  Up to ``window`` launches (batches or singles) are queued
         ahead of reading their results back, so the host's work overlaps
-        the device's.  A single's seconds are its CUDA-event span on the
-        card (its wall time on the CPU), plus its overflow re-score's; a
-        batch's span is split over its queries by their cells.  A streamed
+        the device's.  A single's seconds run on the host from the later of
+        its launch and the previous result's arrival to its result on the
+        host, its overflow re-score included; a batch's are split over its
+        queries by their cells (``_seconds``).  A streamed
         database takes every query into its passes, QB_STREAM a pass, also
         under ``state16`` (streamed passes are exact), each pass synchronous.
         """
@@ -951,18 +938,17 @@ class SearchEngine(StreamingEngineMixin):
                     group = []
             yield from self._scan_streaming_batch(group)
             return
-        pending: deque = deque()  # (group or None, (vals, ids, tmaxes), codes, clock)
+        pending: deque = deque()  # (group or None, (vals, ids, tmaxes), codes, launch time)
         shortbuf: list = []
         qcap_b = self._qcap_batch if not self.state16 else -1
 
         def materialize(entry):
-            group, out, codes, clock = entry
+            group, out, codes, t0 = entry
             if group is not None:
-                return self._materialize_batch(*out, group, clock)
-            # Reads the query back; a re-score is timed on its own.
-            (vals, ids, overflows), clock2 = self._timed(self._finish_single, codes, *out)
-            seconds = self._seconds(clock) + self._seconds(clock2)
-            result = self._result(vals, ids, len(codes), seconds, overflows)
+                return self._materialize_batch(*out, group, t0)
+            with span("sw:finish", self.device):
+                vals, ids, overflows = self._finish_single(codes, *out)
+                result = self._result(vals, ids, len(codes), self._seconds(t0), overflows)
             if self.debug_check:
                 self._debug_check_result(codes, result)
             return [result]
@@ -971,8 +957,8 @@ class SearchEngine(StreamingEngineMixin):
             if shortbuf:
                 group = list(shortbuf)
                 shortbuf.clear()
-                out, clock = self._timed(self._dispatch_batch, group)
-                pending.append((group, out, None, clock))
+                t0 = time.perf_counter()
+                pending.append((group, self._dispatch_batch(group), None, t0))
 
         for sequence in sequences:
             codes = self._encode(sequence)
@@ -984,8 +970,8 @@ class SearchEngine(StreamingEngineMixin):
                         yield from materialize(pending.popleft())
                 continue
             flush_shorts()
-            out, clock = self._timed(self._dispatch, codes)
-            pending.append((None, out, codes, clock))
+            t0 = time.perf_counter()
+            pending.append((None, self._dispatch(codes), codes, t0))
             if len(pending) > window:
                 yield from materialize(pending.popleft())
         flush_shorts()

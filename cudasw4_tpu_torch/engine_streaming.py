@@ -43,6 +43,17 @@ always run exact int32 state, as the JAX package's do, and batch under
 (from its start to the last chunk's results on the host, the transfers
 included, since the user waits for them) split by each query's cells.
 
+The pass's spans (``utils.profiling.span``, under ``sw:stream_pass``),
+for each chunk: ``sw:stream_wait`` (the host waiting for the staging
+slot's previous copy), ``sw:stream_read`` (the chunk's read into
+page-locked memory, the interval that ``stream_copy_stats()
+["host_copy_ms"]`` sums), ``sw:unpack`` (``_put_chunk``), the engine's
+``sw:batch_bucket``/``sw:bucket`` spans of its kernels and ``sw:top_n``;
+a resident prefix chunk has only the last two.  Then ``sw:readback``
+around the candidates' one copy to the host, and after the pass
+``sw:finish`` around the merge and the results.  No span stays open while
+the chunk generators yield.
+
 On a mesh (parallel/sharding.py) a chunk's tiles are a multiple of the
 mesh size and split over the shards as a resident bucket's do
 (``sharding.shard_ranges``): each shard stages its rows through a ring of
@@ -207,9 +218,10 @@ class _StagingRing:
     On the CPU a chunk is a plain copy and the ring holds nothing.  ``log``
     (a list the rings of a mesh's shards share) holds (bytes, start event,
     ``copied``, host seconds) of each chunk: the events around its copy on
-    CUDA, and the seconds of its read into the page-locked buffer.  The
-    compute stream is the current one when the ring is made (a shard's,
-    under its ``shard_context``).
+    CUDA, and the seconds of its read into the page-locked buffer (of the
+    plain copy on the CPU).  ``stage`` emits the spans ``sw:stream_wait``
+    and ``sw:stream_read`` on both.  The compute stream is the current one
+    when the ring is made (a shard's, under its ``shard_context``).
     """
 
     def __init__(self, device, depth: int, payload_bytes: int, sidx_ints: int, log=None):
@@ -241,18 +253,26 @@ class _StagingRing:
         """Start the host->device transfer of one chunk into the next slot;
         returns the item that ``take`` turns into device tensors."""
         if not self.cuda:
-            self.log.append((chunk.nbytes + sidx.nbytes, None, None, 0.0))
-            return host_tensor(np.array(chunk)), host_tensor(np.array(sidx))
+            with span("sw:stream_wait", self.device):
+                pass  # a plain copy waits for nothing
+            with span("sw:stream_read", self.device):
+                t0 = time.perf_counter()
+                item = host_tensor(np.array(chunk)), host_tensor(np.array(sidx))
+                host_s = time.perf_counter() - t0
+            self.log.append((chunk.nbytes + sidx.nbytes, None, None, host_s))
+            return item
         slot, self.turn = self.turn, (self.turn + 1) % self.depth
-        if self.copied[slot] is not None:
-            self.copied[slot].synchronize()  # the page-locked buffer is read no more
+        with span("sw:stream_wait", self.device):
+            if self.copied[slot] is not None:
+                self.copied[slot].synchronize()  # the page-locked buffer is read no more
         src = np.ascontiguousarray(chunk).reshape(-1).view(np.uint8)
         ids = np.ascontiguousarray(sidx, dtype=np.int32).reshape(-1)
         (hbuf, hidx), (dbuf, didx) = self.host[slot], self.dev[slot]
-        t0 = time.perf_counter()
-        np.copyto(hbuf.numpy()[: src.size], src)  # the store's pages are read here
-        np.copyto(hidx.numpy()[: ids.size], ids)
-        host_s = time.perf_counter() - t0
+        with span("sw:stream_read", self.device):
+            t0 = time.perf_counter()
+            np.copyto(hbuf.numpy()[: src.size], src)  # the store's pages are read here
+            np.copyto(hidx.numpy()[: ids.size], ids)
+            host_s = time.perf_counter() - t0
         start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self.copy_stream):
             self.copy_stream.wait_event(self.consumed[slot])
@@ -475,11 +495,12 @@ class StreamingEngineMixin:
     def _put_chunk(self, chunk: torch.Tensor, tile_shape) -> torch.Tensor:
         """The int8 tiles of a chunk on the device: packed words (int32)
         unpack there with the stream codec, tiles pass as they are."""
-        if chunk.dtype == torch.int32:
-            from .ops.pack5 import CODECS
+        with span("sw:unpack", chunk.device):
+            if chunk.dtype == torch.int32:
+                from .ops.pack5 import CODECS
 
-            return CODECS[self._stream_codec][3](chunk, tuple(tile_shape))
-        return chunk
+                return CODECS[self._stream_codec][3](chunk, tuple(tile_shape))
+            return chunk
 
     def _stream_chunks(self):
         """Yield (bucket, chunk, seq_index) host arrays of every streamed
@@ -635,7 +656,8 @@ class StreamingEngineMixin:
                 with shard_context(sh):
                     tiles, sidx = part
                     rows = self._chunk_rows(tiles, b, group, setups[j], sh.matrix)
-                    cands[j].append(self._top_n(rows, sidx.reshape(-1).long()))
+                    with span("sw:top_n", sh.device):
+                        cands[j].append(self._top_n(rows, sidx.reshape(-1).long()))
         out = Candidates(self.mesh, self.results_per_query, len(group))
         for sh, cs in zip(self._shards, cands):
             with shard_context(sh):
@@ -659,34 +681,41 @@ class StreamingEngineMixin:
         t0 = time.perf_counter()
         with span("sw:stream_pass", self.device):
             if self.mesh is not None:
-                vals, ids = self._stream_candidates_mesh(group).merged()
+                cands = self._stream_candidates_mesh(group)
+                with span("sw:readback", self.device):
+                    vals, ids = cands.merged()
             else:
-                cands = [self._top_n(rows, sidx.reshape(-1).long())
-                         for rows, sidx in self._stream_rows(group)]
-                if cands:  # the one read-back of the pass
-                    vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
-                    ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
-                else:
-                    vals = ids = np.zeros((len(group), 0), np.int64)
+                cands = []
+                for rows, sidx in self._stream_rows(group):
+                    with span("sw:top_n", self.device):
+                        cands.append(self._top_n(rows, sidx.reshape(-1).long()))
+                with span("sw:readback", self.device):
+                    if cands:  # the one read-back of the pass
+                        vals = torch.cat([v for v, _ in cands], dim=1).cpu().numpy()
+                        ids = torch.cat([i for _, i in cands], dim=1).cpu().numpy()
+                    else:
+                        vals = ids = np.zeros((len(group), 0), np.int64)
         seconds = time.perf_counter() - t0
         k = self.results_per_query
         db_chars = float(self.packed.total_real_chars)
         total_cells = sum(len(c) for c in group) * db_chars
         out = []
-        for i, c in enumerate(group):
-            keep = ids[i] >= 0
-            scores, rids = vals[i][keep], ids[i][keep]
-            order = np.lexsort((rids, -scores))[:k]
-            cells = float(len(c)) * db_chars
-            self._total_cells += cells
-            q_seconds = seconds * cells / total_cells if total_cells else seconds
-            out.append(ScanResult(
-                scores=[int(v) for v in scores[order]],
-                reference_ids=[int(r) for r in rids[order]],
-                stats=BenchmarkStats(
-                    seconds=q_seconds, gcups=cells / 1e9 / q_seconds if q_seconds > 0 else 0.0,
-                ),
-            ))
+        with span("sw:finish", self.device):
+            for i, c in enumerate(group):
+                keep = ids[i] >= 0
+                scores, rids = vals[i][keep], ids[i][keep]
+                order = np.lexsort((rids, -scores))[:k]
+                cells = float(len(c)) * db_chars
+                self._total_cells += cells
+                q_seconds = seconds * cells / total_cells if total_cells else seconds
+                out.append(ScanResult(
+                    scores=[int(v) for v in scores[order]],
+                    reference_ids=[int(r) for r in rids[order]],
+                    stats=BenchmarkStats(
+                        seconds=q_seconds,
+                        gcups=cells / 1e9 / q_seconds if q_seconds > 0 else 0.0,
+                    ),
+                ))
         if self.debug_check:
             for c, r in zip(group, out):
                 self._debug_check_result(c, r)

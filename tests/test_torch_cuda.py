@@ -824,6 +824,53 @@ def test_streamed_pass_equals_resident_on_card(dev, monkeypatch, depth, resident
     torch.cuda.synchronize()
 
 
+def test_stream_spans_share_the_device_clock(dev, monkeypatch):
+    """A traced streamed scan (six one-tile cell chunks, raw tiles, no
+    prefix): each chunk's ``sw:stream_read`` host range ends before the
+    host-to-device copies it feeds start on the ring's copy stream, and
+    those end before the chunk's batch kernel starts, so host ranges and
+    device events lie on one clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setenv("CUDASW4_TPU_TORCH_STREAM_RESIDENT", "0")
+    monkeypatch.setenv("CUDASW4_TPU_TORCH_STREAM_PACK", "0")
+    rng = np.random.default_rng(35)
+    cfg = make_scoring_config("blosum62")
+    packed = _stream_packed(rng, cfg, layout=((64, "cell", 4096, 6),))
+    eng = SearchEngine(scoring=cfg, num_top=15, device="cuda", max_device_bytes=1,
+                       stream_chunk_bytes=300_000)
+    eng.set_database(None, packed=packed)
+    q = rng.integers(0, 20, size=100).astype(np.int8)
+    want = eng.scan(q)  # the first launches stay out of the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = eng.scan(q)
+        torch.cuda.synchronize()
+    assert (got.scores, got.reference_ids) == (want.scores, want.reference_ids)
+    reads, copies, kernels = [], [], []
+    for e in prof.profiler.kineto_results.events():
+        ab = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if e.device_type() != DeviceType.CUDA:
+            if e.name() == "sw:stream_read":
+                reads.append(ab)
+        elif not e.is_user_annotation():
+            if e.name().startswith("Memcpy HtoD"):
+                copies.append((*ab, e.device_resource_id()))
+            elif "sw_cell" in e.name():
+                kernels.append((*ab, e.device_resource_id()))
+    compute = {s for *_, s in kernels}
+    ring = sorted(c for c in copies if c[2] not in compute)  # the copy stream's
+    reads.sort()
+    kernels.sort()
+    assert len(reads) == eng.stream_copy_stats()["chunks"] == 6
+    assert len(ring) == 2 * len(reads) and len(kernels) == len(reads), (ring, kernels)
+    for k, (_, read_end) in enumerate(reads):
+        chunk, sidx = ring[2 * k : 2 * k + 2]
+        assert read_end <= chunk[0], (k, reads, ring)
+        assert max(chunk[1], sidx[1]) <= kernels[k][0], (k, ring, kernels)
+
+
 @pytest.mark.parametrize("mode", ["resident", "streamed", "state16"])
 def test_mesh_of_two_shards_equals_single_on_card(dev, monkeypatch, mode):
     """Two shards (two cards where there are, else both on one card, each
