@@ -193,10 +193,11 @@ INT32_LANES = 132 * 64
 #: (shared by the next column's E and the next row's F), and the running
 #: max over two cells in one VIMNMX3, half an operation a cell.
 OPS_PER_CELL = 5.5
-#: DP cells one 32-bit lane operation can update, by state type: int16
-#: state fits the packed s16x2 forms (vadd2/vmax2 and the DPX s16x2
-#: instructions), two cells an operation.
-CELLS_PER_LANE_OP = {"int32": 1, "int16": 2}
+#: DP cells one 32-bit lane operation can update, by the lanes a kernel
+#: runs: the packed s16x2 forms (vadd2/vmax2 and the DPX s16x2
+#: instructions) update two cells an operation, as int16 state and the
+#: exact cell kernels proven to fit them do.
+CELLS_PER_LANE_OP = {"int32": 1, "s16x2": 2}
 
 #: The Swiss-Prot length model (benchmarks/make_synthetic_db.py, "sprot").
 SPROT_NUM, SPROT_MEDIAN, SPROT_SIGMA = 573_000, 292.0, 0.64
@@ -264,12 +265,12 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def bound(cells: float, nbytes: float, clock_mhz: float, state: str = "int32"):
+def bound(cells: float, nbytes: float, clock_mhz: float, lanes: str = "int32"):
     """Least time the card could take: the larger of bytes over the memory
     rate and the cells' operations over the lane rate, at two cells an
-    operation for int16 state.  Returns (ms, by)."""
+    operation in s16x2 ``lanes``.  Returns (ms, by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    lane_ops = cells * OPS_PER_CELL / CELLS_PER_LANE_OP[state]
+    lane_ops = cells * OPS_PER_CELL / CELLS_PER_LANE_OP[lanes]
     t_ops = lane_ops / (INT32_LANES * clock_mhz * 1e6) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -370,7 +371,7 @@ def col_chain(name, t, chunks, m, sat=None, ref=None):
 
 def phase_kernels(clock_mhz):
     from cudasw4_tpu_torch import make_scoring_config
-    from cudasw4_tpu_torch.ops import col_flat_plan, sw_cell, sw_col, sw_row
+    from cudasw4_tpu_torch.ops import col_flat_plan, cuda_lib, sw_cell, sw_col, sw_row
     from cudasw4_tpu_torch.ops.sw_torch import sweep_tiles_torch
 
     t_phase = time.perf_counter()
@@ -393,7 +394,7 @@ def phase_kernels(clock_mhz):
     for mat in ("blosum62", "blosum62_full"):
         cfg = make_scoring_config(mat)
         A, pad = cfg.alphabet_size, cfg.pad_code
-        m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+        m = cuda_lib.device_matrix(cfg.matrix, "cuda")
         cell_shapes = [(8, 256, 32, 128)] + ([(4, 768, 32, 128)] if mat == "blosum62" else [])
         for shape in cell_shapes:
             t, real_chars = random_tiles(rng, shape, A, pad)
@@ -555,11 +556,11 @@ def phase_kernels_cell(rng, rows):
     (CELL_BATCH_SLOTS x CELL_BATCH_LS, both alphabets), and B1 int16 with
     a matrix whose scores no s16x2 lane could hold (the int32 routine)."""
     from cudasw4_tpu_torch import make_scoring_config
-    from cudasw4_tpu_torch.ops import sw_cell
+    from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
 
     names = ("blosum62", "blosum62_full")
     cfgs = [make_scoring_config(n) for n in names]
-    mats = [torch.as_tensor(c.matrix.astype(np.int32).reshape(-1)).cuda() for c in cfgs]
+    mats = [cuda_lib.device_matrix(c.matrix, "cuda") for c in cfgs]
     default = sw_cell.SAT
     shapes, saturated = [], 0
     for k, L in enumerate(CELL_LS):
@@ -756,12 +757,12 @@ def phase_kernels_tools(rng, rows):
     int16 under the SAT rule at the default SAT and at one that most
     subjects reach."""
     from cudasw4_tpu_torch import make_scoring_config
-    from cudasw4_tpu_torch.ops import sw_cell
+    from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
     from cudasw4_tpu_torch.tools.pairbench import score_pair
 
     cfg = make_scoring_config("blosum62")
     A, pad = cfg.alphabet_size, cfg.pad_code
-    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    m = cuda_lib.device_matrix(cfg.matrix, "cuda")
     default = sw_cell.SAT
     for shape in ((8, 256, 32, 128), (4, 768, 32, 128), (12, 640, 32, 128), (4, 896, 32, 128)):
         t, real_chars = random_tiles(rng, shape, A, pad)
@@ -920,13 +921,14 @@ def check_path(counts, path, launched):
 
 
 #: The kernels each launch counter (``wrappers``) can stand for: its state
-#: modes and its routes (past the largest cell instance, the col kernels).
+#: modes and its routes (B1 and B4 in s16x2 lanes in both modes; past the
+#: largest cell instance, the col kernels).
 COUNTER_KERNELS = {
-    "cell": ("sw_cell_kernel", "sw_col_kernel"),
+    "cell": ("sw_cell16_kernel", "sw_col_kernel"),
     "cell16": ("sw_cell16_kernel", "sw_col16_kernel"),
     "row": ("sw_row_kernel", "sw_row_col_kernel"),
     "col": ("sw_col_kernel",), "col16": ("sw_col16_kernel",),
-    "cell_batch": ("sw_cell_batch_kernel", "sw_col_flat_kernel"),
+    "cell_batch": ("sw_cell16_kernel", "sw_col_flat_kernel"),
     "cell_batch16": ("sw_cell16_kernel", "sw_col_flat16_kernel"),
     "col_flat": ("sw_col_flat_kernel",), "col_flat16": ("sw_col_flat16_kernel",),
     "col_fused": ("sw_col_fused_kernel",), "col_fused16": ("sw_col_fused16_kernel",),
@@ -1159,31 +1161,37 @@ def phase_sprot(clock_mhz):
                for kind in kinds}
 
     def kernel_row(name, replaces, path, launches, shape, nrows, real_rows, bucket, got, want,
-                   ms, pms, slots=1, state="int32", **extra):
+                   ms, pms, slots=1, state="int32", lanes=None, **extra):
+        """One row of the kernels line; ``lanes`` (the bound's) defaults to
+        s16x2 for int16 state, int32 for exact state."""
         err = float((got - want).abs().max())
         check(err == 0.0, f"{name} differs from plain at the main-path shape {tuple(shape)}")
         real, padded = cell_counts(shape, nrows, real_rows, int(eng.packed.buckets[bucket].lengths.sum()))
         nbytes = int(np.prod(shape)) + 4 * nrows + 4 * slots * shape[0] * int(np.prod(shape[2:]))
-        b_ms, by = bound(real, nbytes, clock_mhz, state)
+        lanes = lanes or ("int32" if state == "int32" else "s16x2")
+        b_ms, by = bound(real, nbytes, clock_mhz, lanes)
         kernels.append({
             "name": name, "route": "cuda", "source": kernel_source(name),
             "replaces": replaces, "path": path, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "state": state, "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
+            "state": state, "lanes": lanes, "equal": True, "shape": list(shape), "nq": nrows, "slots": slots,
             "cells_real": real, "cells_padded": padded,
             "gcups_real": real / ms / 1e6, "gcups_padded": padded / ms / 1e6, **extra,
         })
 
+    # Each kind's row names by mode (exact, int16): B1 runs the s16x2
+    # kernel in both.
     singles_kernels = {
         "cell": (sw_cell.score_bucket_cell, sw_cell.score_bucket_cell_plain,
-                 "cudasw4_tpu/ops/sw_pallas_cell.py:506", "sw_cell_kernel"),
+                 "cudasw4_tpu/ops/sw_pallas_cell.py:506",
+                 ("sw_cell16_kernel[exact]", "sw_cell16_kernel")),
         "row": (sw_row.score_bucket_row, sw_row.score_bucket_row_plain,
-                "cudasw4_tpu/ops/sw_pallas.py:138", "sw_row_kernel"),
+                "cudasw4_tpu/ops/sw_pallas.py:138", ("sw_row_kernel", None)),
         "col": (sw_col.score_bucket_col, sw_col.score_bucket_col_plain,
-                "cudasw4_tpu/ops/sw_pallas_col.py:220", "sw_col_kernel"),
+                "cudasw4_tpu/ops/sw_pallas_col.py:220", ("sw_col_kernel", "sw_col16_kernel")),
     }
     cell_plain = {}  # B1's plain scores and ms by mode, for B7 and B8
-    for kind, (fn, plain, replaces, kname) in singles_kernels.items():
+    for kind, (fn, plain, replaces, knames) in singles_kernels.items():
         i = largest[kind]
         t = eng._bucket_tiles[i]
         if kind == "col":
@@ -1201,12 +1209,17 @@ def phase_sprot(clock_mhz):
             # int16 state: its launches come from the align --dpx run.
             extra = {}
             if kind == "cell":
-                extra = {"cell_shape": list(sw_cell.cell_shape(t.shape[1])), "scratch_bytes": 0}
+                shape = sw_cell.cell_shape(t.shape[1])
+                extra = {"cell_shape": list(shape), "scratch_bytes": 0, "lanes": "s16x2"}
+                if exact:  # the int32 kernel it replaces, on the same inputs
+                    extra["int32_ms"] = cuda_ms(lambda: cuda_lib.launch_cell(
+                        fn, "sw_cell_kernel", t, q[:nrows].view(1, nrows), eng._matrix_flat,
+                        int(p[1]), int(p[2]), nrows, shape))
             elif kind == "row":
                 route, cell, _, pool = sw_row.row_route(*t.shape, len(mid))
                 extra = {"row_route": route, "cell_shape": cell and list(cell),
                          "scratch_bytes": pool}
-            kernel_row(kname if exact else kname.replace("_kernel", "16_kernel"), replaces,
+            kernel_row(knames[0] if exact else knames[1], replaces,
                        "align" if exact else "align --dpx", counts[kind][0] if exact else 0,
                        tuple(t.shape), nrows, len(mid), i, a, b, ms, pms,
                        state="int32" if exact else "int16", **extra)
@@ -1241,9 +1254,15 @@ def phase_sprot(clock_mhz):
     a = sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params)
     b, pms = timed(lambda: sw_cell.score_bucket_cell_batch_plain(t, qdev, eng._matrix_flat, params))
     ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params))
-    kernel_row("sw_cell_batch_kernel", "cudasw4_tpu/ops/sw_pallas_cell.py:343", "align",
+    shape = sw_cell.cell_shape(t.shape[1])
+    # The int32 kernel it replaces, on the same inputs.
+    ms32 = cuda_ms(lambda: cuda_lib.launch_cell(
+        sw_cell.score_bucket_cell_batch, "sw_cell_batch_kernel", t, qdev, eng._matrix_flat,
+        int(params[1]), int(params[2]), [int(n) for n in nqs], shape))
+    kernel_row("sw_cell16_kernel[batch,exact]", "cudasw4_tpu/ops/sw_pallas_cell.py:343", "align",
                counts["cell_batch"][0], tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a, b,
-               ms, pms, slots=S, cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
+               ms, pms, slots=S, lanes="s16x2", int32_ms=ms32, cell_shape=list(shape),
+               scratch_bytes=0)
     # B4 int16 (no path reaches it: no launches) on the same inputs: at
     # the default SAT, equal to the exact kernel's scores.
     def fn():
@@ -1308,7 +1327,8 @@ def phase_sprot(clock_mhz):
         for exact, state in ((True, "int32"), (False, "int16")):
             ms = cuda_ms(lambda: sw_cell.score_bucket_cell(t, qm, eng._matrix_flat, prm, exact=exact))
             real = len(mid) * int(b.lengths.sum())
-            b_ms, _ = bound(real, t.numel() + 4 * len(mid) + 4 * t.shape[0] * 4096, clock_mhz, state)
+            b_ms, _ = bound(real, t.numel() + 4 * len(mid) + 4 * t.shape[0] * 4096, clock_mhz,
+                            "s16x2")
             line[state] = {"ms": ms, "bound_ms": b_ms, "share": b_ms / ms}
         cell_buckets.append(line)
 
@@ -1829,8 +1849,8 @@ def phase_stream(ctx, kernels):
     check(main["peak_device_bytes_above_base"] < ctx["align_peak"],
           f"streamed peak {main['peak_device_bytes_above_base']} >= resident {ctx['align_peak']}")
     check(main["codec"] == "b32" and main["chunks"] > 0, "the main streamed run is not b32 chunks")
-    for kname, short in (("sw_cell_kernel", "cell"), ("sw_row_kernel", "row"),
-                         ("sw_col_kernel", "col"), ("sw_cell_batch_kernel", "cell_batch"),
+    for kname, short in (("sw_cell16_kernel[exact]", "cell"), ("sw_row_kernel", "row"),
+                         ("sw_col_kernel", "col"), ("sw_cell16_kernel[batch,exact]", "cell_batch"),
                          ("sw_col_flat_kernel", "col_flat")):
         kernels[kname]["stream_launches"] = counts[short][0]
     variants = [main]
@@ -2290,8 +2310,9 @@ def phase_mesh(ctx, kernels):
         runs[name] = {"backend": extra[1], "processes": nproc, "shards_per_process": int(extra[3]),
                       "seconds": seconds, "totals": totals}
 
-    kernels_mesh = {"sw_cell_kernel": counts["cell"][0], "sw_row_kernel": counts["row"][0],
-                    "sw_col_kernel": counts["col"][0], "sw_cell_batch_kernel": counts["cell_batch"][0],
+    kernels_mesh = {"sw_cell16_kernel[exact]": counts["cell"][0], "sw_row_kernel": counts["row"][0],
+                    "sw_col_kernel": counts["col"][0],
+                    "sw_cell16_kernel[batch,exact]": counts["cell_batch"][0],
                     "sw_col_flat_kernel": counts["col_flat"][0],
                     "sw_col_fused_kernel": fused_counts["col_fused"][0],
                     "sw_cell16_kernel": dpx_counts["cell16"][0], "sw_col16_kernel": dpx_counts["col16"][0]}
@@ -2532,7 +2553,7 @@ def phase_colstate16(kernels, clock_mhz):
     shape, nq, slots = got["shape"], got["nq"], got["slots"]
     real = got["real_rows"] * int(np.prod(shape))  # every subject is L residues
     nbytes = int(np.prod(shape)) + 4 * nq + 4 * slots * shape[0] * int(np.prod(shape[2:]))
-    b_ms, by = bound(real, nbytes, clock_mhz, "int16")
+    b_ms, by = bound(real, nbytes, clock_mhz, "s16x2")
     row.update(
         launches=counts["col_flat16"][0], shape=shape, nq=nq, slots=slots, ms=got["ms"],
         plain_ms=got["plain_ms"], bound_ms=b_ms, bound_by=by,
@@ -2848,7 +2869,7 @@ def phase_native(ctx):
 
 #: What phase profile's trace must name: the batch's kernels (the row
 #: kernel on either route) and the engine's spans.
-PROFILE_KERNELS = ("sw_cell_batch_kernel", "sw_col_flat_kernel", "sw_row(_col)?_kernel")
+PROFILE_KERNELS = ("sw_cell16_kernel", "sw_col_flat_kernel", "sw_row(_col)?_kernel")
 PROFILE_SPANS = ("sw:scan_batch", "sw:batch_bucket cell", "sw:batch_bucket col")
 
 
@@ -2899,8 +2920,9 @@ BENCH_REP_LINE = re.compile(r"^# rep (\d+) at (\d+): ([0-9.]+)s ([0-9.]+) GCUPS$
 BENCH_RESIDENT_LINE = re.compile(r"^# resident (\d+) x (\d+): tiles (\d+) B, peak device memory (\d+) B$")
 #: The kernels-line rows that the benchmark's launch counters stand for.
 BENCH_COUNTERS = {
-    "sw_cell_kernel": "cell", "sw_cell16_kernel": "cell16", "sw_row_kernel": "row",
-    "sw_col_kernel": "col", "sw_col16_kernel": "col16", "sw_cell_batch_kernel": "cell_batch",
+    "sw_cell16_kernel[exact]": "cell", "sw_cell16_kernel": "cell16", "sw_row_kernel": "row",
+    "sw_col_kernel": "col", "sw_col16_kernel": "col16",
+    "sw_cell16_kernel[batch,exact]": "cell_batch",
     "sw_cell16_kernel[batch]": "cell_batch16", "sw_col_flat_kernel": "col_flat",
     "sw_col_flat16_kernel": "col_flat16", "sw_col_fused_kernel": "col_fused",
     "sw_col_fused16_kernel": "col_fused16",

@@ -160,10 +160,10 @@ def sweep_col_geometry(nqcs, lcs, num_chars, reps, device):
     by ``select_col_geometry`` against the current values, which are
     restored afterwards."""
     from .. import make_scoring_config
-    from ..ops import sw_col
+    from ..ops import cuda_lib, sw_col
 
     cfg = make_scoring_config("blosum62")
-    mat = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(device)
+    mat = cuda_lib.device_matrix(cfg.matrix, device)
     rng = np.random.default_rng(42)
     save = (sw_col.NQC, sw_col.LC)
     rows = []
@@ -247,7 +247,7 @@ def run(argv=None) -> int:
 
     from .. import make_scoring_config
     from ..engine import resolve_device
-    from ..ops import sw_cell, sw_col, sw_row
+    from ..ops import cuda_lib, sw_cell, sw_col, sw_row
     from ..ops.sw_row import prepare_query
 
     dev = resolve_device(device)
@@ -257,7 +257,7 @@ def run(argv=None) -> int:
         print(f"(--unrolls {','.join(map(str, unrolls))}: the port's kernels have no unroll; "
               f"sweeping {U}, the row granule)")
     cfg = make_scoring_config("blosum62")
-    mat = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    mat = cuda_lib.device_matrix(cfg.matrix, dev)
     rng = np.random.default_rng(42)
     rows = []
     print(f"{'kernel':>6} {'length':>7} {'unroll':>6} {'tiles':>6} {'qlen':>5}"

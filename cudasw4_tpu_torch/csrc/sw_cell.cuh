@@ -192,9 +192,12 @@ __device__ __forceinline__ typename P::V cell_group(
   return m;
 }
 
-// B1 and B4: group g of the grid's x axis scores subject g % 4096 of tile
-// g / 4096 against query rows q[0, nrows), in int32 lanes; out: the
-// slot's scores [T, 4096].
+// B1 and B4 in int32 lanes: group g of the grid's x axis scores subject
+// g % 4096 of tile g / 4096 against query rows q[0, nrows); out: the
+// slot's scores [T, 4096].  The engine's launches take sw_cell16_kernel
+// in both state modes, but for exact B1 at the smallest instances
+// (ops/sw_cell.py CELL_INT32_B1), where these ran faster; they are also
+// the yardstick of its tests and of tools/kernel_ab.py's sweep.
 template <int G, int R>
 __device__ __forceinline__ void cell_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ q,
@@ -243,16 +246,17 @@ __device__ __forceinline__ int cell16_bmax(int L, int nrows, int gop,
   return b < 16383 ? b : 16383;
 }
 
-// B1 int16 and B4 int16: group g of the grid's x axis scores the subject
-// pair (2 (g % 2048), + 1) of tile g / 2048 in s16x2 lanes against slot
-// blockIdx.y: rows[slot] rows of queries[slot] (all W rows of the one
-// query when rows is null, B1); out: the slot's scores [T, 4096].  In a
-// cell bucket no H passes min(L, nrows) x max B, so the lanes never wrap
-// and the scores are exact (which meets the SAT rule at any SAT).  Each
-// block takes the largest substitution score for which its slot's rows
-// provably fit (cell16_bmax); a matrix with a larger score, or one below
-// -8192, runs the pair through the int32 routine, one subject after the
-// other.  The dynamic shared memory holds the pairwise table (40.7 KB at
+// B1 and B4 in s16x2 lanes, in both state modes: group g of the grid's x
+// axis scores the subject pair (2 (g % 2048), + 1) of tile g / 2048
+// against slot blockIdx.y: rows[slot] rows of queries[slot] (all W rows
+// of the one query when rows is null, B1); out: the slot's scores
+// [T, 4096].  In a cell bucket no H passes min(L, nrows) x max B, so the
+// lanes never wrap and the scores are exact (which meets the SAT rule at
+// any SAT).  Each block takes the largest substitution score for which
+// its slot's rows provably fit (cell16_bmax; ops/cuda_lib.py
+// cell16_fits is the host's copy, which counts the slots); a matrix with
+// a larger score, or one below -8192, runs the pair through the int32
+// routine, one subject after the other.  The dynamic shared memory holds the pairwise table (40.7 KB at
 // A = 21, 75.8 KB at A = 26), which is larger than the int32 routine's.
 template <int G, int R>
 __global__ void
@@ -540,7 +544,7 @@ int tool_launch_at(const sw::ToolArgs& a) {
 template <int G, int R>
 int cell_launch_at(const sw::CellArgs& a) {
   const long long threads = (long long)a.T * kCellNS * G;
-  if (a.sat) {
+  if (a.k16) {
     const int A1 = a.A + 1, smem = a.A * A1 * A1 * 4;
     const cudaError_t err = cudaFuncSetAttribute(
         sw_cell16_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -20,8 +20,9 @@
 // * sw_cell_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
 //   score_bucket_pallas_cell (_sw_cell_kernel, _run_query_sweeps): one
 //   query against cell tiles [T, L, 32, 128], a pure reshape of
-//   [T, L, 4096].  Exact int32 state (sw_cell_kernel) or, with sat > 0,
-//   the int16 contract (sw_cell16_kernel, whose scores are exact).
+//   [T, L, 4096], in int32 lanes (sw_cell_kernel) or, with k16 != 0,
+//   s16x2 lanes (sw_cell16_kernel).  Both give exact scores, which meet
+//   the int16 contract too.
 // * sw_row_launch replaces cudasw4_tpu/ops/sw_pallas.py score_bucket_pallas
 //   (_sw_kernel): one query against row tiles [T, L, NS], int32 only; up
 //   to the largest cell instance (L <= 768) on the cell group routine
@@ -34,8 +35,8 @@
 // * sw_cell_launch with rows non-null replaces
 //   cudasw4_tpu/ops/sw_pallas_cell.py score_bucket_pallas_cell_batch
 //   (_sw_cell_batch_kernel): QB queries [QB, W] against cell tiles in one
-//   launch, out [QB, T, 4096] (sw_cell_batch_kernel), or with sat > 0 the
-//   int16 contract (sw_cell16_kernel with its slot axis, exact scores).
+//   launch, out [QB, T, 4096] (sw_cell_batch_kernel), or with k16 != 0 in
+//   s16x2 lanes (sw_cell16_kernel with its slot axis), exact scores both.
 // * sw_col_launch with slots (rows non-null) replaces
 //   cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
@@ -230,22 +231,26 @@ extern "C" {
 // [T, L, 32, 128]; queries: int32 [S, W]; out: f32 [S, T, 4096]; (G, R):
 // an instance of CELL_SHAPES with G x R >= L.  With rows null it launches
 // B1: one query of W rows (S = 1), sw_cell_kernel, or sw_cell16_kernel
-// for sat > 0.  With rows non-null it launches B4: rows int32 [S], the
+// for k16 != 0.  With rows non-null it launches B4: rows int32 [S], the
 // slots' row counts (each <= W), sw_cell_batch_kernel, or
-// sw_cell16_kernel for sat > 0.  No scratch: the cell kernels keep the
-// whole DP row in registers.
+// sw_cell16_kernel for k16 != 0.  Every kernel of them returns exact
+// scores (sw_cell16_kernel proves each block's fit, or runs it in int32
+// lanes), so the state mode does not choose the kernel: k16 (>= 0) does.
+// The caller passes the int16 state's sat there, or 1 for an exact launch
+// in s16x2 lanes.  No scratch: the cell kernels keep the whole DP row in
+// registers.
 int sw_cell_launch(const void* tiles, const void* queries, const void* rows,
                    const void* mat, int A, int T, int L, int S, int W,
-                   int gop, int gex, int G, int R, int sat, void* out,
+                   int gop, int gex, int G, int R, int k16, void* out,
                    void* stream) {
-  if (!sat_ok(sat) || (!rows && S != 1) || S < 1 || S > 65535 ||
+  if (k16 < 0 || (!rows && S != 1) || S < 1 || S > 65535 ||
       W < 0 || L < 0 || G * R < L) {
     return (int)cudaErrorInvalidValue;
   }
   if (T == 0) return 0;
   const sw::CellArgs a{(const int8_t*)tiles, (const int32_t*)queries,
                        (const int32_t*)rows, (const int32_t*)mat, A, T, L, S, W,
-                       gop, gex, sat, (float*)out, (cudaStream_t)stream};
+                       gop, gex, k16, (float*)out, (cudaStream_t)stream};
   for (auto unit : kCellUnits) {
     const int rc = unit(a, G, R);
     if (rc != sw::kNotHere) return rc;

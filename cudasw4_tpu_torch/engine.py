@@ -342,7 +342,7 @@ class SearchEngine(StreamingEngineMixin):
                                                    pad_code=self._pad)
         dev = self.device
         matrix_flat = self.scoring.matrix.astype(np.int32).reshape(-1)
-        self._matrix_flat = torch.as_tensor(matrix_flat).to(dev)
+        self._matrix_flat = cuda_lib.device_matrix(matrix_flat, dev)
         self._kinds = tuple(bucket_kind(b) for b in self.packed.buckets)
         if self.mesh is not None:
             self._shards = sharding.make_shards(self.mesh, matrix_flat)

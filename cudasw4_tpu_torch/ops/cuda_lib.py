@@ -55,10 +55,12 @@ LAUNCHES = {"sw_row_kernel": "sw_row_launch"}
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
 #: The launch function of the cell group kernels (B1 and B4 in both state
 #: modes), with a fifth signature: tiles, queries, rows, mat, A, T, L, S, W,
-#: gop, gex, G, R, sat, out, stream (``launch_cell``).
+#: gop, gex, G, R, k16, out, stream; k16 nonzero picks the s16x2 kernel
+#: (``launch_cell``).
 CELL_LAUNCHES = {
     "sw_cell_kernel": "sw_cell_launch",
     "sw_cell_batch_kernel": "sw_cell_launch",
+    "sw_cell16_kernel": "sw_cell_launch",
 }
 _CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
 #: The launch function of the col wavefront kernels (B3, B5 and B6 in
@@ -227,6 +229,45 @@ def alphabet_dim(matrix_flat: torch.Tensor) -> int:
     return a
 
 
+def device_matrix(matrix_flat: np.ndarray, device) -> torch.Tensor:
+    """A flattened substitution matrix on ``device`` (int32), its entries'
+    (min, max) noted from the host array (``matrix_range``).  The note is
+    an attribute of this tensor: a copy (``.to``, ``.contiguous``) drops
+    it, so place the matrix with this, and launch with what it returns."""
+    host = np.asarray(matrix_flat, dtype=np.int32).reshape(-1)
+    t = torch.as_tensor(host).to(device)
+    t.score_range = (int(host.min()), int(host.max()))
+    return t
+
+
+def matrix_range(matrix_flat: torch.Tensor) -> tuple[int, int]:
+    """(min, max) of a substitution matrix's entries: the range noted when
+    it was placed (``device_matrix``), else read from the tensor once (a
+    device tensor: one synchronisation) and noted on it."""
+    rng = getattr(matrix_flat, "score_range", None)
+    if rng is None:
+        rng = (int(matrix_flat.min()), int(matrix_flat.max()))
+        matrix_flat.score_range = rng
+    return rng
+
+
+def cell16_bmax(L: int, nrows: int, gop: int, gex: int) -> int:
+    """The host's copy of csrc/sw_cell.cuh ``cell16_bmax``: the largest
+    substitution score with which s16x2 lanes cannot wrap over ``nrows``
+    query rows and L columns (every H at most min(L, nrows) x max B <=
+    32767, at most 16383); -8193 where a gap lies outside [-8192, 0]."""
+    if gop > 0 or gex > 0 or gop < -8192 or gex < -8192:
+        return -8193
+    return min(32767 // max(min(L, nrows), 1), 16383)
+
+
+def cell16_fits(L: int, nrows: int, gop: int, gex: int, lo: int, hi: int) -> bool:
+    """Whether ``sw_cell16_kernel`` scores a slot of ``nrows`` rows against
+    tiles of L columns in s16x2 lanes (the fit each block proves), for a
+    matrix of entries in [lo, hi]; else it runs the slot in int32 lanes."""
+    return lo >= -8192 and hi <= cell16_bmax(L, nrows, gop, gex)
+
+
 def count(wrapper, exact: bool, plain: bool = False) -> None:
     """Add one to a wrapper's counter of its mode: ``launches`` or
     ``plain_calls`` for exact int32 state, ``launches16`` or
@@ -299,9 +340,14 @@ def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex
     ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].
     ``rows``: an int, the one query's rows (S = 1; sw_cell_kernel), or
     host ints, the slots' row counts (sw_cell_batch_kernel), copied to the
-    device without blocking; either in sw_cell16_kernel for ``sat`` > 0.
-    Allocates only the f32 scores [S, T, 4096]: the kernels keep the DP in
-    registers.  Raises if the launch reports an error.  Never synchronises.
+    device without blocking; either in sw_cell16_kernel, which ``sat`` > 0
+    (int16 state) launches whatever ``kernel`` says.  All give exact
+    scores.  An exact launch also counts its slots (``count_slots``) by
+    the matrix's range (``matrix_range``): noted on a matrix that
+    ``device_matrix`` placed, else read from the card once, on the first
+    exact launch with that tensor (one synchronisation).  Allocates only
+    the f32 scores [S, T, 4096]: the kernels keep the DP in registers.
+    Raises if the launch reports an error.
     """
     dev = tiles.device
     require(tiles, "tiles", torch.int8, 4, dev)
@@ -321,11 +367,26 @@ def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex
         code = getattr(lib(), CELL_LAUNCHES[kernel])(
             tiles.data_ptr(), queries.data_ptr(),
             None if rows_dev is None else rows_dev.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, S, W, gop, gex, *shape, sat, out.data_ptr(), stream_handle(dev),
+            A, T, L, S, W, gop, gex, *shape, sat or int(kernel == "sw_cell16_kernel"),
+            out.data_ptr(), stream_handle(dev),
         )
     check_launch(code, kernel)
     count(wrapper, not sat)
+    if not sat:
+        slots = [W] if rows_dev is None else [int(n) for n in rows if n > 0]
+        count_slots(wrapper, kernel == "sw_cell16_kernel", L, slots, gop, gex,
+                    matrix_range(matrix_flat))
     return out
+
+
+def count_slots(wrapper, k16: bool, L: int, slots, gop: int, gex: int, score_range) -> None:
+    """Count an exact cell launch's slots (their row counts: a B1 launch's
+    one, a B4 launch's of rows > 0) on the wrapper: ``s16x2_slots``, those
+    that ``sw_cell16_kernel`` (``k16``) scores in s16x2 lanes
+    (``cell16_fits``), and ``int32_slots``, the rest."""
+    n16 = sum(cell16_fits(L, n, gop, gex, *score_range) for n in slots) if k16 else 0
+    wrapper.s16x2_slots += n16
+    wrapper.int32_slots += len(slots) - n16
 
 
 #: Device-memory budget for one tile group's temporaries: the col carry

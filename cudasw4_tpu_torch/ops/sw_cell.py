@@ -9,14 +9,19 @@ The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
 in csrc/sw_cell.cuh (csrc/sw_tiles.cu's note gives the design and the
 bound on the H100).  All are single-pass group wavefronts
 (``cell_group``), one instance per (G, R) of CELL_SHAPES, picked for the
-tiles' L by ``cell_shape``; the int16 kernel serves the batch too, a slot
-on the grid's y axis, and the manual kernels feed the same routine from a
-ring in shared memory.  Tiles longer than the largest instance take the
-col wavefront's passes (``sw_col_kernel``, ``sw_col16_kernel``,
-``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on the same layout,
-counted on the wrapper that was called.  The wrappers launch them for
-CUDA tensors and take their plain versions only for CPU tensors.
-Each counts its launches and plain calls per mode (``launches`` and
+tiles' L by ``cell_shape``; the s16x2 kernel ``sw_cell16_kernel`` serves
+the batch too, a slot on the grid's y axis, and the manual kernels feed
+the same routine from a ring in shared memory.  B1 and B4 launch the
+s16x2 kernel in both state modes: its scores are exact (each block
+proves that its lanes cannot wrap, or runs in int32 lanes), and it takes
+0.56-0.73 of the int32 kernels' time at the Swiss-Prot buckets
+(PERF.md).  Exact launches count their slots by lanes (``s16x2_slots``,
+``int32_slots``, ``cuda_lib.count_slots``).  Tiles longer than the
+largest instance take the col wavefront's passes (``sw_col_kernel``,
+``sw_col16_kernel``, ``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on
+the same layout, counted on the wrapper that was called.  The wrappers
+launch them for CUDA tensors and take their plain versions only for CPU
+tensors.  Each counts its launches and plain calls per mode (``launches`` and
 ``plain_calls`` for exact state, ``launches16`` and ``plain_calls16`` for
 int16 state).
 """
@@ -124,12 +129,14 @@ def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
         return col_route(score_bucket_cell, tiles, query, matrix_flat, params, sat)
     nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
     cuda_lib.check_query_rows(query, nq, tiles.device)
-    return cuda_lib.launch_cell(score_bucket_cell, "sw_cell_kernel", tiles,
-                                query[:nq].view(1, nq), matrix_flat, gop, gex, nq, shape, sat)[0]
+    kernel = "sw_cell16_kernel" if exact else "sw_cell_kernel"
+    return cuda_lib.launch_cell(score_bucket_cell, kernel, tiles, query[:nq].view(1, nq),
+                                matrix_flat, gop, gex, nq, shape, sat)[0]
 
 
 score_bucket_cell.launches = score_bucket_cell.launches16 = 0
 score_bucket_cell.plain_calls = score_bucket_cell.plain_calls16 = 0
+score_bucket_cell.s16x2_slots = score_bucket_cell.int32_slots = 0
 
 
 def col_route(wrapper, tiles, query, matrix_flat, params, sat: int):
@@ -222,9 +229,11 @@ def score_bucket_cell_batch(tiles, queries, matrix_flat, params, exact: bool = T
         slots = (nqs, offs, max(W, sum(nqs)))
         return cuda_lib.launch_col(score_bucket_cell_batch, "sw_col_flat_kernel", tiles,
                                    queries, matrix_flat, gop, gex, slots=slots, sat=sat)[0]
-    return cuda_lib.launch_cell(score_bucket_cell_batch, "sw_cell_batch_kernel", tiles,
-                                queries, matrix_flat, gop, gex, nqs, shape, sat)
+    kernel = "sw_cell16_kernel" if exact else "sw_cell_batch_kernel"
+    return cuda_lib.launch_cell(score_bucket_cell_batch, kernel, tiles, queries, matrix_flat,
+                                gop, gex, nqs, shape, sat)
 
 
 score_bucket_cell_batch.launches = score_bucket_cell_batch.launches16 = 0
 score_bucket_cell_batch.plain_calls = score_bucket_cell_batch.plain_calls16 = 0
+score_bucket_cell_batch.s16x2_slots = score_bucket_cell_batch.int32_slots = 0

@@ -45,6 +45,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops import cuda_lib
+
 
 class Mesh:
     """An ordered list of shards, each a device (the counterpart of a 1-D
@@ -151,7 +153,7 @@ def make_shards(mesh: Mesh, matrix_flat: np.ndarray) -> list[Shard]:
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         sh = Shard(pos=pos, device=dev, matrix=torch.empty(0), stream=stream)
         with shard_context(sh):
-            sh.matrix = torch.as_tensor(matrix_flat).to(dev)
+            sh.matrix = cuda_lib.device_matrix(matrix_flat, dev)
         shards.append(sh)
     return shards
 

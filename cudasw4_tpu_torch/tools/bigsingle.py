@@ -66,7 +66,7 @@ def run(T: int, reps: int, device, lengths=LENGTHS, query_lengths=QUERY_LENGTHS)
     state, each route's ms and GCUPS, the col/cell ratio and ok."""
     cfg = make_scoring_config("blosum62")
     rng = np.random.default_rng(0)
-    mat = cuda_lib.to_device(cfg.matrix.astype(np.int32).reshape(-1), device)
+    mat = cuda_lib.device_matrix(cfg.matrix, device)
     ns = sw_cell.G * sw_cell.NSL
     n = T * ns
     lines = []

@@ -94,7 +94,7 @@ def run(T: int, reps: int, device, lengths=LENGTHS, query_lengths=QUERY_LENGTHS,
     (``{"i32": ..., "i16": ...}``); nothing of them is kept."""
     cfg = make_scoring_config("blosum62")
     rng = np.random.default_rng(0)
-    mat = cuda_lib.to_device(cfg.matrix.astype(np.int32).reshape(-1), device)
+    mat = cuda_lib.device_matrix(cfg.matrix, device)
     n = T * sw_cell.G * sw_cell.NSL
     rtot, quant = sw_col.NQC, sw_col.FLAT_QUANT
     lines = []

@@ -53,7 +53,7 @@ def bench_setup(L: int, n: int, device, qlens):
     data = rng.integers(0, 20, size=(n, L)).astype(np.int8)
     x = data.reshape(T, sw_cell.G * sw_cell.NSL, L).transpose(0, 2, 1).reshape(T, L, 32, 128)
     tiles = cuda_lib.to_device(np.ascontiguousarray(x), device)
-    mat = cuda_lib.to_device(cfg.matrix.astype(np.int32).reshape(-1), device)
+    mat = cuda_lib.device_matrix(cfg.matrix, device)
     queries = []
     for qlen in qlens:
         qpad, _ = prepare_query(rng.integers(0, 20, size=qlen))

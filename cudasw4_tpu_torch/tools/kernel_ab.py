@@ -19,9 +19,13 @@ those whose SASS differs, with the SASS line counts (A, B) of the
 kernels both libraries hold.
 
 ``--sweep`` times, in one checkout, every (G, R) instance of the cell
-kernels that its library holds (``cuda_lib.cell_shapes``) with G x R equal
-to each L of SWEEP_LS, exact and int16, at the main path's tile counts
-with the 464-aa query; one JSON line.  Needs CUDA.
+kernels that its library holds (``cuda_lib.cell_shapes``) at L = G x R
+and the Swiss-Prot-scale tile count of that length (``sweep_tiles``), in
+exact state in int32 lanes (``sw_cell_kernel``) and in s16x2 lanes
+(``sw_cell16_kernel``), with the 464-aa query, for the 21-letter and the
+26-letter matrix; then B4 both ways at BATCH14's slots on [12, 640] and
+[1, 64].  One JSON line: each row's milliseconds and s16x2 over int32.
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -68,9 +72,16 @@ CASES = (
 BATCH14 = (144, 189, 222, 375, 464, 567, 657, 729, 850, 1000, 1500, 2005, 2504, 3005)
 WIDEST_PASS = ((736, 664, 376, 224, 192, 144), (0, 768, 1536, 1920, 2176, 2432))
 
-#: The sweep's cell lengths, each with its Swiss-Prot-scale tile count.
-SWEEP_LS = ((64, 1), (128, 5), (256, 12), (320, 20), (384, 16), (512, 9), (640, 12),
-            (768, 7))
+#: The cell buckets of the Swiss-Prot-scale database (swbench's ``sprot``):
+#: L and tiles.
+SPROT_CELL_TILES = {64: 1, 80: 2, 96: 3, 112: 4, 128: 5, 160: 11, 192: 12, 224: 12,
+                    256: 12, 320: 20, 384: 16, 448: 12, 512: 9, 640: 12, 768: 7}
+
+
+def sweep_tiles(L: int) -> int:
+    """The sweep's tile count at L: that of the shortest Swiss-Prot cell
+    bucket at least L long (its instance runs such tiles), 1 below 64."""
+    return SPROT_CELL_TILES[min((b for b in SPROT_CELL_TILES if b >= L), default=768)]
 
 
 def _child(tree: str) -> dict:
@@ -91,6 +102,9 @@ def _child(tree: str) -> dict:
         out["build_seconds"] = time.perf_counter() - t0
     cfg = make_scoring_config("blosum62")
     m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
+    # The range ``cuda_lib.device_matrix`` notes, so that no timed launch
+    # reads it from the card; a tree older than that helper ignores it.
+    m.score_range = (int(cfg.matrix.min()), int(cfg.matrix.max()))
     rng = np.random.default_rng(1)
     for kind, shape, nq in CASES:
         t = _tiles(rng, shape, cfg.pad_code)
@@ -130,8 +144,9 @@ def _child(tree: str) -> dict:
 
 
 def _sweep(tree: str) -> dict:
-    """Milliseconds of every compiled cell instance (G, R) with G x R = L,
-    for each (L, T) of SWEEP_LS, exact and int16, with the 464-aa query."""
+    """Milliseconds of every compiled cell instance (G, R) at L = G x R and
+    ``sweep_tiles(L)`` tiles, exact, in int32 lanes and in s16x2 lanes,
+    with the 464-aa query, at A = 21 and A = 26; then B4 both ways."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -139,24 +154,35 @@ def _sweep(tree: str) -> dict:
     from cudasw4_tpu_torch import make_scoring_config
     from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
 
-    cfg = make_scoring_config("blosum62")
-    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).cuda()
     rng = np.random.default_rng(1)
-    q = np.full((1, 464), cfg.pad_code, np.int32)
-    q[0] = rng.integers(0, 20, size=464)
-    q = torch.as_tensor(q).cuda()
     shapes = cuda_lib.cell_shapes()
-    out = {}
-    for L, T in SWEEP_LS:
-        t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
+    rows = []
+    for mat in ("blosum62", "blosum62_full"):
+        cfg = make_scoring_config(mat)
+        A = cfg.alphabet_size
+        m = cuda_lib.device_matrix(cfg.matrix, "cuda")
+        q = torch.as_tensor(rng.integers(0, 20, size=(1, 464)).astype(np.int32)).cuda()
         for g, r in shapes:
-            if g * r != L:
-                continue
-            for sat in (0, sw_cell.SAT):
-                out[f"L={L} T={T} G={g} R={r} {'int16' if sat else 'int32'}"] = _ms(
-                    cuda_lib.launch_cell, sw_cell.score_bucket_cell, "sw_cell_kernel", t, q, m,
-                    cfg.gop, cfg.gex, 464, (g, r), sat)
-    return out
+            L, T = g * r, sweep_tiles(g * r)
+            t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
+            ms = {lanes: _ms(cuda_lib.launch_cell, sw_cell.score_bucket_cell, kernel, t, q, m,
+                             cfg.gop, cfg.gex, 464, (g, r))
+                  for lanes, kernel in (("int32", "sw_cell_kernel"), ("s16x2", "sw_cell16_kernel"))}
+            rows.append({"kernel": "B1", "A": A, "G": g, "R": r, "L": L, "T": T, **ms,
+                         "ratio": ms["s16x2"] / ms["int32"]})
+        qb = np.full((len(BATCH14), 3072), cfg.pad_code, np.int32)
+        for s, n in enumerate(BATCH14):
+            qb[s, :n] = rng.integers(0, 20, size=n)
+        qb = torch.as_tensor(qb).cuda()
+        for T, L in ((12, 640), (1, 64)):
+            t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
+            ms = {lanes: _ms(cuda_lib.launch_cell, sw_cell.score_bucket_cell_batch, kernel, t, qb,
+                             m, cfg.gop, cfg.gex, list(BATCH14), sw_cell.cell_shape(L))
+                  for lanes, kernel in (("int32", "sw_cell_batch_kernel"),
+                                        ("s16x2", "sw_cell16_kernel"))}
+            rows.append({"kernel": "B4", "A": A, "shape": [T, L], "slots": len(BATCH14), **ms,
+                         "ratio": ms["s16x2"] / ms["int32"]})
+    return {"rows": rows}
 
 
 #: Lines of cuobjdump's listing that belong to a cubin, not to a kernel:

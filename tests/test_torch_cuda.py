@@ -163,6 +163,62 @@ def test_cell16_unproven_fit_runs_int32(dev):
     assert bool(sw_cell.sat_match(got, want).all())
 
 
+#: The exact route's cases: every (G, R) instance at its largest L (G x R)
+#: with both alphabets, and B1 and B4 with blosum62 x 1000, past
+#: ``cell16_bmax`` for every slot of more than two rows (the int32
+#: fallback inside sw_cell16_kernel).
+EXACT16_CASES = [(g, r, mat) for g, r in sw_cell.CELL_SHAPES for mat in MATS] + [
+    (8, 8, "x1000"), (32, 24, "x1000")]
+
+
+@pytest.mark.parametrize("g,r,mat", EXACT16_CASES)
+def test_exact_cell_launches_in_s16x2_lanes_equal_int32(dev, g, r, mat):
+    """Exact B1 and B4 on the s16x2 route (``sw_cell16_kernel``) equal the
+    int32 kernels and the plain version bit for bit, at L = G x R on
+    subjects of L, L - 1 and 1 residues, B4 on slots of unequal rows (one
+    empty); each launch
+    counts in ``launches``, not ``launches16``, and its slots by lanes as
+    the route and the host's fit (``cuda_lib.cell16_fits``) say."""
+    rng = np.random.default_rng(1000 + 10 * g + r)
+    cfg = make_scoring_config("blosum62" if mat == "x1000" else mat)
+    A, pad, L = cfg.alphabet_size, cfg.pad_code, g * r
+    scale = 1000 if mat == "x1000" else 1
+    t = torch.as_tensor(_tiles(rng, (1, L, 32, 128), pad, 4096 - 30, A))
+    _edge_lanes(t, pad, rng)
+    rows = (100, 0, 1, 37, 9)
+    qh = np.full((len(rows), 128), pad, np.int32)
+    for s, n in enumerate(rows):
+        qh[s, :n] = rng.integers(0, A - 1, size=n)
+    k = min(L, 100)
+    t.view(L, 4096)[:k, 7] = torch.as_tensor(qh[0, :k].astype(np.int8))  # subject 7: the query
+    t, q = t.to(dev), torch.as_tensor(qh).to(dev)
+    m = cuda_lib.device_matrix(cfg.matrix * scale, dev)
+    lo, hi = m.score_range
+    for name, fn, kernel32, args, slots in (
+        ("B1", sw_cell.score_bucket_cell, "sw_cell_kernel",
+         (t, q[0], m, (100, cfg.gop, cfg.gex, 104)), [100]),
+        ("B4", sw_cell.score_bucket_cell_batch, "sw_cell_batch_kernel",
+         (t, q, m, (0, cfg.gop, cfg.gex, 0, *rows)), [n for n in rows if n > 0]),
+    ):
+        want = (sw_cell.score_bucket_cell_plain if name == "B1"
+                else sw_cell.score_bucket_cell_batch_plain)(*args)
+        before = (fn.launches, fn.launches16, fn.s16x2_slots, fn.int32_slots)
+        got = fn(*args)
+        fits = [cuda_lib.cell16_fits(L, n, cfg.gop, cfg.gex, lo, hi) for n in slots]
+        assert fits == [scale == 1 or n <= 2 for n in slots], name
+        n16 = sum(fits)
+        assert (fn.launches, fn.launches16, fn.s16x2_slots, fn.int32_slots) == (
+            before[0] + 1, before[1], before[2] + n16, before[3] + len(slots) - n16), name
+        queries = q[:1, :100] if name == "B1" else q
+        nrows = 100 if name == "B1" else list(rows)
+        int32 = cuda_lib.launch_cell(fn, kernel32, t, queries, m, cfg.gop, cfg.gex, nrows, (g, r))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        assert torch.equal(got, int32[0] if name == "B1" else int32), name
+    if scale > 1:
+        assert int(want.max()) > 32767  # past s16x2 lanes' range: the fallback ran
+
+
 def test_cell_shape_table_matches_the_library(dev):
     """The instances built into the kernel library are sw_cell.CELL_SHAPES."""
     assert cuda_lib.cell_shapes() == list(sw_cell.CELL_SHAPES)
@@ -1034,7 +1090,7 @@ def test_device_trace_names_a_port_kernel(dev, tmp_path):
         with span("sw:bucket cell L=64", t.device):
             sw_cell.score_bucket_cell(t, q, m, (64, cfg.gop, cfg.gex, 64))
     names = [e.get("name", "") for e in json.load(open(path))["traceEvents"]]
-    assert any("sw_cell_kernel" in n for n in names)
+    assert any("sw_cell16_kernel" in n for n in names)
     assert "sw:bucket cell L=64" in names
 
 
@@ -1061,7 +1117,7 @@ def test_device_trace_holds_every_launch(dev, tmp_path):
         names = [e["name"] for e in json.load(open(path))["traceEvents"]
                  if e.get("cat") == "kernel"]
         assert [sum(f"::{kernel}<" in n for n in names)
-                for kernel in ("sw_row_kernel", "sw_cell_kernel")] == [1, 1]
+                for kernel in ("sw_row_kernel", "sw_cell16_kernel")] == [1, 1]
 
 
 @pytest.mark.parametrize("trial", range(3))

@@ -198,16 +198,16 @@ def _meta_engine(monkeypatch, launches):
 @pytest.mark.parametrize("state16", [False, True])
 @pytest.mark.parametrize("window", [512, "closed"])
 def test_warmup_launches_routed_col(monkeypatch, window, state16):
-    """warmup() at the minimal query: B1 on the cell bucket (and B1 int16
-    under state16); with the window open also B3 on it (and B3 int16), as
-    the JAX warmup runs ``_single_kinds(COL_SINGLE_MIN_ROWS)``; returns the
-    launches."""
+    """warmup() at the minimal query: B1 on the cell bucket, in s16x2
+    lanes (and B1 int16 under state16); with the window open also B3 on it
+    (and B3 int16), as the JAX warmup runs
+    ``_single_kinds(COL_SINGLE_MIN_ROWS)``; returns the launches."""
     launches = []
     eng = _meta_engine(monkeypatch, launches)
     eng.state16 = state16
     eng.COL_SINGLE_MIN_ROWS = sw_col.NQC + 1 if window == "closed" else window
     n = eng.warmup()
-    want = [("sw_cell_kernel", "int32")] + [("sw_cell_kernel", "int16")] * state16
+    want = [("sw_cell16_kernel", "int32")] + [("sw_cell_kernel", "int16")] * state16
     if window != "closed":
         want += [("sw_col_kernel", "int32")] + [("sw_col_kernel", "int16")] * state16
     assert launches == want
