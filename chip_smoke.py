@@ -19,7 +19,10 @@ non-zero:
    col wavefront past it, with a query past NQC rows in tile groups).  The col kernel also at its edges (COL_EDGES: one partial
    pass, a partial last pass over three chunks with the carry, nq_pad =
    8), scores and carried rows, and col flat on one pass of slots of 8,
-   1000 and 3072 rows.  The int16 modes of cell and col (col over two
+   1000 and 3072 rows.  The col kernels take their tiles' subject lengths
+   (ragged, with empty lanes) as the main path gives them, the carry
+   compared inside the subjects' own passes; the edges and the unequal
+   slots also run without lengths, comparing the whole carry.  The int16 modes of cell and col (col over two
    chunks with the int32 carry, and at its edges) against their plain
    versions and the exact
    scores under the SAT rule (``sw_cell.sat_match``), at the default SAT
@@ -286,6 +289,34 @@ def random_tiles(rng, shape, A, pad):
     return torch.as_tensor(x.reshape(shape)).cuda(), int(lens.sum())
 
 
+def col_lengths(t, pad, empty=0):
+    """The subject lengths (``sw_col.ColLengths``) of ``random_tiles``'s
+    col tiles on the card, as the main path hands them to every col
+    launch; ``empty`` lanes at the end of the last tile are first emptied
+    in place (padding lanes, length 0)."""
+    from cudasw4_tpu_torch.ops import sw_col
+
+    x = t.view(t.shape[0], t.shape[1], -1)
+    if empty:
+        x[-1, :, -empty:] = pad
+    lens = (x != pad).sum(dim=1, dtype=torch.int32)
+    return sw_col.ColLengths.place(lens.cpu().numpy(), t.device)
+
+
+def own_passes(t, lengths):
+    """Mask shaped as the col tiles ``t`` of the columns inside each
+    subject's own passes: where a launch given ``lengths`` emits a
+    specified carry.  Every column without lengths."""
+    from cudasw4_tpu_torch.ops import sw_col
+
+    if lengths is None:
+        return torch.ones(t.shape, dtype=torch.bool, device=t.device)
+    P = sw_col.col_pass(t.device)
+    ends = (lengths.dev.long() + P - 1) // P * P
+    cols = torch.arange(t.shape[1], device=t.device)
+    return (cols[None, :, None] < ends[:, None, :]).reshape(t.shape)
+
+
 def cell_counts(shape, nrows, real_rows, real_chars):
     """(real, padded) DP cells of one kernel call: real query rows x real
     subject residues, and every query row run x every tile position."""
@@ -322,27 +353,31 @@ def col_chunks(chunks, cfg):
     return out
 
 
-def col_chain(name, t, chunks, m, sat=None, ref=None):
+def col_chain(name, t, chunks, m, sat=None, ref=None, lengths=None):
     """B3 and its plain version over the query ``chunks`` with the carry
-    between them.  Exact state (``sat`` None): scores and both carried rows
-    equal at every chunk; returns the runs [(kernel scores, plain scores,
-    the plain carry into the chunk or None, ms of the one plain call)].
-    int16 state at ``sat``: the scores so far meet the SAT rule against the
-    plain int16 run's and the exact run's (``ref``, the exact chain's
-    runs), and the carried rows equal the plain int16 run's on every
-    subject whose exact score so far is below sat; returns the subjects at
-    or above sat."""
+    between them, the kernel given the tiles' ``lengths`` (or None).  Exact
+    state (``sat`` None): scores equal at every chunk, and both carried
+    rows at every column inside the subjects' own passes (``own_passes``:
+    every column without lengths); returns the runs [(kernel scores, plain
+    scores, the plain carry into the chunk or None, ms of the one plain
+    call)].  int16 state at ``sat``: the scores so far meet the SAT rule
+    against the plain int16 run's and the exact run's (``ref``, the exact
+    chain's runs), and the carried rows equal the plain int16 run's, inside
+    the own passes, on every subject whose exact score so far is below
+    sat; returns the subjects at or above sat."""
     from cudasw4_tpu_torch.ops import sw_cell, sw_col
 
     default = sw_cell.SAT
     sw_cell.SAT = sat or default
+    own = own_passes(t, lengths)
     try:
         st = st_w = None
         runs, best = [], None
         for k, (q, p) in enumerate(chunks):
             emit = k + 1 < len(chunks)
             kw = {"emit_state": emit, "exact": sat is None}
-            got = sw_col.score_bucket_col(t, q, m, p, state_in=st, take_init=st is not None, **kw)
+            got = sw_col.score_bucket_col(t, q, m, p, state_in=st, take_init=st is not None,
+                                          lengths=lengths, **kw)
             want, pms = timed(lambda: sw_col.score_bucket_col_plain(t, q, m, p, state_in=st_w, **kw))
             st_in = st_w
             if emit:
@@ -350,7 +385,7 @@ def col_chain(name, t, chunks, m, sat=None, ref=None):
             runs.append((got, want, st_in, pms))
             if sat is None:
                 check(torch.equal(got, want), f"{name} chunk {k}: kernel != plain")
-                check(not emit or all(torch.equal(a, b) for a, b in zip(st, st_w)),
+                check(not emit or all(torch.equal(a[own], b[own]) for a, b in zip(st, st_w)),
                       f"{name} chunk {k}: carried H/F rows != plain")
                 continue
             step = (got, want, ref[k][1])
@@ -358,7 +393,7 @@ def col_chain(name, t, chunks, m, sat=None, ref=None):
             check_sat_rule(f"{name} int16 chunk {k}", best[0], best[1], sat)
             check_sat_rule(f"{name} int16 chunk {k} vs exact", best[0], best[2], sat)
             if emit:
-                live = (best[2] < sat).reshape(t.shape[0], 1, 32, 128).expand(t.shape)
+                live = (best[2] < sat).reshape(t.shape[0], 1, 32, 128).expand(t.shape) & own
                 check(all(a.dtype == torch.int32 and torch.equal(a[live], b[live])
                           for a, b in zip(st, st_w)),
                       f"{name} int16 chunk {k}: carried rows != plain below SAT={sat}")
@@ -430,37 +465,50 @@ def phase_kernels(clock_mhz):
         rows.append({"check": "B2 row, col route, one-tile groups", "mat": mat,
                      "shape": list(shape), "nq": nq, "launches": 3, "equal": True})
 
-        # B3: a 5478-aa query over L=1024 col tiles: two NQC chunks with
-        # the H/F carry, each chunk and its carried state against the
-        # plain version (its one call timed); then the whole query through
-        # the any-length function with one-tile groups against one plain
-        # sweep.
+        # B3: a 5478-aa query over L=1024 col tiles with ragged lengths
+        # and 64 empty lanes, given their lengths as the main path gives
+        # them: two NQC chunks with the H/F carry, each chunk and its
+        # carried state (inside the subjects' own passes) against the
+        # plain version (its one call timed; the kernel also timed without
+        # lengths); then the whole query through the any-length function
+        # with one-tile groups against one plain sweep.
         shape = (2, 1024, 32, 128)
-        t, real_chars = random_tiles(rng, shape, A, pad)
+        t, _ = random_tiles(rng, shape, A, pad)
+        lengths = col_lengths(t, pad, empty=64)
+        real_chars = int(lengths.dev.sum())
         codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
         chunks = [codes[:sw_col.NQC], codes[sw_col.NQC:]]
         qs = col_chunks(chunks, cfg)
-        runs = col_chain(f"B3 {mat}", t, qs, m)
+        runs = col_chain(f"B3 {mat}", t, qs, m, lengths=lengths)
         for k, (chunk, (q, p), (got, want, st_w, pms)) in enumerate(zip(chunks, qs, runs)):
-            ms = cuda_ms(lambda: sw_col.score_bucket_col(
-                t, q, m, p, state_in=st_w, take_init=st_w is not None, emit_state=k == 0))
+            def b3(lens):
+                return sw_col.score_bucket_col(t, q, m, p, state_in=st_w,
+                                               take_init=st_w is not None, emit_state=k == 0,
+                                               lengths=lens)
+            ms, ms0 = cuda_ms(lambda: b3(lengths)), cuda_ms(lambda: b3(None))
             io_bytes = 8 * int(np.prod(shape))  # carry out (chunk 0) or in (chunk 1)
             record(f"B3 col chunk {k}", mat, shape, p[0], len(chunk), real_chars,
-                   got, want, ms, pms, io_bytes)
-        got = sw_col.score_bucket_col_any_query(t, codes, m, cfg.gop, cfg.gex, pad=pad, temp_bytes=1)
+                   got, want, ms, pms, io_bytes, without_lengths_ms=ms0)
+        got = sw_col.score_bucket_col_any_query(t, codes, m, cfg.gop, cfg.gex, pad=pad,
+                                                temp_bytes=1, lengths=lengths)
         best, _, _ = sweep_tiles_torch(t.reshape(2, 1024, 4096), codes.tolist(),
                                        m.view(A, A), cfg.gop, cfg.gex)
         check(torch.equal(got, best.float()), f"B3 any-query one-tile groups {mat}: != plain")
         rows.append({"check": "B3 col any-query, one-tile groups", "mat": mat,
                      "shape": list(shape), "nq": 5478, "equal": True})
         # B3's edges: one partial pass, a partial last pass with the carry
-        # over three chunks, and chunks of nq_pad = 8.
+        # over three chunks, and chunks of nq_pad = 8; on ragged lanes with
+        # 64 empty ones, without lengths (the whole carry) and with them.
         for eshape, lens in COL_EDGES:
             t, _ = random_tiles(rng, eshape, A, pad)
+            ragged = col_lengths(t, pad, empty=64)
             qs = col_chunks([rng.integers(0, A - 1, size=n).astype(np.int8) for n in lens], cfg)
-            col_chain(f"B3 {mat} {eshape} rows {lens}", t, qs, m)
+            for lengths in (None, ragged):
+                col_chain(f"B3 {mat} {eshape} rows {lens} lengths {lengths is not None}", t, qs,
+                          m, lengths=lengths)
             rows.append({"check": "B3 col edge, carried rows", "mat": mat, "shape": list(eshape),
-                         "chunk_rows": [p[0] for _, p in qs], "equal": True})
+                         "chunk_rows": [p[0] for _, p in qs], "lengths": [False, True],
+                         "equal": True})
 
         # B4: four slots (one empty, lengths not multiples of 8) over cell
         # tiles.  B5 and B6: three slots on their col_flat_plan pass over
@@ -476,8 +524,12 @@ def phase_kernels(clock_mhz):
         ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qs, m, p))
         record("B4 cell batch", mat, shape, sum(lens), sum(lens), real_chars, got, want, ms, pms,
                slots=len(lens))
+        # B5 and B6 take the tiles' lengths (64 empty lanes), each also
+        # timed without.
         shape = (2, 1024, 32, 128)
-        t, real_chars = random_tiles(rng, shape, A, pad)
+        t, _ = random_tiles(rng, shape, A, pad)
+        lengths = col_lengths(t, pad, empty=64)
+        real_chars = int(lengths.dev.sum())
         lens = [300, 1000, 77]
         pads = [sw_col.padded_rows(n) for n in lens]
         (plan,) = col_flat_plan(pads)
@@ -486,18 +538,21 @@ def phase_kernels(clock_mhz):
         p = (0, cfg.gop, cfg.gex, 0, *pads)
         pms = cuda_ms(lambda: sw_col.score_bucket_col_flat_plain(t, qs, m, p), reps=1, warmup=False)
         want = sw_col.score_bucket_col_flat_plain(t, qs, m, p)
-        got = sw_col.score_bucket_col_flat(t, qs, m, p, offs)
-        ms = cuda_ms(lambda: sw_col.score_bucket_col_flat(t, qs, m, p, offs))
-        record("B5 col flat", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
-               slots=len(lens))
-        got = sw_col.score_bucket_col_flat_fused(t, qs, m, p)
-        ms = cuda_ms(lambda: sw_col.score_bucket_col_flat_fused(t, qs, m, p))
-        record("B6 col fused", mat, shape, sum(pads), sum(lens), real_chars, got, want, ms, pms,
-               slots=len(lens))
+        for name, fn in (
+            ("B5 col flat", lambda lens: sw_col.score_bucket_col_flat(t, qs, m, p, offs,
+                                                                      lengths=lens)),
+            ("B6 col fused", lambda lens: sw_col.score_bucket_col_flat_fused(t, qs, m, p,
+                                                                             lengths=lens)),
+        ):
+            check(torch.equal(fn(None), want), f"{name} {mat} {shape} without lengths: != plain")
+            ms, ms0 = cuda_ms(lambda: fn(lengths)), cuda_ms(lambda: fn(None))
+            record(name, mat, shape, sum(pads), sum(lens), real_chars, fn(lengths), want, ms,
+                   pms, slots=len(lens), without_lengths_ms=ms0)
         # B5 on one pass of unequal slots, 8 to 3072 rows, in a pool of
         # their reservations, over a partial last subject pass.
         shape = (1, 1152, 32, 128)
         t, real_chars = random_tiles(rng, shape, A, pad)
+        lengths = col_lengths(t, pad, empty=64)
         lens = [8, 1000, 3072]
         rtot = sum(-(-n // sw_col.FLAT_QUANT) * sw_col.FLAT_QUANT for n in lens)
         (plan,) = col_flat_plan(lens, rtot=rtot)
@@ -505,10 +560,13 @@ def phase_kernels(clock_mhz):
         qs = torch.stack([query_block(rng, n, sw_col.NQC, A, pad) for n in lens])
         p = (0, cfg.gop, cfg.gex, 0, *lens)
         want = sw_col.score_bucket_col_flat_plain(t, qs, m, p)
-        got = sw_col.score_bucket_col_flat(t, qs, m, p, offs, rtot=rtot)
-        check(torch.equal(got, want), f"B5 col flat {mat} slots {lens}: kernel != plain")
+        for lens_ in (None, lengths):
+            got = sw_col.score_bucket_col_flat(t, qs, m, p, offs, rtot=rtot, lengths=lens_)
+            check(torch.equal(got, want), f"B5 col flat {mat} slots {lens} lengths "
+                                          f"{lens_ is not None}: kernel != plain")
         rows.append({"check": "B5 col flat, unequal slots", "mat": mat, "shape": list(shape),
-                     "slot_rows": lens, "pool_offsets": list(offs), "rtot": rtot, "equal": True})
+                     "slot_rows": lens, "pool_offsets": list(offs), "rtot": rtot,
+                     "lengths": [False, True], "equal": True})
         phase_kernels_state16(mat, cfg, m, rng, rows)
     phase_kernels_cell(rng, rows)
     phase_kernels_tools(rng, rows)
@@ -665,16 +723,18 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
 
     shape = (2, 1024, 32, 128)
     t, real_chars = random_tiles(rng, shape, A, pad)
+    lengths = col_lengths(t, pad, empty=64)
     codes = rng.integers(0, A - 1, size=5478).astype(np.int8)
     qs = col_chunks([codes[:sw_col.NQC], codes[sw_col.NQC:]], cfg)
-    ref = col_chain(f"B3 {mat}", t, qs, m)
+    ref = col_chain(f"B3 {mat}", t, qs, m, lengths=lengths)
     st = ref[1][2]
     for sat in (default, lowered_sat(ref[0][1])):
-        saturated = col_chain(f"B3 {mat}", t, qs, m, sat, ref)
+        saturated = col_chain(f"B3 {mat}", t, qs, m, sat, ref, lengths)
         sw_cell.SAT = sat
         try:
             ms = cuda_ms(lambda: sw_col.score_bucket_col(t, qs[1][0], m, qs[1][1], state_in=st,
-                                                         take_init=True, exact=False))
+                                                         take_init=True, exact=False,
+                                                         lengths=lengths))
         finally:
             sw_cell.SAT = default
         rows.append({"check": "B3 col int16, two chunks with the carry", "mat": mat,
@@ -682,13 +742,16 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
                      "saturated": saturated, "ms_chunk1": ms})
     for eshape, lens in COL_EDGES:
         t, _ = random_tiles(rng, eshape, A, pad)
+        ragged = col_lengths(t, pad, empty=64)
         qs = col_chunks([rng.integers(0, A - 1, size=n).astype(np.int8) for n in lens], cfg)
-        name = f"B3 {mat} {eshape} rows {lens}"
-        ref = col_chain(name, t, qs, m)
-        for sat in (default, lowered_sat(ref[0][1])):
-            rows.append({"check": "B3 col int16 edge", "mat": mat, "shape": list(eshape),
-                         "chunk_rows": [p[0] for _, p in qs], "sat": sat, "sat_rule": True,
-                         "saturated": col_chain(name, t, qs, m, sat, ref)})
+        for lengths in (None, ragged):
+            name = f"B3 {mat} {eshape} rows {lens} lengths {lengths is not None}"
+            ref = col_chain(name, t, qs, m, lengths=lengths)
+            for sat in (default, lowered_sat(ref[0][1])):
+                rows.append({"check": "B3 col int16 edge", "mat": mat, "shape": list(eshape),
+                             "chunk_rows": [p[0] for _, p in qs], "sat": sat, "sat_rule": True,
+                             "lengths": lengths is not None,
+                             "saturated": col_chain(name, t, qs, m, sat, ref, lengths)})
 
     # B4 int16 (its cell route and, past the largest instance, col flat
     # int16), B5 and B6 int16 on unequal slots (one empty), over a partial
@@ -704,6 +767,7 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
         }, lambda **kw: sw_cell.score_bucket_cell_batch_plain(t, qs, m, p, **kw))
     shape = (1, 1152, 32, 128)
     t, _ = random_tiles(rng, shape, A, pad)
+    lengths = col_lengths(t, pad, empty=64)
     lens = [300, 1000, 0, 77]
     pads = [n and sw_col.padded_rows(n) for n in lens]
     (plan,) = col_flat_plan(pads)
@@ -711,8 +775,11 @@ def phase_kernels_state16(mat, cfg, m, rng, rows):
     qs = torch.stack([query_block(rng, n, sw_col.NQC, A, pad) for n in lens])
     p = (0, cfg.gop, cfg.gex, 0, *pads)
     batch_state16(rows, mat, shape, pads, {
-        "B5 col flat int16": lambda **kw: sw_col.score_bucket_col_flat(t, qs, m, p, offs, **kw),
-        "B6 col fused int16": lambda **kw: sw_col.score_bucket_col_flat_fused(t, qs, m, p, **kw),
+        "B5 col flat int16": lambda **kw: sw_col.score_bucket_col_flat(t, qs, m, p, offs,
+                                                                       lengths=lengths, **kw),
+        "B6 col fused int16": lambda **kw: sw_col.score_bucket_col_flat_fused(t, qs, m, p,
+                                                                             lengths=lengths,
+                                                                             **kw),
     }, lambda **kw: sw_col.score_bucket_col_flat_plain(t, qs, m, p, **kw))
 
 
@@ -1202,9 +1269,12 @@ def phase_sprot(clock_mhz):
             nrows, p, q = len(mid), prm, qm
         for exact in (True,) if kind == "row" else (True, False):  # the row kernel: int32 only
             kw = {} if kind == "row" else {"exact": exact}
-            a = fn(t, q, eng._matrix_flat, p, **kw)
+            # The col kernel as the main path launches it, with the tiles'
+            # lengths; also timed without them.
+            kl = {"lengths": eng._bucket_lengths[i]} if kind == "col" else {}
+            a = fn(t, q, eng._matrix_flat, p, **kw, **kl)
             b = plain(t, q, eng._matrix_flat, p, **kw)
-            ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw))
+            ms = cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw, **kl))
             pms = cuda_ms(lambda: plain(t, q, eng._matrix_flat, p, **kw), reps=1)
             # int16 state: its launches come from the align --dpx run.
             extra = {}
@@ -1219,6 +1289,10 @@ def phase_sprot(clock_mhz):
                 route, cell, _, pool = sw_row.row_route(*t.shape, len(mid))
                 extra = {"row_route": route, "cell_shape": cell and list(cell),
                          "scratch_bytes": pool}
+            else:
+                a0 = fn(t, q, eng._matrix_flat, p, **kw)
+                check(torch.equal(a0, b), f"{kind} without lengths differs from plain")
+                extra = {"without_lengths_ms": cuda_ms(lambda: fn(t, q, eng._matrix_flat, p, **kw))}
             kernel_row(knames[0] if exact else knames[1], replaces,
                        "align" if exact else "align --dpx", counts[kind][0] if exact else 0,
                        tuple(t.shape), nrows, len(mid), i, a, b, ms, pms,
@@ -1247,7 +1321,8 @@ def phase_sprot(clock_mhz):
                    cell_shape=list(sw_cell.cell_shape(t.shape[1])), scratch_bytes=0)
 
     # B4 at the largest cell bucket with the batch of 14; B5 and B6 at the
-    # largest col bucket with the plan's widest pass.
+    # largest col bucket with the plan's widest pass, given the bucket's
+    # lengths as the main path gives them (each also timed without).
     qdev = torch.as_tensor(qarr).cuda()
     i = largest["cell"]
     t = eng._bucket_tiles[i]
@@ -1300,16 +1375,19 @@ def phase_sprot(clock_mhz):
          sw_col.score_bucket_col_flat_fused, ()),
     ):
         for exact, (path, launches) in modes.items():
-            def fn(wrapper=wrapper, args=args, exact=exact):
-                return wrapper(t, qs, eng._matrix_flat, pcol, *args, rtot=qcap_b, exact=exact)
+            def fn(wrapper=wrapper, args=args, exact=exact, lengths=eng._bucket_lengths[i]):
+                return wrapper(t, qs, eng._matrix_flat, pcol, *args, rtot=qcap_b, exact=exact,
+                               lengths=lengths)
             a = fn()
             ms = cuda_ms(fn)
+            b, pms = plains[exact]
+            check(torch.equal(fn(lengths=None), b), f"{name} {exact} without lengths: != plain")
             pool_rows = sum(pcol[4:]) if "fused" in name else qcap_b
             extra = {"boundary_bytes": cuda_lib.col_boundary_bytes(t.shape[0], pool_rows,
-                                                                   0 if exact else 1)}
+                                                                   0 if exact else 1),
+                     "without_lengths_ms": cuda_ms(lambda: fn(lengths=None))}
             if not exact:
                 extra["equal_to_exact"] = True
-            b, pms = plains[exact]
             kernel_row(name if exact else name.replace("_kernel", "16_kernel"), replaces,
                        path, launches, tuple(t.shape), sum(pcol[4:]), real_rows, i, a, b, ms, pms,
                        slots=len(idx), state="int32" if exact else "int16",
@@ -1501,10 +1579,10 @@ def phase_state16(ctx, kernels):
     tiles_total = sum(b.num_tiles for b in eng.packed.buckets)
     exact_tiles, real_score = [], SearchEngine._score_bucket
 
-    def score_spy(self, tiles, kind, codes, qdev, params, exact, *rest):
+    def score_spy(self, tiles, kind, codes, qdev, params, exact, *rest, **kw):
         if exact:  # the fast pass is int16: exact calls are the re-score's
             exact_tiles.append(int(tiles.shape[0]))
-        return real_score(self, tiles, kind, codes, qdev, params, exact, *rest)
+        return real_score(self, tiles, kind, codes, qdev, params, exact, *rest, **kw)
 
     flagged.clear()
     SearchEngine._rescore_overflow, SearchEngine._score_bucket = spy, score_spy
@@ -2219,10 +2297,10 @@ def phase_mesh(ctx, kernels):
     mid = encode(next(q for q in queries if len(q) == QUERY_LADDER[1]))  # 464 aa
     per_shard = {
         "query_464": [shard_ms(sh, lambda sh=sh: eng._bucket_parts(sh.tiles, sh.device, mid, True,
-                                                                   sh.matrix))
+                                                                   sh.matrix, sh.lengths))
                       for sh in eng._shards],
         "batch_14": [shard_ms(sh, lambda sh=sh: eng._batch_rows(sh.tiles, sh.device, group,
-                                                                sh.matrix), reps=1)
+                                                                sh.matrix, sh.lengths), reps=1)
                      for sh in eng._shards],
     }
     mesh_ms = {
@@ -2283,8 +2361,8 @@ def phase_mesh(ctx, kernels):
             if part is None:
                 continue
             with shard_context(sh):
-                tiles, sidx = part
-                rows = seng._chunk_rows(tiles, b, [mid], setup, sh.matrix)
+                tiles, sidx, lens = part
+                rows = seng._chunk_rows(tiles, b, [mid], setup, sh.matrix, lens)
                 ids = sidx.reshape(-1).long()
                 keep = ids >= 0
                 got[ids[keep].to(devices[0])] = rows[0][keep].to(devices[0])

@@ -18,20 +18,22 @@ __device__ __forceinline__ int clamp_state(int v, int sat) {
 }
 
 // One warp scores one subject (x: its codes, stride apart: 4096 in a cell
-// tile, NS in a row tile) against query rows q[0, nrows).  smat:
-// [A][A + 1], B - gop and a -inf column A.  hin/fin, hout/fout: the
-// subject's carry in and out (the same stride), or null.  th/te: the warp's boundary column of nrows rows (St, clamped at
-// sat for int16), or null when L fits one pass.  Returns the subject's
-// max H, on every lane.
+// tile, NS in a row tile) against query rows q[0, nrows), in the passes
+// that cover its first cols <= L columns: ceil(cols / kColPass) passes, none
+// for cols = 0.  smat: [A][A + 1], B - gop and a -inf column A.  hin/fin,
+// hout/fout: the subject's carry in and out (the same stride), or null;
+// only the columns of the passes run are read and written.  th/te: the
+// warp's boundary column of nrows rows (St, clamped at sat for int16), or
+// null when L fits one pass.  Returns the subject's max H, on every lane.
 template <typename St>
 __device__ __forceinline__ int col_warp(
-    const int8_t* __restrict__ x, int L, int stride,
+    const int8_t* __restrict__ x, int L, int cols, int stride,
     const int32_t* __restrict__ q, int nrows, const int* smat, int A, int gop,
     int gex, const int32_t* __restrict__ hin, const int32_t* __restrict__ fin,
     int32_t* hout, int32_t* fout, St* th, St* te, int sat) {
   const int lane = threadIdx.x & 31;
   const int A1 = A + 1;
-  const int npass = (L + kColPass - 1) / kColPass;
+  const int npass = (cols + kColPass - 1) / kColPass;
   int m = 0;
   for (int p = 0; p < npass; ++p) {
     const bool rd = p > 0, wr = p + 1 < npass;
@@ -135,19 +137,24 @@ __device__ __forceinline__ int col_warp(
   return __reduce_max_sync(kWarpAll, m);
 }
 
-// Warp w of the grid's x axis scores subject w % 4096 of tile w / 4096
-// against slot blockIdx.y: rows[slot] rows of queries[slot] (all W rows
-// when rows is null), its boundary column at rows offs[slot] .. (0 when
-// null) of the warp's rtot-row pool.  With kStarts, offs holds the slots'
-// gapless starts [S + 1] and slot s runs offs[s + 1] - offs[s] rows.
-// Writes out[slot, t, s].
+// Warp w scores subject w % 4096 of tile w / 4096 against slot
+// blockIdx.y: rows[slot] rows of queries[slot] (all W rows when rows is
+// null), its boundary column at rows offs[slot] .. (0 when null) of the
+// warp's rtot-row pool.  With kStarts, offs holds the slots' gapless
+// starts [S + 1] and slot s runs offs[s + 1] - offs[s] rows.  lens: the
+// subjects' lengths [T, 4096], or null: warp w then runs the passes of its
+// own lens[w] columns (none for a padding lane, whose score is 0), else
+// those of all L.  Blocks take warps from the grid's end: a bucket's
+// subjects ascend in length, so its longest start first and the short
+// ones fill the tail.  Writes out[slot, t, s].
 template <typename St, bool kStarts = false>
 __device__ __forceinline__ void sw_col_body(
     const int8_t* __restrict__ tiles, const int32_t* __restrict__ queries,
     const int32_t* __restrict__ rows, const int32_t* __restrict__ offs,
-    const int32_t* __restrict__ mat, int A, int T, int L, int W, int rtot,
-    int gop, int gex, const int32_t* hin, const int32_t* fin, int32_t* hout,
-    int32_t* fout, St* th, St* te, float* __restrict__ out, int sat) {
+    const int32_t* __restrict__ lens, const int32_t* __restrict__ mat, int A,
+    int T, int L, int W, int rtot, int gop, int gex, const int32_t* hin,
+    const int32_t* fin, int32_t* hout, int32_t* fout, St* th, St* te,
+    float* __restrict__ out, int sat) {
   __shared__ int smat[kMaxAlphabet * (kMaxAlphabet + 1)];
   const int A1 = A + 1;
   for (int k = threadIdx.x; k < A * A1; k += blockDim.x) {
@@ -155,13 +162,14 @@ __device__ __forceinline__ void sw_col_body(
     smat[k] = c < A ? mat[k / A1 * A + c] - gop : kNeg;
   }
   __syncthreads();
-  const int w = blockIdx.x * kColWarps + (threadIdx.x >> 5);
+  const int w = (gridDim.x - 1 - blockIdx.x) * kColWarps + (threadIdx.x >> 5);
   const int t = w / kCellNS, s = w % kCellNS;
   const int slot = blockIdx.y;
   const size_t base = (size_t)t * L * kCellNS + s;
   const size_t col = (size_t)w * rtot + (offs ? offs[slot] : 0);
   const int m = col_warp<St>(
-      tiles + base, L, kCellNS, queries + (size_t)slot * W,
+      tiles + base, L, lens ? min(lens[w], L) : L, kCellNS,
+      queries + (size_t)slot * W,
       kStarts ? offs[slot + 1] - offs[slot] : rows ? rows[slot] : W, smat,
       A, gop, gex, hin ? hin + base : nullptr, fin ? fin + base : nullptr,
       hout ? hout + base : nullptr, fout ? fout + base : nullptr,
@@ -175,28 +183,30 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int T, int L, int nrows, int gop, int gex, const int32_t* hin,
     const int32_t* fin, int32_t* hout, int32_t* fout, int32_t* th,
-    int32_t* te, float* out) {
-  sw_col_body<int32_t>(tiles, query, nullptr, nullptr, mat, A, T, L, nrows,
-                       nrows, gop, gex, hin, fin, hout, fout, th, te, out, 0);
+    int32_t* te, float* out, const int32_t* lens) {
+  sw_col_body<int32_t>(tiles, query, nullptr, nullptr, lens, mat, A, T, L,
+                       nrows, nrows, gop, gex, hin, fin, hout, fout, th, te,
+                       out, 0);
 }
 
 __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col16_kernel(
     const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
     int T, int L, int nrows, int gop, int gex, const int32_t* hin,
     const int32_t* fin, int32_t* hout, int32_t* fout, int16_t* th,
-    int16_t* te, float* out, int sat) {
-  sw_col_body<int16_t>(tiles, query, nullptr, nullptr, mat, A, T, L, nrows,
-                       nrows, gop, gex, hin, fin, hout, fout, th, te, out,
-                       sat);
+    int16_t* te, float* out, int sat, const int32_t* lens) {
+  sw_col_body<int16_t>(tiles, query, nullptr, nullptr, lens, mat, A, T, L,
+                       nrows, nrows, gop, gex, hin, fin, hout, fout, th, te,
+                       out, sat);
 }
 
 __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* rows,
     const int32_t* offs, const int32_t* mat, int A, int T, int L, int W,
-    int rtot, int gop, int gex, int32_t* th, int32_t* te, float* out) {
-  sw_col_body<int32_t>(tiles, queries, rows, offs, mat, A, T, L, W, rtot, gop,
-                       gex, nullptr, nullptr, nullptr, nullptr, th, te, out,
-                       0);
+    int rtot, int gop, int gex, int32_t* th, int32_t* te, float* out,
+    const int32_t* lens) {
+  sw_col_body<int32_t>(tiles, queries, rows, offs, lens, mat, A, T, L, W,
+                       rtot, gop, gex, nullptr, nullptr, nullptr, nullptr, th,
+                       te, out, 0);
 }
 
 // B6: col flat with the slots' pool rows packed without gaps, starts[s] ..
@@ -206,9 +216,9 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat_ker
 __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_fused_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* starts,
     const int32_t* mat, int A, int T, int L, int W, int rtot, int gop,
-    int gex, int32_t* th, int32_t* te, float* out) {
-  sw_col_body<int32_t, true>(tiles, queries, nullptr, starts, mat, A, T, L, W,
-                             rtot, gop, gex, nullptr, nullptr, nullptr,
+    int gex, int32_t* th, int32_t* te, float* out, const int32_t* lens) {
+  sw_col_body<int32_t, true>(tiles, queries, nullptr, starts, lens, mat, A, T,
+                             L, W, rtot, gop, gex, nullptr, nullptr, nullptr,
                              nullptr, th, te, out, 0);
 }
 
@@ -219,18 +229,19 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_flat16_k
     const int8_t* tiles, const int32_t* queries, const int32_t* rows,
     const int32_t* offs, const int32_t* mat, int A, int T, int L, int W,
     int rtot, int gop, int gex, int16_t* th, int16_t* te, float* out,
-    int sat) {
-  sw_col_body<int16_t>(tiles, queries, rows, offs, mat, A, T, L, W, rtot, gop,
-                       gex, nullptr, nullptr, nullptr, nullptr, th, te, out,
-                       sat);
+    int sat, const int32_t* lens) {
+  sw_col_body<int16_t>(tiles, queries, rows, offs, lens, mat, A, T, L, W,
+                       rtot, gop, gex, nullptr, nullptr, nullptr, nullptr, th,
+                       te, out, sat);
 }
 
 __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_col_fused16_kernel(
     const int8_t* tiles, const int32_t* queries, const int32_t* starts,
     const int32_t* mat, int A, int T, int L, int W, int rtot, int gop,
-    int gex, int16_t* th, int16_t* te, float* out, int sat) {
-  sw_col_body<int16_t, true>(tiles, queries, nullptr, starts, mat, A, T, L, W,
-                             rtot, gop, gex, nullptr, nullptr, nullptr,
+    int gex, int16_t* th, int16_t* te, float* out, int sat,
+    const int32_t* lens) {
+  sw_col_body<int16_t, true>(tiles, queries, nullptr, starts, lens, mat, A, T,
+                             L, W, rtot, gop, gex, nullptr, nullptr, nullptr,
                              nullptr, th, te, out, sat);
 }
 
@@ -249,7 +260,8 @@ __global__ void __launch_bounds__(kColWarps * 32, kColMinBlocks) sw_row_col_kern
   if (w >= (size_t)T * NS) return;
   const size_t col = w * nrows;
   const int m = col_warp<int32_t>(
-      tiles + w / NS * L * NS + w % NS, L, NS, query, nrows, smat, A, gop, gex,
+      tiles + w / NS * L * NS + w % NS, L, L, NS, query, nrows, smat, A, gop,
+      gex,
       nullptr, nullptr, nullptr, nullptr, th ? th + col : nullptr,
       te ? te + col : nullptr, 0);
   if ((threadIdx.x & 31) == 0) out[w] = (float)m;
@@ -285,12 +297,17 @@ extern "C" {
 // (sw_col16_kernel, sw_col_flat16_kernel, sw_col_fused16_kernel).  th, te:
 // the boundary columns [T * 4096, rtot], int32 (int16 when sat > 0), null
 // allowed when L <= sw_col_pass_columns() or rtot is 0; out: f32
-// [S, T, 4096].
+// [S, T, 4096].  lens: int32 [T, 4096], the subjects' lengths, or null.
+// With lens each warp runs only the passes of its own subject's columns,
+// in every kernel, and the carry out at columns past them is unspecified:
+// no score reads it, since the next query chunk runs the same passes and a
+// pass's left edge lies in the pass before.  With null every warp runs
+// the passes of all L columns.
 int sw_col_launch(const void* tiles, const void* queries, const void* rows,
                   const void* offs, const void* mat, int A, int T, int L,
                   int S, int W, int rtot, int gop, int gex, const void* hin,
                   const void* fin, void* hout, void* fout, void* th, void* te,
-                  void* out, int sat, void* stream) {
+                  void* out, int sat, const void* lens, void* stream) {
   const bool carry_ok = !hin == !fin && !hout == !fout;
   const bool slots_ok =
       rows || offs ? offs && !hin && !hout && (!rows || W <= rtot)
@@ -302,38 +319,39 @@ int sw_col_launch(const void* tiles, const void* queries, const void* rows,
   if (T == 0) return 0;
   const dim3 grid((unsigned)((long long)T * kCellNS / kColWarps), (unsigned)S);
   const cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* ln = (const int32_t*)lens;
   if (rows && sat) {
     sw_col_flat16_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
         (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
-        (int16_t*)th, (int16_t*)te, (float*)out, sat);
+        (int16_t*)th, (int16_t*)te, (float*)out, sat, ln);
   } else if (rows) {
     sw_col_flat_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)rows,
         (const int32_t*)offs, (const int32_t*)mat, A, T, L, W, rtot, gop, gex,
-        (int32_t*)th, (int32_t*)te, (float*)out);
+        (int32_t*)th, (int32_t*)te, (float*)out, ln);
   } else if (offs && sat) {
     sw_col_fused16_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)offs,
         (const int32_t*)mat, A, T, L, W, rtot, gop, gex, (int16_t*)th,
-        (int16_t*)te, (float*)out, sat);
+        (int16_t*)te, (float*)out, sat, ln);
   } else if (offs) {
     sw_col_fused_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)offs,
         (const int32_t*)mat, A, T, L, W, rtot, gop, gex, (int32_t*)th,
-        (int32_t*)te, (float*)out);
+        (int32_t*)te, (float*)out, ln);
   } else if (sat) {
     sw_col16_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)mat, A,
         T, L, W, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
         (int32_t*)hout, (int32_t*)fout, (int16_t*)th, (int16_t*)te,
-        (float*)out, sat);
+        (float*)out, sat, ln);
   } else {
     sw_col_kernel<<<grid, kColWarps * 32, 0, st>>>(
         (const int8_t*)tiles, (const int32_t*)queries, (const int32_t*)mat, A,
         T, L, W, gop, gex, (const int32_t*)hin, (const int32_t*)fin,
         (int32_t*)hout, (int32_t*)fout, (int32_t*)th, (int32_t*)te,
-        (float*)out);
+        (float*)out, ln);
   }
   return (int)cudaGetLastError();
 }

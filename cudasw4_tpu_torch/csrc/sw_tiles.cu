@@ -131,7 +131,10 @@
 // query's (which can be 8 rows): a tile is 4096 warps.  Lane k holds
 // kColRegs consecutive subject columns in registers (code, H + gop and F
 // of the row above); a pass covers kColPass = 32 x kColRegs columns, and a
-// subject of L columns takes ceil(L / kColPass) passes.  Inside a pass the
+// subject of L columns takes ceil(L / kColPass) passes.  Given the tiles'
+// subject lengths, a warp runs only its own subject's ceil(len / kColPass)
+// passes (none for a padding lane), and the blocks take the grid's warps
+// from its end, longest subjects first.  Inside a pass the
 // query streams through the warp: lane k scores row i at step i + k,
 // taking H + gop and E of its left column at row i from lane k - 1 by
 // __shfl_up_sync, and the value it took one step earlier as the diagonal.

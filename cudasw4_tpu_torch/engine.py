@@ -246,6 +246,9 @@ class SearchEngine(StreamingEngineMixin):
         self.db: DBData | None = None
         self.packed: PackedDB | None = None
         self._bucket_tiles: list[torch.Tensor] = []
+        # Each bucket's subject lengths on the device where the col kernels
+        # score it (sw_col.ColLengths), else None (``_col_lengths``).
+        self._bucket_lengths: list = []
         self._flat_idx = self._valid = None
         self._shards: list[sharding.Shard] = []
         self._total_t0 = None
@@ -314,6 +317,7 @@ class SearchEngine(StreamingEngineMixin):
         self.streaming = False
         self.packed = None
         self._bucket_tiles = []
+        self._bucket_lengths = []
         self._flat_idx = self._valid = None
         self._shards = []
         self._resident_chunks, self._res_tiles = [], {}
@@ -361,6 +365,12 @@ class SearchEngine(StreamingEngineMixin):
             self.streaming = True
             self._work_bytes, self._temp_bytes = self._stream_work(shapes)
             self._stream_codec = choose_codec(codec_mode, int(self._pad))
+            # Every col bucket's lengths stay resident; a chunk views its own.
+            if self.mesh is None:
+                self._bucket_lengths = self._col_lengths(dev)
+            for sh in self._shards:
+                with sharding.shard_context(sh):
+                    sh.stream_lengths = self._col_lengths(sh.device)
             # The prefix first: a temp transfer pack then skips its tiles.
             self._load_resident_prefix()
             if self.mesh is not None:
@@ -381,6 +391,7 @@ class SearchEngine(StreamingEngineMixin):
             sharding.shard_bucket_arrays(self.packed, self._shards, self.mesh.size)
         else:
             self._bucket_tiles = [upload(b.tiles, dev) for b in self.packed.buckets]
+            self._bucket_lengths = self._col_lengths(dev)
             flat_idx = np.concatenate(
                 [b.seq_index.reshape(-1) for b in self.packed.buckets]
             ) if self.packed.buckets else np.zeros(0, np.int32)
@@ -396,6 +407,14 @@ class SearchEngine(StreamingEngineMixin):
             )
         if self.warmup_on:
             self.warmup()
+
+    def _col_lengths(self, device) -> list:
+        """Each bucket's subject lengths on ``device`` (``sw_col.ColLengths``,
+        16 KB a tile) where it is a col bucket, else None: every col launch
+        on a bucket's tiles takes their share, so that no warp runs the
+        passes past its own subject's length."""
+        return [sw_col.ColLengths.place(b.lengths, device) if kind == "col" else None
+                for b, kind in zip(self.packed.buckets, self._kinds)]
 
     def _streams(self, shapes) -> bool:
         """``engine_streaming.streams`` under this engine's budget and
@@ -436,14 +455,16 @@ class SearchEngine(StreamingEngineMixin):
         qdev = cuda_lib.to_device(qpad, self.device)
         parts = []
         routed = self._single_kinds(self.COL_SINGLE_MIN_ROWS)
-        for tiles, kind, rkind in zip(self._bucket_tiles, self._kinds, routed):
+        for tiles, lens, kind, rkind in zip(self._bucket_tiles, self._bucket_lengths,
+                                            self._kinds, routed):
             for k in dict.fromkeys((kind, rkind)):
-                s = self._score_bucket(tiles, k, codes, qdev, params, True)
+                s = self._score_bucket(tiles, k, codes, qdev, params, True, lengths=lens)
                 if self.state16 and k != "row":  # the row kernel is exact only
-                    self._score_bucket(tiles, k, codes, qdev, params, False).amax(dim=1)
+                    self._score_bucket(tiles, k, codes, qdev, params, False,
+                                       lengths=lens).amax(dim=1)
             parts.append(s)
             if kind == "col":
-                self._warmup_col_chunked(tiles)
+                self._warmup_col_chunked(tiles, lens)
         self._top_n(self._slots(parts))
         self._sync()
         n = _kernel_launches() - before
@@ -451,13 +472,13 @@ class SearchEngine(StreamingEngineMixin):
             print(f"warmup: {n} kernel launches in {time.perf_counter() - t0:.1f}s")
         return n
 
-    def _warmup_col_chunked(self, tiles) -> None:
+    def _warmup_col_chunked(self, tiles, lengths) -> None:
         """Launch the col kernel on the carry variants that a query past
         NQC reaches on one bucket's tiles (``score_bucket_col_any_query``):
         take or emit the H/F carry (first, middle and last chunks) on the
         full and the remainder tile groups of ``sw_col.col_group_tiles``,
-        each with the minimal query chunk (the JAX engine's
-        ``_warmup_col_chunked``)."""
+        each with the minimal query chunk and the tiles' ``lengths`` (the
+        JAX engine's ``_warmup_col_chunked``)."""
         T, L = tiles.shape[0], tiles.shape[1]
         budget = cuda_lib.TEMP_BYTES if self.col_temp_bytes is None else self.col_temp_bytes
         tc = sw_col.col_group_tiles(T, L, sw_col.NQC, 2, budget)
@@ -471,7 +492,7 @@ class SearchEngine(StreamingEngineMixin):
             for take, emit in ((False, True), (True, True), (True, False)):
                 sw_col.score_bucket_col(sub, qdev, self._matrix_flat, params,
                                         state_in=(zero, zero) if take else None,
-                                        take_init=take, emit_state=emit)
+                                        take_init=take, emit_state=emit, lengths=lengths[:gt])
 
     @property
     def results_per_query(self) -> int:
@@ -511,14 +532,16 @@ class SearchEngine(StreamingEngineMixin):
         JAX engine's ``_scan_long_query``)."""
         return not self.state16 or len(codes) > self.qcap
 
-    def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool, matrix=None):
+    def _score_bucket(self, tiles, kind, codes, qdev, params, exact: bool, matrix=None,
+                      lengths=None):
         """Scores f32 [T, NS] of one query against one bucket's tiles: col
         buckets take NQC-row chunks with the H/F carry when the query's
         padded rows pass NQC, every other case one kernel call.  A streamed
         pass caps the tile groups' temporaries at ``_temp_bytes``: the
         carry's groups at half of it, as its in and out carries live
         together.  ``matrix``: the substitution matrix on the tiles' device
-        (default: the engine's)."""
+        (default: the engine's); ``lengths``: the tiles' subject lengths
+        (``sw_col.ColLengths``) for the col kernels, or None."""
         matrix = self._matrix_flat if matrix is None else matrix
         with span(f"sw:bucket {kind} L={tiles.shape[1]}", tiles.device):
             if kind == "col" and int(params[3]) > sw_col.NQC:
@@ -528,10 +551,10 @@ class SearchEngine(StreamingEngineMixin):
                     temp = half if temp is None else min(temp, half)
                 return sw_col.score_bucket_col_any_query(
                     tiles, codes, matrix, self.scoring.gop, self.scoring.gex,
-                    pad=self._pad, temp_bytes=temp, exact=exact,
+                    pad=self._pad, temp_bytes=temp, exact=exact, lengths=lengths,
                 )
             return score_bucket(tiles, qdev, matrix, params, kind, exact=exact,
-                                temp_bytes=self._temp_bytes)
+                                temp_bytes=self._temp_bytes, lengths=lengths)
 
     def bucket_scores(self, codes, exact: bool = True) -> list[torch.Tensor]:
         """Scores f32 [T, NS] of one query against each bucket, in bucket
@@ -540,7 +563,8 @@ class SearchEngine(StreamingEngineMixin):
         if self.streaming or self.mesh is not None:
             raise RuntimeError("bucket scores need a database resident on one device; a "
                                "streamed one yields its scores chunk by chunk (_stream_rows)")
-        return self._bucket_parts(self._bucket_tiles, self.device, codes, exact)
+        return self._bucket_parts(self._bucket_tiles, self.device, codes, exact,
+                                  lengths=self._bucket_lengths)
 
     def _single_kinds(self, nq_pad: int) -> tuple:
         """The kernel kind of each bucket for a single scan of ``nq_pad``
@@ -555,17 +579,20 @@ class SearchEngine(StreamingEngineMixin):
             for kind, b in zip(self._kinds, self.packed.buckets)
         )
 
-    def _bucket_parts(self, bucket_tiles, device, codes, exact: bool, matrix=None) -> list:
+    def _bucket_parts(self, bucket_tiles, device, codes, exact: bool, matrix=None,
+                      lengths=None) -> list:
         """Scores f32 [T, NS] of one query against each of ``bucket_tiles``
         on ``device`` (None where a shard holds no tile of the bucket), each
-        bucket on its kernel for this query's length (``_single_kinds``)."""
+        bucket on its kernel for this query's length (``_single_kinds``),
+        with its entry of ``lengths`` (``_col_lengths``; None: none)."""
         codes = np.asarray(codes, dtype=np.int8)
         qpad, params = self._single_qpad(codes)
         qdev = cuda_lib.to_device(qpad, device)
         return [
             None if tiles is None
-            else self._score_bucket(tiles, kind, codes, qdev, params, exact, matrix)
-            for tiles, kind in zip(bucket_tiles, self._single_kinds(int(params[3])))
+            else self._score_bucket(tiles, kind, codes, qdev, params, exact, matrix, lens)
+            for tiles, lens, kind in zip(bucket_tiles, lengths or [None] * len(bucket_tiles),
+                                         self._single_kinds(int(params[3])))
         ]
 
     def slot_scores(self, codes, exact: bool = True) -> torch.Tensor:
@@ -613,7 +640,8 @@ class SearchEngine(StreamingEngineMixin):
         cands = Candidates(self.mesh, self.results_per_query, 1)
         for sh in self._shards:
             with shard_span(sh):
-                parts = self._bucket_parts(sh.tiles, sh.device, codes, exact, sh.matrix)
+                parts = self._bucket_parts(sh.tiles, sh.device, codes, exact, sh.matrix,
+                                           sh.lengths)
                 vals, ids = self._top_n(self._slots(parts, sh.device), sh.ids)
                 tmax = () if exact else [torch.zeros(0) if p is None else p.amax(dim=1)
                                          for p in parts]
@@ -678,13 +706,15 @@ class SearchEngine(StreamingEngineMixin):
         qpad, params = self._single_qpad(codes)
         qdev = cuda_lib.to_device(qpad, self.device)
         cand_v, cand_i = [], []
-        for b, tiles, kind, tmax in zip(self.packed.buckets, self._bucket_tiles,
-                                        self._kinds, tmaxes):
+        for b, tiles, lens, kind, tmax in zip(self.packed.buckets, self._bucket_tiles,
+                                              self._bucket_lengths, self._kinds, tmaxes):
             sel = torch.nonzero(tmax >= sat).flatten()
             if sel.numel() == 0:
                 continue
-            s = self._score_bucket(tiles.index_select(0, sel), kind, codes, qdev, params, True)
-            sidx = b.seq_index[sel.cpu().numpy()].reshape(-1)
+            host_sel = sel.cpu().numpy()
+            s = self._score_bucket(tiles.index_select(0, sel), kind, codes, qdev, params, True,
+                                   lengths=None if lens is None else lens.select(host_sel, sel))
+            sidx = b.seq_index[host_sel].reshape(-1)
             s = s.reshape(-1).cpu().numpy()
             keep = sidx >= 0
             cand_v.append(s[keep].astype(np.int64))
@@ -716,13 +746,15 @@ class SearchEngine(StreamingEngineMixin):
             with shard_span(sh):
                 qdev = cuda_lib.to_device(qpad, sh.device)
                 parts, idparts = [], [np.zeros(0, np.int64)]
-                for bi, (tiles, kind, tm) in enumerate(zip(sh.tiles, self._kinds, per)):
+                for bi, (tiles, lens, kind, tm) in enumerate(zip(sh.tiles, sh.lengths,
+                                                                 self._kinds, per)):
                     sel = np.nonzero(tm >= sat)[0]
                     if sel.size == 0:
                         continue
-                    sub = tiles.index_select(0, cuda_lib.to_device(sel, sh.device))
-                    parts.append(self._score_bucket(sub, kind, codes, qdev, params, True,
-                                                    sh.matrix))
+                    sel_dev = cuda_lib.to_device(sel, sh.device)
+                    parts.append(self._score_bucket(
+                        tiles.index_select(0, sel_dev), kind, codes, qdev, params, True,
+                        sh.matrix, None if lens is None else lens.select(sel, sel_dev)))
                     sidx = self.packed.buckets[bi].seq_index[sh.first[bi] + sel]
                     idparts.append(np.asarray(sidx, np.int64).reshape(-1))
                 ids_dev = cuda_lib.to_device(np.concatenate(idparts), sh.device)
@@ -811,11 +843,14 @@ class SearchEngine(StreamingEngineMixin):
         split dispatch (BATCH_SPLIT_CELLS) at every size."""
         if self.streaming or self.mesh is not None:
             raise RuntimeError("batch slot scores need a database resident on one device")
-        return self._batch_rows(self._bucket_tiles, self.device, group)
+        return self._batch_rows(self._bucket_tiles, self.device, group,
+                                lengths=self._bucket_lengths)
 
-    def _batch_rows(self, bucket_tiles, device, group, matrix=None) -> torch.Tensor:
+    def _batch_rows(self, bucket_tiles, device, group, matrix=None,
+                    lengths=None) -> torch.Tensor:
         """Scores f32 [len(group), slots] of a batch against ``bucket_tiles``
-        on ``device`` (None entries skipped), in slot order."""
+        on ``device`` (None entries skipped), in slot order, each bucket
+        with its entry of ``lengths`` (``_col_lengths``; None: none)."""
         S = len(group)
         qcap_b = self._qcap_batch
         queries, nqs, pads, params = self._batch_slot_params(enumerate(group), S, qcap_b)
@@ -823,20 +858,23 @@ class SearchEngine(StreamingEngineMixin):
         if any(k == "col" for k in self._kinds):
             plan = col_flat_plan(pads, limit=S, rtot=qcap_b)
         batch = (cuda_lib.to_device(queries, device), nqs, pads, params, plan)
-        parts = [self._batch_bucket(tiles, kind, *batch, matrix=matrix)
-                 for tiles, kind in zip(bucket_tiles, self._kinds) if tiles is not None]
+        parts = [self._batch_bucket(tiles, kind, *batch, matrix=matrix, lengths=lens)
+                 for tiles, lens, kind in zip(bucket_tiles, lengths or [None] * len(bucket_tiles),
+                                              self._kinds)
+                 if tiles is not None]
         if not parts:
             return torch.zeros((S, 0), dtype=torch.float32, device=device)
         return torch.cat(parts, dim=1)
 
     def _batch_bucket(self, tiles, kind, qdev, nqs, pads, params, plan,
-                      matrix=None) -> torch.Tensor:
+                      matrix=None, lengths=None) -> torch.Tensor:
         """Scores f32 [S, T x NS] of a batch's S slots (``_batch_slot_params``
         layout, queries ``qdev`` on the device, ``plan`` from col_flat_plan
         on a database with col buckets) against one bucket's tiles: the
         cell batch kernel on cell tiles, one flat-pool launch per plan pass
         on col tiles, the row kernel per slot on row tiles.  ``matrix``: on
-        the tiles' device (default: the engine's)."""
+        the tiles' device (default: the engine's); ``lengths``: the tiles'
+        subject lengths for the col kernels, or None."""
         with span(f"sw:batch_bucket {kind} L={tiles.shape[1]}", tiles.device):
             S = qdev.shape[0]
             matrix = self._matrix_flat if matrix is None else matrix
@@ -846,7 +884,7 @@ class SearchEngine(StreamingEngineMixin):
                 got = [None] * S
                 for s_part, slots in batch_col_scores(
                     tiles, qdev, matrix, params, S, plan, rtot=self._qcap_batch,
-                    temp_bytes=self._temp_bytes,
+                    temp_bytes=self._temp_bytes, lengths=lengths,
                 ):
                     for si, slot in enumerate(slots):
                         got[slot] = s_part[si]
@@ -874,7 +912,7 @@ class SearchEngine(StreamingEngineMixin):
         cands = Candidates(self.mesh, self.results_per_query, len(group))
         for sh in self._shards:
             with shard_span(sh):
-                rows = self._batch_rows(sh.tiles, sh.device, group, sh.matrix)
+                rows = self._batch_rows(sh.tiles, sh.device, group, sh.matrix, sh.lengths)
                 cands.add(sh, *self._top_n(rows, sh.ids))
         return cands
 

@@ -349,7 +349,10 @@ class StreamingEngineMixin:
         order, while they fit ``_prefix_budget`` (a bucket's partial last
         chunk always streams); the rest streams on every pass.  On a mesh
         each local shard keeps its slice of those chunks, within its own
-        budget; an entry is then (bucket, [(tiles, seq_index) a shard]).
+        budget.  An entry is (bucket index, tiles, seq_index, subject
+        lengths of a col chunk or None) on the device, or on a mesh
+        (bucket index, [(tiles, seq_index, lengths) a shard]); the lengths
+        are views of the bucket's resident ones (``_chunk_lengths``).
         Pinned only where the budget is known: an explicit
         ``max_device_bytes`` or a CUDA device (on a mesh across processes,
         only the explicit one, which every process shares).  The first
@@ -383,9 +386,10 @@ class StreamingEngineMixin:
                 try:
                     if self.mesh is None:
                         entry = (bi, upload(np.ascontiguousarray(b.tiles[t0:t1]), self.device),
-                                 upload(np.ascontiguousarray(b.seq_index[t0:t1]), self.device))
+                                 upload(np.ascontiguousarray(b.seq_index[t0:t1]), self.device),
+                                 self._chunk_lengths(self._bucket_lengths[bi], t0, t1 - t0))
                     else:
-                        entry = (bi, [self._upload_slice(sh, b, t0, t1) for sh in self._shards])
+                        entry = (bi, [self._upload_slice(sh, bi, t0, t1) for sh in self._shards])
                 except torch.cuda.OutOfMemoryError:
                     if self.mesh is not None and self.mesh.multiprocess:
                         raise
@@ -405,13 +409,15 @@ class StreamingEngineMixin:
                 + (" [stopped early: device allocation failed]" if oom else "")
             )
 
-    def _upload_slice(self, shard, b, t0: int, t1: int):
-        """A shard's slice of the chunk [t0, t1) of bucket ``b``: its tiles
-        and seq_index on its device."""
+    def _upload_slice(self, shard, bi: int, t0: int, t1: int):
+        """A shard's slice of the chunk [t0, t1) of bucket ``bi``: its tiles
+        and seq_index on its device, and the view of its subject lengths."""
+        b = self.packed.buckets[bi]
         a, e = shard_ranges(t1 - t0, self.mesh.size)[shard.pos]
         with shard_context(shard):
             return (upload(np.ascontiguousarray(b.tiles[t0 + a : t0 + e]), shard.device),
-                    upload(np.ascontiguousarray(b.seq_index[t0 + a : t0 + e]), shard.device))
+                    upload(np.ascontiguousarray(b.seq_index[t0 + a : t0 + e]), shard.device),
+                    self._chunk_lengths(shard.stream_lengths[bi], t0, t1 - t0, shard))
 
     def _build_stream_pack(self, pack_cache: str | None):
         """Pack every bucket's tiles for the transfer (codec
@@ -503,8 +509,9 @@ class StreamingEngineMixin:
             return chunk
 
     def _stream_chunks(self):
-        """Yield (bucket, chunk, seq_index) host arrays of every streamed
-        chunk, past each bucket's resident prefix: tiles [ct, ...] int8, or
+        """Yield (bucket index, first tile, chunk, seq_index) of every
+        streamed chunk, past each bucket's resident prefix, the last two
+        host arrays: tiles [ct, ...] int8, or
         packed words [ct, W] int32 with a stream codec.  A bucket's last
         chunk keeps its real tile count: the kernels take any count, and
         the JAX package's padding of it to ct tiles (one compiled program
@@ -513,7 +520,7 @@ class StreamingEngineMixin:
             ct = self._chunk_tiles(b)
             src = self._stream_pack[bi] if self._stream_pack is not None else b.tiles
             for t0 in range(self._res_tiles.get(bi, 0), b.num_tiles, ct):
-                yield b, src[t0 : t0 + ct], b.seq_index[t0 : t0 + ct]
+                yield bi, t0, src[t0 : t0 + ct], b.seq_index[t0 : t0 + ct]
 
     def _staging_sizes(self) -> tuple[int, int]:
         """(payload bytes, seq_index entries) of the largest streamed chunk
@@ -528,28 +535,43 @@ class StreamingEngineMixin:
             payload, ints = max(payload, ct * per_tile), max(ints, ct * b.NS)
         return payload, ints
 
+    def _chunk_lengths(self, lengths, t0: int, n: int, shard=None):
+        """The view of ``lengths`` (a bucket's ``sw_col.ColLengths``, or
+        None) for its chunk of tiles [t0, t0 + n), or for ``shard``'s slice
+        of that chunk (``shard_ranges``)."""
+        if lengths is None:
+            return None
+        if shard is not None:
+            a, e = shard_ranges(n, self.mesh.size)[shard.pos]
+            t0, n = t0 + a, e - a
+        return lengths[t0 : t0 + n]
+
     def _scan_chunks(self, depth: int = STAGING_DEPTH):
-        """Every chunk of one pass as (bucket, int8 tiles, seq_index) on the
-        device: the resident prefix first, then the streamed rest through a
-        ``_StagingRing`` of ``depth`` slots (the reference's pinned double
-        buffers, cudasw4.cuh:1649-1707), made before the prefix is scored.
-        A chunk is staged after the kernels of the chunk before are
-        enqueued, so that its read from the store and its copy overlap
-        them on the card."""
+        """Every chunk of one pass as (bucket, int8 tiles, seq_index,
+        subject lengths of a col chunk or None) on the device: the resident
+        prefix first, then the streamed rest through a ``_StagingRing`` of
+        ``depth`` slots (the reference's pinned double buffers,
+        cudasw4.cuh:1649-1707), made before the prefix is scored.  A chunk
+        is staged after the kernels of the chunk before are enqueued, so
+        that its read from the store and its copy overlap them on the
+        card.  A chunk's lengths are a view of the bucket's resident ones."""
         ring = _StagingRing(self.device, depth, *self._staging_sizes())
         self._stream_log = ring.log
-        for bi, xdev, sdev in self._resident_chunks:
-            yield self.packed.buckets[bi], xdev, sdev
-        for b, chunk, sidx in self._stream_chunks():
+        for bi, xdev, sdev, lens in self._resident_chunks:
+            yield self.packed.buckets[bi], xdev, sdev, lens
+        for bi, t0, chunk, sidx in self._stream_chunks():
+            b = self.packed.buckets[bi]
+            lens = self._chunk_lengths(self._bucket_lengths[bi], t0, len(chunk))
             item = ring.stage(chunk, sidx)
             tiles, ids = ring.take(item)
-            yield b, self._put_chunk(tiles, b.tiles.shape[1:]), ids
+            yield b, self._put_chunk(tiles, b.tiles.shape[1:]), ids, lens
             ring.release(item)
 
     def _scan_chunks_mesh(self, depth: int = STAGING_DEPTH):
         """``_scan_chunks`` on a mesh: every chunk of one pass as (bucket,
-        [(int8 tiles, seq_index) on the shard's device, or None where its
-        slice is empty] a local shard).  Each shard stages its slice
+        [(int8 tiles, seq_index, subject lengths of a col chunk or None) on
+        the shard's device, or None where its slice is empty] a local
+        shard).  Each shard stages its slice
         (``shard_ranges`` of the chunk) through a ring of its own, on its
         stream; a chunk's slices are released after the caller has
         enqueued their kernels."""
@@ -561,7 +583,8 @@ class StreamingEngineMixin:
                                           log=self._stream_log))
         for bi, per_shard in self._resident_chunks:
             yield self.packed.buckets[bi], per_shard
-        for b, chunk, sidx in self._stream_chunks():
+        for bi, t0, chunk, sidx in self._stream_chunks():
+            b = self.packed.buckets[bi]
             split = shard_ranges(len(chunk), self.mesh.size)
             parts, items = [], []
             for sh, ring in zip(self._shards, rings):
@@ -571,7 +594,8 @@ class StreamingEngineMixin:
                     with shard_context(sh):
                         item = ring.stage(chunk[a:e], sidx[a:e])
                         tiles, ids = ring.take(item)
-                        part = (self._put_chunk(tiles, b.tiles.shape[1:]), ids)
+                        part = (self._put_chunk(tiles, b.tiles.shape[1:]), ids,
+                                self._chunk_lengths(sh.stream_lengths[bi], t0, len(chunk), sh))
                 parts.append(part)
                 items.append(item)
             yield b, parts
@@ -616,19 +640,20 @@ class StreamingEngineMixin:
             singles[i] = (cuda_lib.to_device(qpad, device), params)
         return shorts, longs, batch, singles
 
-    def _chunk_rows(self, tiles, b, group, setup, matrix=None):
+    def _chunk_rows(self, tiles, b, group, setup, matrix=None, lengths=None):
         """Scores f32 [len(group), ct x NS] of one chunk of bucket ``b``
-        (``tiles`` on the device of ``setup``, ``_stream_setup``'s)."""
+        (``tiles`` on the device of ``setup``, ``_stream_setup``'s;
+        ``lengths``: its subject lengths for the col kernels, or None)."""
         shorts, longs, batch, singles = setup
         rows: list = [None] * len(group)
         if batch is not None:
-            part = self._batch_bucket(tiles, b.kernel, *batch, matrix=matrix)
+            part = self._batch_bucket(tiles, b.kernel, *batch, matrix=matrix, lengths=lengths)
             for slot, i in enumerate(shorts):
                 rows[i] = part[slot]
         for i in longs:
             qdev, params = singles[i]
             rows[i] = self._score_bucket(tiles, b.kernel, group[i], qdev, params, True,
-                                         matrix).reshape(-1)
+                                         matrix, lengths).reshape(-1)
         return torch.stack(rows)
 
     def _stream_rows(self, group):
@@ -636,8 +661,8 @@ class StreamingEngineMixin:
         per chunk, (scores f32 [len(group), ct x NS], seq_index [ct, NS])
         on the device, in chunk order (resident prefix first)."""
         setup = self._stream_setup(group, self.device)
-        for b, tiles, sidx in self._scan_chunks():
-            yield self._chunk_rows(tiles, b, group, setup), sidx
+        for b, tiles, sidx, lens in self._scan_chunks():
+            yield self._chunk_rows(tiles, b, group, setup, lengths=lens), sidx
 
     def _stream_candidates_mesh(self, group) -> Candidates:
         """One pass of the database on a mesh: every local shard scores its
@@ -654,8 +679,8 @@ class StreamingEngineMixin:
                 if part is None:
                     continue
                 with shard_span(sh):
-                    tiles, sidx = part
-                    rows = self._chunk_rows(tiles, b, group, setups[j], sh.matrix)
+                    tiles, sidx, lens = part
+                    rows = self._chunk_rows(tiles, b, group, setups[j], sh.matrix, lens)
                     with span("sw:top_n", sh.device):
                         cands[j].append(self._top_n(rows, sidx.reshape(-1).long()))
         out = Candidates(self.mesh, self.results_per_query, len(group))

@@ -20,7 +20,7 @@ from . import cuda_lib, sw_cell, sw_col, sw_row
 
 
 def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True,
-                 temp_bytes: int | None = None):
+                 temp_bytes: int | None = None, lengths=None):
     """Score one bucket's tiles against one query; returns f32 [T, NS].
 
     ``qpad``: int32 [>= nq] query block padded with the pad code;
@@ -31,6 +31,8 @@ def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True
     cell and col buckets; the row kernel is int32 only, as the JAX
     package's is, so its scores are exact in both modes.  ``temp_bytes``:
     the cap of a row tile group's boundary columns (``sw_row.row_route``).
+    ``lengths``: the tiles' subject lengths (``sw_col.ColLengths``), which
+    the col kernel takes, or None.
     """
     if kind == "cell":
         return sw_cell.score_bucket_cell(tiles, qpad, matrix_flat, params, exact=exact)
@@ -40,7 +42,7 @@ def score_bucket(tiles, qpad, matrix_flat, params, kind: str, exact: bool = True
         nq_pad = int(params[3])
         pc = (nq_pad, int(params[1]), int(params[2]), nq_pad)
         q = qpad[: min(sw_col.NQC, qpad.shape[0])]
-        return sw_col.score_bucket_col(tiles, q, matrix_flat, pc, exact=exact)
+        return sw_col.score_bucket_col(tiles, q, matrix_flat, pc, exact=exact, lengths=lengths)
     raise ValueError(f"unknown bucket kind {kind!r}")
 
 
@@ -78,7 +80,7 @@ def col_flat_plan(pads, limit=None, rtot=None, smax=8):
 
 
 def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=None,
-                     temp_bytes=None):
+                     temp_bytes=None, lengths=None):
     """Score a col bucket for a QB-query batch, one flat-pool launch per
     plan entry.
 
@@ -92,7 +94,9 @@ def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=No
     group of as many tiles as keep the pool's boundary columns
     (``cuda_lib.col_boundary_bytes``, 100.7 MB a tile at 3072 rows) within
     ``temp_bytes`` (default ``cuda_lib.TEMP_BYTES``), so that no chunk or
-    bucket size makes them outgrow the card.
+    bucket size makes them outgrow the card.  ``lengths``: the tiles'
+    subject lengths (``sw_col.ColLengths``), each group's launch taking its
+    tiles' share, or None.
     """
     T = tiles.shape[0]
     budget = cuda_lib.TEMP_BYTES if temp_bytes is None else temp_bytes
@@ -106,10 +110,13 @@ def batch_col_scores(tiles, queries, matrix_flat, params, QB: int, plan, rtot=No
         parts = []
         for t0 in range(0, max(T, 1), tc):
             sub = tiles[t0 : t0 + tc]
+            lens = None if lengths is None else lengths[t0 : t0 + tc]
             if fmin > 0 and len(offs) >= fmin:
-                parts.append(sw_col.score_bucket_col_flat_fused(sub, qs, matrix_flat, pcol, rtot=rtot))
+                parts.append(sw_col.score_bucket_col_flat_fused(sub, qs, matrix_flat, pcol,
+                                                                rtot=rtot, lengths=lens))
             else:
-                parts.append(sw_col.score_bucket_col_flat(sub, qs, matrix_flat, pcol, offs, rtot=rtot))
+                parts.append(sw_col.score_bucket_col_flat(sub, qs, matrix_flat, pcol, offs,
+                                                          rtot=rtot, lengths=lens))
         yield parts[0] if len(parts) == 1 else torch.cat(parts, dim=1), tuple(idx)
 
 

@@ -67,14 +67,15 @@ _CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
 #: both state modes; col flat when rows is non-null, col fused when rows
 #: is null and offs holds the gapless starts), with a fourth signature:
 #: tiles, queries, rows, offs, mat, A, T, L, S, W, rtot, gop, gex, hin,
-#: fin, hout, fout, th, te, out, sat, stream; th and te are the per-warp
-#: boundary columns (``launch_col``).
+#: fin, hout, fout, th, te, out, sat, lens, stream; th and te are the
+#: per-warp boundary columns, lens the subjects' lengths or null
+#: (``launch_col``).
 COL_LAUNCHES = {
     "sw_col_kernel": "sw_col_launch",
     "sw_col_flat_kernel": "sw_col_launch",
     "sw_col_fused_kernel": "sw_col_launch",
 }
-_COL_SIGNATURE = [_P] * 5 + [_I] * 8 + [_P] * 7 + [_I, _P]
+_COL_SIGNATURE = [_P] * 5 + [_I] * 8 + [_P] * 7 + [_I, _P, _P]
 #: The launch functions of the tool kernels (B7 in both state modes, B8),
 #: with a third signature: tiles, query, mat, A, T, L, nrows, gop, gex, G,
 #: R, sat, arg, out, stream; arg is the pair kernel's tiles per block and 0
@@ -405,7 +406,8 @@ def col_boundary_bytes(T: int, rows: int, sat: int = 0, ns: int = 4096) -> int:
 
 
 def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex: int,
-               slots=None, state_in=None, emit_state: bool = False, sat: int = 0):
+               slots=None, state_in=None, emit_state: bool = False, sat: int = 0,
+               lengths=None):
     """Launch the col kernel ``kernel`` (a key of COL_LAUNCHES) on the
     tiles' device and stream, and count the launch on the wrapper
     (``count``).
@@ -418,7 +420,10 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
     pool of rtot = starts[S] rows.  ``state_in``: int32 (hrow,
     frow) shaped as ``tiles``, the row above the first query row;
     ``emit_state``: also return the last row's (H, F), int32 (clamped at
-    ``sat`` under int16 state).  Allocates the f32 scores [S, T, 4096] and,
+    ``sat`` under int16 state).  ``lengths``: int32 [T, 4096], the
+    subjects' lengths, each warp then running only its own subject's
+    passes (the carry out unspecified past them), or None for every warp
+    running all L.  Allocates the f32 scores [S, T, 4096] and,
     when L spans more than one pass, the boundary columns
     (``col_boundary_bytes``); raises if the launch reports an error.
     Returns (scores, (hout, fout) or None).  Never synchronises.
@@ -444,6 +449,11 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
             if t.shape != tiles.shape:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(tiles.shape)}")
         hin, fin = state_in[0].data_ptr(), state_in[1].data_ptr()
+    if lengths is not None:
+        require(lengths, "lengths", torch.int32, 2, dev)
+        if lengths.shape != (T, math.prod(tiles.shape[2:])):
+            raise ValueError(f"lengths has shape {tuple(lengths.shape)}, expected "
+                             f"{(T, math.prod(tiles.shape[2:]))}")
     out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
     state = None
     if emit_state:
@@ -462,7 +472,7 @@ def launch_col(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex:
             tiles.data_ptr(), queries.data_ptr(), ptr(rows_dev), ptr(offs_dev),
             matrix_flat.data_ptr(), A, T, L, S, W, rtot, gop, gex, hin, fin,
             *(ptr(t) for t in state or (None, None)), ptr(th), ptr(te), out.data_ptr(), sat,
-            stream_handle(dev),
+            ptr(lengths), stream_handle(dev),
         )
     check_launch(code, kernel)
     count(wrapper, not sat)

@@ -18,6 +18,15 @@ both modes); ``exact=False`` runs int16 state saturating at
 ``score_bucket_col_flat`` and ``score_bucket_col_flat_fused`` keep the
 flat-pool contracts: S slots of nqp rows each, whose rows fit a pool of
 ``rtot`` rows; ``exact=False`` runs them in int16 state too.
+
+Every wrapper takes the tiles' subject lengths (``lengths``, a
+``ColLengths``): each warp then runs only its own subject's
+ceil(len / P) passes of P = ``col_pass`` columns, none for a padding
+lane, with the same scores.  A launch counts its warp-passes on the
+wrapper, ``col_warp_passes``, beside ``col_bucket_passes``, those that
+every warp running the bucket's L would have taken (S x T x 4096 x
+ceil(L / P) for S slots); the plain versions sweep every column and count
+nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import itertools
 import os
 
+import numpy as np
 import torch
 
 from . import cuda_lib, sw_cell
@@ -46,6 +56,62 @@ FLAT_QUANT = 128
 #: 0, the default, never does (the JAX package's switch, under the port's
 #: prefix).
 COL_FUSE_MIN_S = int(os.environ.get("CUDASW4_TPU_TORCH_COL_FUSE_MIN_S", 0))
+
+#: Subject columns per col pass where no kernel library runs (the CPU,
+#: "meta" tensors): the value of csrc/sw_common.cuh kColPass.
+COL_PASS = 512
+
+
+def col_pass(device) -> int:
+    """Subject columns per col pass of the kernels on ``device``: the
+    library's kColPass (``sw_col_pass_columns``) on a CUDA device, else
+    COL_PASS."""
+    if torch.device(device).type == "cuda":
+        return cuda_lib.lib().sw_col_pass_columns()
+    return COL_PASS
+
+
+class ColLengths:
+    """The subject lengths of col tiles as the col kernels take them.
+
+    ``dev``: int32 [T, 4096] on the tiles' device; ``passes``: host int64
+    [T], each tile's warp-passes, the sum of its subjects'
+    ceil(len / col_pass(device)), so that a launch counts its passes without
+    reading the device.  A slice (``lengths[a:b]``) or ``select`` describes
+    the same tiles as ``tiles[a:b]`` or ``tiles.index_select``."""
+
+    def __init__(self, dev: torch.Tensor, passes: np.ndarray):
+        self.dev, self.passes = dev, passes
+
+    @classmethod
+    def place(cls, lengths, device) -> "ColLengths":
+        """``lengths`` (host ints [T, 4096], ``PackedBucket.lengths``) on
+        ``device``, on the current stream."""
+        host = np.ascontiguousarray(lengths, dtype=np.int32)
+        passes = (-(-host.astype(np.int64) // col_pass(device))).sum(axis=1)
+        return cls(torch.from_numpy(host).to(device), passes)
+
+    def __getitem__(self, tiles: slice) -> "ColLengths":
+        return ColLengths(self.dev[tiles], self.passes[tiles])
+
+    def select(self, idx, idx_dev: torch.Tensor) -> "ColLengths":
+        """The lengths of tiles ``idx`` (host ints), ``idx_dev`` the same
+        indices on the device."""
+        return ColLengths(self.dev.index_select(0, idx_dev), self.passes[np.asarray(idx)])
+
+
+def _count_passes(wrapper, lengths: ColLengths | None, tiles, S: int) -> None:
+    """Count a launch of S slots on ``tiles`` (T tiles of L columns) on the
+    wrapper: ``col_bucket_passes`` as if every warp ran all L,
+    ``col_warp_passes`` as the warps run (the same without ``lengths``)."""
+    T, L = tiles.shape[0], tiles.shape[1]
+    full = S * T * G * NSL * -(-L // col_pass(tiles.device))
+    wrapper.col_bucket_passes += full
+    wrapper.col_warp_passes += full if lengths is None else S * int(lengths.passes.sum())
+
+
+def _lengths_dev(lengths: ColLengths | None):
+    return None if lengths is None else lengths.dev
 
 
 def _params(params):
@@ -77,7 +143,7 @@ def score_bucket_col_plain(tiles, query, matrix_flat, params, state_in=None,
 
 def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
                      take_init: bool = False, emit_state: bool = False,
-                     exact: bool = True):
+                     exact: bool = True, lengths: ColLengths | None = None):
     """Scores f32 [T, 4096] = per-subject max over this query chunk's rows.
 
     ``tiles``: int8 [T, L, 32, 128] with L % LC == 0; ``query``: int32
@@ -87,6 +153,14 @@ def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
     ``take_init``.  With ``emit_state`` also returns (hrow, frow), int32:
     the last row's H/F, the next chunk's ``state_in``.  ``exact=False``:
     int16 state saturating at ``sw_cell.SAT`` (``sw_cell.sat_match``).
+
+    ``lengths``: the tiles' subject lengths, or None.  With them each
+    subject's warp runs only its own ceil(len / col_pass) passes, and the
+    blocks start from the grid's end, longest subjects first (csrc/sw_col.cu);
+    the scores are those without.  The emitted H/F is then unspecified
+    at the columns past a subject's own passes: no score reads them, since
+    the next chunk runs the same passes and a pass's left edge lies in the
+    pass before.  The plain version emits every column.
     """
     if take_init != (state_in is not None):
         raise ValueError("take_init must be set exactly when state_in is given")
@@ -99,15 +173,18 @@ def score_bucket_col(tiles, query, matrix_flat, params, state_in=None,
                                       exact)
     nq_pad, gop, gex = _params(params)
     cuda_lib.check_query_rows(query, nq_pad, tiles.device)
+    _count_passes(score_bucket_col, lengths, tiles, 1)
     out, state = cuda_lib.launch_col(
         score_bucket_col, "sw_col_kernel", tiles, query[:nq_pad].view(1, nq_pad), matrix_flat,
         gop, gex, state_in=state_in, emit_state=emit_state, sat=sw_cell.sat_state(exact) or 0,
+        lengths=_lengths_dev(lengths),
     )
     return (out[0], state) if emit_state else out[0]
 
 
 score_bucket_col.launches = score_bucket_col.launches16 = 0
 score_bucket_col.plain_calls = score_bucket_col.plain_calls16 = 0
+score_bucket_col.col_warp_passes = score_bucket_col.col_bucket_passes = 0
 
 
 def padded_rows(nq: int, unroll: int | None = None) -> int:
@@ -142,12 +219,14 @@ def col_group_tiles(T: int, L: int, rows: int, nchunks: int, budget: int,
 
 def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
                                unroll: int | None = None, pad: int | None = None,
-                               temp_bytes: int | None = None, exact: bool = True):
+                               temp_bytes: int | None = None, exact: bool = True,
+                               lengths: ColLengths | None = None):
     """Score a col bucket against a query of any length: NQC-row chunks
     with the H/F carry between them, tiles in groups whose carry and
     boundary columns fit ``temp_bytes`` (default ``cuda_lib.TEMP_BYTES``;
     ``col_group_tiles``); ``exact=False`` runs every chunk with int16
-    state.
+    state; ``lengths``: the tiles' subject lengths (``score_bucket_col``),
+    or None.
 
     ``codes``: encoded query (host array).  Returns f32 [T, 4096] on the
     tiles' device.  Each group runs its whole chunk loop before the next
@@ -169,13 +248,14 @@ def score_bucket_col_any_query(tiles, codes, matrix_flat, gop: int, gex: int,
     parts = []
     for t0 in range(0, T, tc):
         sub = tiles[t0 : t0 + tc]
+        lens = None if lengths is None else lengths[t0 : t0 + tc]
         best = None
         state = None
         for k, (qpad, params) in enumerate(qps):
             emit = k + 1 < len(qps)
             res = score_bucket_col(
                 sub, qpad, matrix_flat, params, state_in=state,
-                take_init=state is not None, emit_state=emit, exact=exact,
+                take_init=state is not None, emit_state=emit, exact=exact, lengths=lens,
             )
             scores, state = res if emit else (res, None)
             best = scores if best is None else torch.maximum(best, scores)
@@ -226,7 +306,7 @@ def score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact: bool
 
 
 def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None,
-                          exact: bool = True):
+                          exact: bool = True, lengths: ColLengths | None = None):
     """Scores f32 [S, T, 4096]: S flat-pool slots against a col bucket in
     one launch.
 
@@ -236,7 +316,7 @@ def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None,
     ``offs``: slot s owns pool rows [offs[s], offs[s] + nqp_s), which must
     not overlap nor pass ``rtot`` (default NQC).  ``exact=False``: int16
     state saturating at ``sw_cell.SAT`` (``sw_cell.sat_match``), the
-    boundary pool int16.
+    boundary pool int16.  ``lengths``: as ``score_bucket_col``'s.
     """
     rtot, nqps = _flat_contract(tiles, queries, params, rtot)
     offs = tuple(int(o) for o in offs)
@@ -254,24 +334,26 @@ def score_bucket_col_flat(tiles, queries, matrix_flat, params, offs, rtot=None,
     if tiles.device.type == "cpu":
         cuda_lib.count(score_bucket_col_flat, exact, plain=True)
         return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact)
+    _count_passes(score_bucket_col_flat, lengths, tiles, len(nqps))
     return cuda_lib.launch_col(
         score_bucket_col_flat, "sw_col_flat_kernel", tiles, queries, matrix_flat,
         int(params[1]), int(params[2]), slots=(nqps, offs, rtot),
-        sat=sw_cell.sat_state(exact) or 0,
+        sat=sw_cell.sat_state(exact) or 0, lengths=_lengths_dev(lengths),
     )[0]
 
 
 score_bucket_col_flat.launches = score_bucket_col_flat.launches16 = 0
 score_bucket_col_flat.plain_calls = score_bucket_col_flat.plain_calls16 = 0
+score_bucket_col_flat.col_warp_passes = score_bucket_col_flat.col_bucket_passes = 0
 
 
 def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None,
-                                exact: bool = True):
+                                exact: bool = True, lengths: ColLengths | None = None):
     """Scores f32 [S, T, 4096]: the flat contract with the slots' rows
     packed without gaps (sum of nqp <= ``rtot``, a multiple of
     DEFAULT_UNROLL), slot s's boundary columns in rows [starts[s],
     starts[s + 1]) of one gapless pool of sum(nqp) rows.  ``exact``: as
-    ``score_bucket_col_flat``.
+    ``score_bucket_col_flat``; ``lengths``: as ``score_bucket_col``'s.
     """
     rtot, nqps = _flat_contract(tiles, queries, params, rtot)
     if rtot % DEFAULT_UNROLL:
@@ -282,12 +364,14 @@ def score_bucket_col_flat_fused(tiles, queries, matrix_flat, params, rtot=None,
         cuda_lib.count(score_bucket_col_flat_fused, exact, plain=True)
         return score_bucket_col_flat_plain(tiles, queries, matrix_flat, params, exact)
     starts = [0, *itertools.accumulate(nqps)]
+    _count_passes(score_bucket_col_flat_fused, lengths, tiles, len(nqps))
     return cuda_lib.launch_col(
         score_bucket_col_flat_fused, "sw_col_fused_kernel", tiles, queries, matrix_flat,
         int(params[1]), int(params[2]), slots=(None, starts, starts[-1]),
-        sat=sw_cell.sat_state(exact) or 0,
+        sat=sw_cell.sat_state(exact) or 0, lengths=_lengths_dev(lengths),
     )[0]
 
 
 score_bucket_col_flat_fused.launches = score_bucket_col_flat_fused.launches16 = 0
 score_bucket_col_flat_fused.plain_calls = score_bucket_col_flat_fused.plain_calls16 = 0
+score_bucket_col_flat_fused.col_warp_passes = score_bucket_col_flat_fused.col_bucket_passes = 0

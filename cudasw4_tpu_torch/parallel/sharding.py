@@ -149,6 +149,14 @@ class Shard:
     tiles: list = field(default_factory=list)
     #: Per bucket: the index of the shard's first tile in the bucket.
     first: list = field(default_factory=list)
+    #: Per bucket: the subject lengths of the shard's col tiles (``tiles``)
+    #: on its device (``sw_col.ColLengths``), None for another kind or
+    #: where it holds none.
+    lengths: list = field(default_factory=list)
+    #: Per bucket of a streamed database: the subject lengths of every
+    #: tile of a col bucket on the shard's device, of which each chunk's
+    #: slice takes a view; None for another kind.
+    stream_lengths: list = field(default_factory=list)
     #: int64 reference id of each of the shard's slots, in slot order; -1
     #: for padding.
     ids: torch.Tensor | None = None
@@ -209,20 +217,24 @@ def count_load(packed, shards: list[Shard], ndev: int, chunk_tiles=None) -> None
 
 
 def shard_bucket_arrays(packed, shards: list[Shard], ndev: int) -> None:
-    """Upload each local shard's slice of every bucket (``shard_ranges``)
-    and its slots' ids, on the shard's stream.  A slice of a disk-backed
-    store reads only its own tiles."""
+    """Upload each local shard's slice of every bucket (``shard_ranges``),
+    the subject lengths of its col tiles and its slots' ids, on the
+    shard's stream.  A slice of a disk-backed store reads only its own
+    tiles."""
     from ..engine_streaming import upload
+    from ..ops.sw_col import ColLengths
 
     for sh in shards:
-        tiles, first, ids = [], [], [np.zeros(0, np.int64)]
+        tiles, first, lengths, ids = [], [], [], [np.zeros(0, np.int64)]
         with shard_context(sh):
             for b in packed.buckets:
                 a, e = shard_ranges(b.num_tiles, ndev)[sh.pos]
                 first.append(a)
                 tiles.append(upload(b.tiles[a:e], sh.device) if e > a else None)
+                lengths.append(ColLengths.place(b.lengths[a:e], sh.device)
+                               if e > a and b.kernel == "col" else None)
                 ids.append(np.asarray(b.seq_index[a:e], np.int64).reshape(-1))
-            sh.tiles, sh.first = tiles, first
+            sh.tiles, sh.first, sh.lengths = tiles, first, lengths
             sh.ids = torch.as_tensor(np.concatenate(ids)).to(sh.device)
     count_load(packed, shards, ndev)
 

@@ -149,7 +149,7 @@ def test_fused_wrapper_device_arguments(monkeypatch):
     got = sw_col.score_bucket_col_flat_fused(t, q, m, (0, -11, -1, 0, *nqps), rtot=3072)
     assert got.shape == (5, 1, 4096)
     assert calls == [(sw_col.score_bucket_col_flat_fused, "sw_col_fused_kernel", -11, -1,
-                      (None, [0, 16, 16, 24, 64, 88], 88), {"sat": 0})]
+                      (None, [0, 16, 16, 24, 64, 88], 88), {"sat": 0, "lengths": None})]
 
 
 # ---------------------------------------------------------------- plan
@@ -245,6 +245,49 @@ def test_batch_col_scores_tile_groups(col_geometry, monkeypatch):
     want = sw_col.score_bucket_col_flat_plain(tiles, q, m, [*params[:4].tolist(), *pads])
     for slot in range(3):
         assert torch.equal(got[slot], want[slot])
+
+
+@pytest.mark.parametrize("fuse_min", [0, 2])
+def test_batch_col_scores_pass_each_groups_lengths(monkeypatch, fuse_min):
+    """B5 (and B6 where COL_FUSE_MIN_S sends a pass there) on the card's
+    branch ("meta" tiles, ``launch_col`` patched): in one-tile groups each
+    launch takes the lengths of exactly its tile, and counts S x its warps'
+    own passes (``col_warp_passes``) beside S x 4096 x ceil(L / COL_PASS)
+    (``col_bucket_passes``)."""
+    from cudasw4_tpu_torch.ops import cuda_lib
+
+    monkeypatch.setattr(sw_col, "COL_FUSE_MIN_S", fuse_min)
+    calls = []
+
+    def fake(wrapper, kernel, tiles, queries, matrix_flat, gop, gex, slots=None, **kw):
+        calls.append((wrapper, queries.shape[0], kw["lengths"]))
+        return torch.zeros((queries.shape[0], tiles.shape[0], 4096)), None
+
+    monkeypatch.setattr(cuda_lib, "launch_col", fake)
+    monkeypatch.setattr(cuda_lib, "to_device", lambda a, dev: torch.as_tensor(a).to(dev))
+    rng = np.random.default_rng(35)
+    L = 1152
+    lens = rng.integers(0, L + 1, size=(3, 4096)).astype(np.int32)
+    cl = sw_col.ColLengths.place(lens, "cpu")
+    t = torch.empty((3, L, 32, 128), dtype=torch.int8, device="meta")
+    q = torch.empty((3, 16), dtype=torch.int32, device="meta")
+    m = torch.empty(441, dtype=torch.int32, device="meta")
+    params = np.array([0, -11, -1, 0, 9, 16, 3, 16, 16, 8], np.int32)
+    plan = (((0, 0), (1, 16)), ((2, 0),))
+    wrappers = (sw_col.score_bucket_col_flat, sw_col.score_bucket_col_flat_fused)
+    before = [sum(getattr(w, n) for w in wrappers) for n in ("col_warp_passes", "col_bucket_passes")]
+    for scores, slots in batch_col_scores(t, q, m, params, 3, plan, rtot=32, lengths=cl,
+                                          temp_bytes=cuda_lib.col_boundary_bytes(1, 32)):
+        assert scores.shape == (len(slots), 3, 4096)
+    want = [(sw_col.score_bucket_col_flat_fused if fuse_min and S >= 2
+             else sw_col.score_bucket_col_flat, S) for S in (2, 1) for _ in range(3)]
+    assert [(w, S) for w, S, _ in calls] == want
+    for k, (_, _, got) in enumerate(calls):
+        assert torch.equal(got, torch.as_tensor(lens[k % 3 : k % 3 + 1]))
+    per_tile = (-(-lens.astype(np.int64) // sw_col.COL_PASS)).sum(axis=1)
+    after = [sum(getattr(w, n) for w in wrappers) for n in ("col_warp_passes", "col_bucket_passes")]
+    assert after == [before[0] + 3 * int(per_tile.sum()),
+                     before[1] + 3 * 3 * 4096 * -(-L // sw_col.COL_PASS)]
 
 
 # ------------------------------------------------------------- contract

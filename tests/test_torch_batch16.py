@@ -214,11 +214,11 @@ def test_col_flat16_and_fused16_pass_sat_to_launch_col(monkeypatch):
     sw_col.score_bucket_col_flat_fused(t, q, m, p, rtot=384)
     assert calls == [
         (sw_col.score_bucket_col_flat, "sw_col_flat_kernel", ([16, 0, 8], (0, 128, 256), 384),
-         {"sat": sw_cell.SAT}),
+         {"sat": sw_cell.SAT, "lengths": None}),
         (sw_col.score_bucket_col_flat_fused, "sw_col_fused_kernel", (None, [0, 16, 16, 24], 24),
-         {"sat": sw_cell.SAT}),
+         {"sat": sw_cell.SAT, "lengths": None}),
         (sw_col.score_bucket_col_flat_fused, "sw_col_fused_kernel", (None, [0, 16, 16, 24], 24),
-         {"sat": 0}),
+         {"sat": 0, "lengths": None}),
     ]
 
 

@@ -435,6 +435,115 @@ def test_col_any_query_tile_groups_match_oracle(dev, monkeypatch):
         assert int(got[k]) == want
 
 
+def _length_lanes(rng, T, L, order):
+    """Subject lengths [T, 4096] of col tiles of L columns: the pass edges
+    0, 1, 511, 512, 513, L - 1 and L (capped at L) eight lanes each, the
+    rest random in [0, L], ascending as a bucket packs them or shuffled."""
+    edges = np.minimum([0, 1, 511, 512, 513, L - 1, L], L)
+    lens = rng.integers(0, L + 1, size=T * 4096)
+    lens[: 8 * len(edges)] = np.repeat(edges, 8)
+    lens = np.sort(lens) if order == "ascending" else rng.permutation(lens)
+    return lens.reshape(T, 4096).astype(np.int32)
+
+
+def _length_tiles(rng, lens, L, pad, A):
+    """Col tiles holding subjects of ``lens``, the pad code past each."""
+    T = lens.shape[0]
+    x = rng.integers(0, A - 1, size=(T, L, 4096)).astype(np.int8)
+    x[np.arange(L)[None, :, None] >= lens[:, None, :]] = pad
+    return torch.as_tensor(x.reshape(T, L, 32, 128))
+
+
+def _own_passes(lens, L, P):
+    """Mask [T, L, 32, 128] of the columns inside each subject's own
+    passes of P columns, where the carry out is specified with lengths."""
+    ends = -(-lens.astype(np.int64) // P) * P
+    own = np.arange(L)[None, :, None] < ends[:, None, :]
+    return torch.as_tensor(own.reshape(lens.shape[0], L, 32, 128))
+
+
+@pytest.mark.parametrize("order", ["ascending", "shuffled"])
+@pytest.mark.parametrize("L", [512, 1664])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("kind", ["col", "col_carry", "flat", "fused"])
+def test_col_kernels_with_lengths_equal_without(dev, kind, exact, L, order):
+    """B3 (alone, and a query past NQC: two chunks with the carry), B5 and
+    B6, in exact and int16 state (``sw_col16_kernel``,
+    ``sw_col_flat16_kernel``, ``sw_col_fused16_kernel``), on lanes at the
+    pass edges: with the tiles' lengths every warp runs only its own passes,
+    and the scores equal those without and the plain version's, bit for
+    bit; the carry equals the plain version's at every column inside a
+    subject's own passes.  The launches count their warp-passes and the
+    bucket's."""
+    P = sw_col.col_pass(dev)
+    rng = np.random.default_rng(41 + L)
+    cfg = make_scoring_config("blosum62")
+    A, pad = cfg.alphabet_size, cfg.pad_code
+    T = 2
+    lens = _length_lanes(rng, T, L, order)
+    t = _length_tiles(rng, lens, L, pad, A).to(dev)
+    m = torch.as_tensor(cfg.matrix.astype(np.int32).reshape(-1)).to(dev)
+    cl = sw_col.ColLengths.place(lens, dev)
+    passes = int((-(-lens.astype(np.int64) // P)).sum())
+    if kind in ("col", "col_carry"):
+        fn, S = sw_col.score_bucket_col, 1
+        qs = [torch.as_tensor(_query(rng, n, 48, pad, A)).to(dev) for n in (40, 21)]
+        ps = [(48, cfg.gop, cfg.gex, 0), (24, cfg.gop, cfg.gex, 0)]
+        if kind == "col":
+            qs, ps = qs[:1], ps[:1]
+
+        def run(lengths):
+            out, st = [], None
+            for k, (q, p) in enumerate(zip(qs, ps)):
+                res = fn(t, q, m, p, state_in=st, take_init=st is not None,
+                         emit_state=k + 1 < len(qs), exact=exact, lengths=lengths)
+                s, st = res if k + 1 < len(qs) else (res, None)
+                out.append((s, st))
+            return out
+
+        def plain():
+            out, st = [], None
+            for k, (q, p) in enumerate(zip(qs, ps)):
+                res = sw_col.score_bucket_col_plain(t, q, m, p, state_in=st,
+                                                    emit_state=k + 1 < len(qs), exact=exact)
+                s, st = res if k + 1 < len(qs) else (res, None)
+                out.append((s, st))
+            return out
+    else:
+        nqps = (8, 0, 40, 16)
+        S = len(nqps)
+        q = torch.as_tensor(np.stack([_query(rng, max(0, n - 3), 48, pad, A) for n in nqps]))
+        params = (0, cfg.gop, cfg.gex, 0, *nqps)
+        q = q.to(dev)
+
+        def plain():
+            return [(sw_col.score_bucket_col_flat_plain(t, q, m, params, exact), None)]
+        if kind == "flat":
+            fn = sw_col.score_bucket_col_flat
+            offs = tuple(64 * s for s in range(S))
+
+            def run(lengths):
+                return [(fn(t, q, m, params, offs, rtot=256, exact=exact, lengths=lengths), None)]
+        else:
+            fn = sw_col.score_bucket_col_flat_fused
+
+            def run(lengths):
+                return [(fn(t, q, m, params, rtot=128, exact=exact, lengths=lengths), None)]
+    want = run(None)
+    before = (fn.col_warp_passes, fn.col_bucket_passes)
+    got = run(cl)
+    torch.cuda.synchronize()
+    launches = len(got)
+    assert (fn.col_warp_passes - before[0], fn.col_bucket_passes - before[1]) == (
+        launches * S * passes, launches * S * T * 4096 * -(-L // P))
+    own = _own_passes(lens, L, P).to(dev)
+    for (g, gs), (w, ws), (r, rs) in zip(got, want, plain()):
+        assert torch.equal(g, w) and torch.equal(g, r)
+        if gs is not None:  # the carry inside the own passes: without lengths and plain
+            for a, b, c in zip(gs, ws, rs):
+                assert torch.equal(a[own], b[own]) and torch.equal(a[own], c[own])
+
+
 def test_engine_cuda_equals_cpu(dev):
     """The engine on the card and on the CPU give the same top hits on a
     database with one bucket of each kind."""

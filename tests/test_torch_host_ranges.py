@@ -195,15 +195,14 @@ def test_host_tile_ranges_of_a_two_process_mesh(tmp_path):
     real = eng._stream_chunks
 
     def spy():
-        for b, chunk, sidx in real():
-            staged.append((b, sidx))
-            yield b, chunk, sidx
+        for bi, t0, chunk, sidx in real():
+            staged.append((bi, sidx))
+            yield bi, t0, chunk, sidx
 
     eng._stream_chunks = spy
     list(eng._stream_candidates_mesh([np.arange(12, dtype=np.int8)]).host()[0])
     ref = tp.pack_db(db)
-    for b, sidx in staged:
-        bi = next(i for i, x in enumerate(eng.packed.buckets) if x is b)
+    for bi, sidx in staged:
         split = shard_ranges(len(sidx), 4)
         first = int(np.nonzero((ref.buckets[bi].seq_index == sidx[0]).all(axis=1))[0][0])
         for p in mesh.local:

@@ -317,3 +317,168 @@ def test_cell_shape_table_covers_every_cell_length():
         assert 0 <= g * r - L < (32 if L > 576 else 16)
     assert sw_cell.cell_shape(CELL_MAX_L) == (32, 24)
     assert sw_cell.cell_shape(CELL_MAX_L + 1) is None
+
+
+# ------------------------------------------- the col kernels' subject lengths
+
+
+def _col_db(n=8500, seed=5):
+    """DBData of ``n`` uniform-residue entries of 49..200 aa, sorted: with
+    CELL_MAX_L lowered to 48, three col tiles in two buckets."""
+    from cudasw4_tpu_torch.db.format import DBData
+
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(49, 201, size=n)).astype(np.int32)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum((lens + 3) // 4 * 4, out=offsets[1:])
+    chars = np.full(int(offsets[-1]), 20, np.int8)
+    for a, k in zip(offsets[:-1], lens):
+        chars[a : a + k] = rng.integers(0, 20, size=int(k))
+    return DBData(chars=chars, offsets=offsets.astype(np.uint64), lengths=lens,
+                  headers=np.zeros(0, np.uint8), header_offsets=np.zeros(n + 1, np.uint64))
+
+
+@pytest.fixture
+def col_db(monkeypatch):
+    import cudasw4_tpu_torch.db.packing as tp
+
+    monkeypatch.setattr(tp, "CELL_MAX_L", 48)
+    return _col_db()
+
+
+def _spy_col_wrappers(monkeypatch):
+    """Replace the three col wrappers by spies that record (tiles, lengths,
+    exact) of every call and call the wrapper; returns the record."""
+    calls = []
+    for name in ("score_bucket_col", "score_bucket_col_flat", "score_bucket_col_flat_fused"):
+        real = getattr(sw_col, name)
+
+        def spy(tiles, *args, real=real, **kw):
+            calls.append((tiles, kw.get("lengths"), kw.get("exact", True)))
+            return real(tiles, *args, **kw)
+
+        spy.__dict__.update(real.__dict__)  # the wrapper counts on its module name
+        monkeypatch.setattr(sw_col, name, spy)
+    return calls
+
+
+def _assert_own_lengths(packed, calls):
+    """Each recorded call took the lengths of exactly the tiles it scored
+    (a tile known by its codes), and their per-tile passes."""
+    held = {b.tiles[t].tobytes(): b.lengths[t] for b in packed.buckets if b.kernel == "col"
+            for t in range(b.num_tiles)}
+    assert calls
+    for tiles, lengths, _ in calls:
+        assert lengths is not None and len(lengths.passes) == tiles.shape[0]
+        for k in range(tiles.shape[0]):
+            want = held[tiles[k].contiguous().numpy().tobytes()]
+            assert np.array_equal(lengths.dev[k].numpy(), want)
+            assert lengths.passes[k] == (-(-want.astype(np.int64) // sw_col.COL_PASS)).sum()
+
+
+@pytest.mark.parametrize("path", ["single", "chunked", "batch", "mesh", "overflow",
+                                  "mesh_overflow", "streamed", "streamed_mesh"])
+def test_every_col_launch_takes_its_tiles_lengths(monkeypatch, col_db, path):
+    """Every call of a col wrapper that the engine makes passes the subject
+    lengths of exactly the tiles it scores: a resident single scan, a query
+    past NQC in one-tile groups (the carry), a B5 batch, two mesh shards,
+    the overflow re-score's ``index_select`` (one flagged tile of a
+    bucket's two, on one device and on the mesh), and streamed chunks (one
+    tile each, the first resident) on one device and on two shards.  The
+    results equal those of an engine whose col launches take no lengths."""
+    from cudasw4_tpu_torch.engine_streaming import stream_work_bytes
+    from cudasw4_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(sw_col, "NQC", 24)
+    rng = np.random.default_rng(9)
+    kw = dict(device="cpu", num_top=5)
+    if "mesh" in path:
+        kw = dict(mesh=sharding.make_mesh(["cpu"] * 2), num_top=5)
+    if path == "chunked":
+        kw["col_temp_bytes"] = 1
+    if path.startswith("streamed"):
+        kw["stream_chunk_bytes"] = 128 * 4096
+        work = stream_work_bytes([(128, 4096, "col", 2), (256, 4096, "col", 1)], 128 * 4096)[0]
+        kw["max_device_bytes"] = 1 if "mesh" in path else work + 4096 * 132
+    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in (20, 9, 17)]
+    if path == "chunked":
+        queries = [rng.integers(0, 20, size=60).astype(np.int8)]
+    if path.endswith("overflow"):
+        monkeypatch.setattr(sw_cell, "SAT", 150)
+        queries = [col_db.get_sequence(4000)]  # its own hit passes SAT; no other does
+    plain = SearchEngine(**kw)
+    plain.set_database(col_db)
+    eng = SearchEngine(**kw)
+    eng.state16 = path.endswith("overflow")
+    eng.set_database(col_db)
+    assert [(b.L, b.num_tiles) for b in eng.packed.buckets if b.kernel == "col"] == [(128, 2), (256, 1)]
+    if path == "streamed":
+        assert eng.streaming and [bi for bi, *_ in eng._resident_chunks] == [0]
+    if path == "streamed_mesh":
+        assert eng.streaming and not eng._resident_chunks
+    # The reference: the same engine with its col lengths dropped.
+    plain.state16 = eng.state16
+    plain._bucket_lengths = [None] * len(plain._bucket_lengths)
+    for sh in plain._shards:
+        sh.lengths = [None] * len(sh.lengths)
+    want = [(r.scores, r.reference_ids) for r in plain.scan_many(queries)]
+    calls = _spy_col_wrappers(monkeypatch)
+    if path == "batch":
+        got = eng.scan_batch(queries)
+    else:
+        got = list(eng.scan_many(queries))
+    assert [(r.scores, r.reference_ids) for r in got] == want
+    _assert_own_lengths(eng.packed, calls)
+    if path.endswith("overflow"):  # the fast pass in int16 state, the re-score exact
+        assert got[0].stats.num_overflows >= 1
+        assert {t.shape[0] for t, _, exact in calls if exact} == {1}
+
+
+def test_col_pass_counters_equal_the_plan(monkeypatch, col_db):
+    """On the card's branch (tiles, lengths and queries on "meta" tensors,
+    ``launch_col`` patched to zero scores), a single scan and a batch of
+    three count on the col wrappers the passes that ``plan_buckets`` gives
+    the database's col buckets, with COL_PASS lowered to 32 so that every
+    subject spans passes: ``col_warp_passes`` the sum of each subject's
+    ceil(len / COL_PASS), ``col_bucket_passes`` T x 4096 x ceil(L /
+    COL_PASS) a bucket, each once a query; every launch takes its tiles'
+    lengths."""
+    from cudasw4_tpu_torch.db.packing import plan_buckets
+    from cudasw4_tpu_torch.ops import cuda_lib
+
+    monkeypatch.setattr(sw_col, "COL_PASS", 32)
+    monkeypatch.setattr(sw_col, "NQC", 24)
+    eng = SearchEngine(device="cpu", num_top=5)
+    eng.set_database(col_db)
+    lengths = np.asarray(col_db.lengths, np.int64)
+    warp = full = 0
+    for start, stop, L, NS, kernel in plan_buckets(lengths):
+        assert kernel == "col"
+        warp += int((-(-lengths[start:stop] // 32)).sum())
+        full += -(-(stop - start) // NS) * NS * -(-L // 32)
+    assert warp < full
+
+    def fake(wrapper, kernel, tiles, queries, *args, lengths=None, **kw):
+        assert lengths is not None and lengths.shape == (tiles.shape[0], 4096)
+        return torch.zeros((queries.shape[0], tiles.shape[0], 4096)), None
+
+    monkeypatch.setattr(cuda_lib, "launch_col", fake)
+    monkeypatch.setattr(cuda_lib, "to_device", lambda a, dev: torch.as_tensor(a).to("meta"))
+    monkeypatch.setattr(eng, "_bucket_tiles", [t.to("meta") for t in eng._bucket_tiles])
+    monkeypatch.setattr(eng, "_bucket_lengths", [sw_col.ColLengths(c.dev.to("meta"), c.passes)
+                                                 for c in eng._bucket_lengths])
+    monkeypatch.setattr(eng, "_matrix_flat", eng._matrix_flat.to("meta"))
+    wrappers = (sw_col.score_bucket_col, sw_col.score_bucket_col_flat,
+                sw_col.score_bucket_col_flat_fused)
+
+    def counts():
+        return [sum(getattr(w, name) for w in wrappers)
+                for name in ("col_warp_passes", "col_bucket_passes")]
+
+    rng = np.random.default_rng(12)
+    before = counts()
+    eng.scan(rng.integers(0, 20, size=20).astype(np.int8))
+    assert counts() == [before[0] + warp, before[1] + full]
+    before = counts()
+    eng.scan_batch([rng.integers(0, 20, size=n).astype(np.int8) for n in (20, 9, 17)])
+    assert counts() == [before[0] + 3 * warp, before[1] + 3 * full]

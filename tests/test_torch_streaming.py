@@ -174,7 +174,7 @@ def test_codecs_give_the_same_results(setup, lowered, monkeypatch, mode, codec):
     eng = _streamed(db)
     assert eng._stream_codec == codec and (eng._stream_pack is None) == (codec is None)
     chunks = list(eng._stream_chunks())
-    assert all(c.dtype == (np.int8 if codec is None else np.int32) for _, c, _ in chunks)
+    assert all(c.dtype == (np.int8 if codec is None else np.int32) for _, _, c, _ in chunks)
     assert _results(eng.scan_batch([queries[i] for i in (0, 3, 7)])) == [want[i] for i in (0, 3, 7)]
 
 
@@ -207,7 +207,7 @@ def test_max_batch_sequences_caps_chunk_shapes(lowered):
         eng = SearchEngine(device="cpu", num_top=5, max_device_bytes=1,
                            stream_chunk_bytes=1 << 20, **kw)
         eng.set_database(db)
-        return eng, [c.shape for _, c, _ in eng._stream_chunks()]
+        return eng, [c.shape for _, _, c, _ in eng._stream_chunks()]
 
     wide, uncapped = shapes()
     capped_eng, capped = shapes(max_batch_sequences=256)
@@ -349,9 +349,9 @@ def test_streamed_kernel_groups_fit_the_temp_cap(lowered, kind):
     if kind == "col_batch":
         real, name = sw_col.score_bucket_col_flat, "score_bucket_col_flat"
 
-        def spy(tiles, qs, m, p, offs, rtot=None):
+        def spy(tiles, qs, m, p, offs, rtot=None, **kw):
             groups.append(tiles.shape[0] * 2 * 4096 * rtot * 4)
-            return real(tiles, qs, m, p, offs, rtot=rtot)
+            return real(tiles, qs, m, p, offs, rtot=rtot, **kw)
     else:
         real, name = sw_col.score_bucket_col, "score_bucket_col"
 

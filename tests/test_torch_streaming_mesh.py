@@ -125,7 +125,7 @@ def test_streamed_mesh_partial_residency():
     assert eng.streaming and eng._chunk_tiles(eng.packed.buckets[0]) == 4
     assert eng._res_tiles == {0: 8} and eng._prefix_bytes == 2 * slice_bytes
     (bi, parts), _ = eng._resident_chunks
-    assert bi == 0 and [tuple(t.shape) for t, _ in parts] == [(2, 32, 128), (2, 32, 128)]
+    assert bi == 0 and [tuple(t.shape) for t, *_ in parts] == [(2, 32, 128), (2, 32, 128)]
     assert shard_ranges(3, 2) == [(0, 2), (2, 3)]  # the streamed last chunk's split
     q = rng.integers(0, 20, size=25).astype(np.int8)
     got = _results([eng.scan(q)])

@@ -9,7 +9,8 @@ at L = 32, n = 8192.  The engine tools' bodies at tiny sizes: bigsingle
 (B1 against B3 on the same tiles, LC 16 and NQC 24 so that the longer
 query chunks with the carry), sweepdiag, and tremblbench, which must
 stream under a tiny budget and give a resident scan's hits on a database
-equal to the JAX tools/dbbench.py's.  Inputs are made with numpy from
+equal to the JAX tools/dbbench.py's.  The colpass tool's tile: the last of
+the largest col bucket of the benchmark's Swiss-Prot-scale lengths.  Inputs are made with numpy from
 seeds.
 """
 
@@ -28,7 +29,7 @@ from cudasw4_tpu.ops import sw_pallas_cell
 from cudasw4_tpu_torch.engine import SearchEngine
 from cudasw4_tpu_torch.engine_streaming import STREAM_CHUNK_BYTES
 from cudasw4_tpu_torch.ops import sw_cell, sw_col
-from cudasw4_tpu_torch.tools import bigsingle, dmabench, pairbench, sweepdiag, tremblbench
+from cudasw4_tpu_torch.tools import bigsingle, colpass, dmabench, pairbench, sweepdiag, tremblbench
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -190,3 +191,23 @@ def test_tremblbench_streams_and_equals_resident(tmp_path, monkeypatch, capsys):
     assert tremblbench.chunk_for(lengths, 1 << 20, 20.0) == int(STREAM_CHUNK_BYTES / 20)
     assert tremblbench.parse_argv(["3", "--scale", "20", "--device", "cpu"]) == \
         (3, 20.0, torch.device("cpu"))
+
+
+def test_colpass_takes_the_top_col_tile():
+    """colpass's tile is the last tile of the largest col bucket, its
+    lanes past the last subject empty: on swbench's ``sprot`` lengths,
+    L = 7680 and subjects of 1,405 to 7,196 residues in every lane."""
+    from pathlib import Path
+
+    from cudasw4_tpu_torch.db.packing import plan_buckets
+
+    lengths = colpass.sprot_lengths(Path(REPO))
+    L, lens = colpass.top_col_tile(lengths)
+    assert (L, int(lens.min()), int(lens.max()), int((lens > 0).sum())) == (7680, 1405, 7196, 4096)
+    assert int(lens.sum()) == int(lengths[-4096:].sum())
+    short = np.sort(np.concatenate([lengths[:-100], [2000] * 5]))
+    start, stop, L2, ns, _ = [p for p in plan_buckets(short) if p[4] == "col"][-1]
+    L2_, lens2 = colpass.top_col_tile(short)
+    tail = (stop - start) % ns or ns
+    assert L2_ == L2 and int((lens2 > 0).sum()) == tail and int(lens2.max()) == int(short[-1])
+    assert not lens2[tail:].any()

@@ -126,11 +126,11 @@ def _pass(eng, qlens):
         return [_leaf(f"{k} {b.kernel} L={b.L}") for k in kernels] + [_leaf("sw:top_n")]
 
     chunks = []
-    for bi, _, _ in eng._resident_chunks:
+    for bi, *_ in eng._resident_chunks:
         chunks += scored(eng.packed.buckets[bi])
-    for b, _, _ in eng._stream_chunks():
+    for bi, *_ in eng._stream_chunks():
         chunks += [_leaf("sw:stream_wait"), _leaf("sw:stream_read"), _leaf("sw:unpack")]
-        chunks += scored(b)
+        chunks += scored(eng.packed.buckets[bi])
     return [("sw:stream_pass", chunks + [_leaf("sw:readback")]), _leaf("sw:finish")]
 
 
