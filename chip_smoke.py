@@ -57,7 +57,7 @@ non-zero:
    kernel kind per ladder query and for the batch; and the card's idle
    share over the 20-query scan from a torch.profiler trace, given only
    where the trace's kernels number the launch counters' (else null, with
-   the kernels that differ; phase 8's traces too); every cell
+   the kernels that differ; phase 7's traces too); every cell
    bucket with the 464-aa query in both state modes (its (G, R), ms,
    bound and share); the align's peak device memory, and the flat and
    fused batches' peaks above what is live before them.
@@ -69,15 +69,7 @@ non-zero:
    int32 state, timed in turns.
 6. long_query: the two longest queries joined (> QCAP = 8192 aa) against
    the Swiss-Prot-scale database, hits against the oracle, GCUPS.
-7. routing: the engine's per-query-length routing (COL_SINGLE_MIN_ROWS,
-   ``_single_kinds``) on the same database: each query's routed cell
-   buckets at each window; the 20 queries as singles in exact and in
-   int16 state with the window at the port's default (closed), at the JAX
-   engine's 512 and at 8 (every one-pass query routes), in turns; every
-   run writes phase 4's TSV byte for byte and launches B3 (B3 int16) in
-   place of B1 (B1 int16) on exactly the routed buckets; GCUPS of each
-   window and every threshold's total, the best one in each state.
-8. stream: the same database streamed under --maxGpuMem 736M
+7. stream: the same database streamed under --maxGpuMem 736M
    --maxBatchBytes 16M (phase_stream): makedb --prepackStream builds the
    tile store and its b32 sidecar; align on the 20 queries in one pass
    writes phase 4's TSV byte for byte, launches B1-B5, keeps its prefix
@@ -87,7 +79,7 @@ non-zero:
    equal the resident engine's; streamed and resident timed in turns,
    the copy stream's and the link's GB/s, the unpack per chunk, the idle
    share, and a projection to a TrEMBL-sized database.
-9. mesh: the database sharded over two shards (two cards where there
+8. mesh: the database sharded over two shards (two cards where there
    are two, else both on one card, each on its own stream; phase_mesh):
    resident, the 20 queries through scan_many with align's TSV writer,
    byte for byte phase 4's TSV, its counters B1-B5, and B6 from the batch
@@ -100,35 +92,34 @@ non-zero:
    scores of the 464-aa query against the resident engine's; then
    tools/run_multihost.py as two processes on the mesh over gloo and as
    one under NCCL at world size 1, every process printing phase 4's hits.
-10. tools: dmabench and pairbench at their defaults, every line OK; the
-   engine tools: bigsingle at T = 16 (B1 against B3 on the same cell
-   tiles, both states, every line OK), sweepdiag at L = 1024 on 200,000
-   sequences (per-query GCUPS), tremblbench at --scale 20 (1M sprot-like
-   sequences streamed under a budget of 4 GiB / 20, its hits equal to a
-   resident engine's on the same database).
-11. colstate16: the ported tools/colstate16.py in a fresh process at
+9. tools: dmabench and pairbench at their defaults, every line OK; the
+   engine tools: sweepdiag at L = 1024 on 200,000 sequences (per-query
+   GCUPS), tremblbench at --scale 20 (1M sprot-like sequences streamed
+   under a budget of 4 GiB / 20, its hits equal to a resident engine's on
+   the same database).
+10. colstate16: the ported tools/colstate16.py in a fresh process at
    T = 16, reps 3: B3 and B5 in int32 and int16 state at L = 1024 and
    2048 (GCUPS of each mode), every line OK (the modes agree under the SAT
    rule); each line's int16 scores equal the plain version's on the same
    inputs (the first tile; every tile of the L = 1024, 2 x 1024 flat line,
    timed).  Its counters are B5 int16's launches, and that flat line's
    call gives B5 int16's kernels-line figures.
-12. warmup: fresh processes search phase 4's database for the 144-aa and
+11. warmup: fresh processes search phase 4's database for the 144-aa and
    then the 464-aa query, each alone, with warmup() and without (each
    query's seconds, the warmup's seconds and launches, the first batch's
    extra time over its second) and one streamed under phase stream's
    budget; the three write the same TSV.
-13. tuning: gridsearch at its defaults with the (NQC, LC) sweep, the
+12. tuning: gridsearch at its defaults with the (NQC, LC) sweep, the
    config it emits for this card; phase 4's database packed under the
    defaults and under the config (plans by kind), the 20 queries timed in
    turns (default, tuned, tuned, default) in exact and in int16 state,
    the TSV under the config phase 4's byte for byte.
-14. native: the native IO library loaded; makedb of phase 4's FASTA with
+13. native: the native IO library loaded; makedb of phase 4's FASTA with
    and without it, byte for byte equal, pack_db both ways with equal
    tiles, seconds for each; modifydb verify on the database.
-15. profile: align --profile on two queries; the trace names the batch's
+14. profile: align --profile on two queries; the trace names the batch's
    kernels and the engine's spans.
-16. bench: the benchmark entry points.  python -m cudasw4_tpu_torch.bench
+15. bench: the benchmark entry points.  python -m cudasw4_tpu_torch.bench
    (bench.py's peak protocol on the port) as a child process at 100,000
    sequences and one rep, in sweep and in peak mode: exactly one stdout
    line with bench.py's keys and metric and a value > 0, six ``# L=``
@@ -139,7 +130,7 @@ non-zero:
    L = 1024 on the port's align (--top 0 --verbose --uploadFull
    --pseudodb 100000 1024), its Total time line; tools.dbbench at 200,000
    sequences, 2 reps, its BEST line and every hit against the oracle.
-17. kernels line: per kernel, its launches on its path (align for the
+16. kernels line: per kernel, its launches on its path (align for the
    exact kernels but B6, the fused scan_batch for B6, align --dpx for the int16 modes of B1 and B3,
    colstate16 for B5 int16, the tools for the exact manual and pair
    kernels; each path's counters are reset just before it and read just
@@ -1281,10 +1272,6 @@ def phase_sprot(clock_mhz):
             if kind == "cell":
                 shape = sw_cell.cell_shape(t.shape[1])
                 extra = {"cell_shape": list(shape), "scratch_bytes": 0, "lanes": "s16x2"}
-                if exact:  # the int32 kernel it replaces, on the same inputs
-                    extra["int32_ms"] = cuda_ms(lambda: cuda_lib.launch_cell(
-                        fn, "sw_cell_kernel", t, q[:nrows].view(1, nrows), eng._matrix_flat,
-                        int(p[1]), int(p[2]), nrows, shape))
             elif kind == "row":
                 route, cell, _, pool = sw_row.row_route(*t.shape, len(mid))
                 extra = {"row_route": route, "cell_shape": cell and list(cell),
@@ -1330,14 +1317,9 @@ def phase_sprot(clock_mhz):
     b, pms = timed(lambda: sw_cell.score_bucket_cell_batch_plain(t, qdev, eng._matrix_flat, params))
     ms = cuda_ms(lambda: sw_cell.score_bucket_cell_batch(t, qdev, eng._matrix_flat, params))
     shape = sw_cell.cell_shape(t.shape[1])
-    # The int32 kernel it replaces, on the same inputs.
-    ms32 = cuda_ms(lambda: cuda_lib.launch_cell(
-        sw_cell.score_bucket_cell_batch, "sw_cell_batch_kernel", t, qdev, eng._matrix_flat,
-        int(params[1]), int(params[2]), [int(n) for n in nqs], shape))
     kernel_row("sw_cell16_kernel[batch,exact]", "cudasw4_tpu/ops/sw_pallas_cell.py:343", "align",
                counts["cell_batch"][0], tuple(t.shape), int(sum(nqs)), int(sum(nqs)), i, a, b,
-               ms, pms, slots=S, lanes="s16x2", int32_ms=ms32, cell_shape=list(shape),
-               scratch_bytes=0)
+               ms, pms, slots=S, lanes="s16x2", cell_shape=list(shape), scratch_bytes=0)
     # B4 int16 (no path reaches it: no launches) on the same inputs: at
     # the default SAT, equal to the exact kernel's scores.
     def fn():
@@ -1658,127 +1640,6 @@ def phase_long_query(ctx):
     emit({"phase": "long_query", "query_aa": len(codes), "ms": ms,
           "gcups": len(codes) * eng.packed.total_real_chars / ms / 1e6,
           "hits": hs, "launches": {k: v[0] for k, v in counts.items()},
-          "seconds": time.perf_counter() - t_phase})
-
-
-# ------------------------------------------------------- phase routing
-
-#: Phase routing's windows of the engine's COL_SINGLE_MIN_ROWS beside the
-#: port's default: the JAX engine's 512, and 8, at which every query of
-#: one NQC pass routes, so that each query's routed and unrouted times
-#: give every threshold's total (``routing_totals``).
-ROUTING_WINDOWS = {"jax": 512, "wide": 8}
-
-
-def routing_totals(nq_pads, routed_ms, closed_ms, nqc):
-    """The 20 singles' total milliseconds at each COL_SINGLE_MIN_ROWS that
-    changes a route (every distinct nq_pad <= ``nqc``) and closed: a query
-    takes its ``routed_ms`` where threshold <= nq_pad <= nqc, else its
-    ``closed_ms``.  Returns {threshold or "closed": ms}."""
-    out = {"closed": sum(closed_ms)}
-    for t in sorted({p for p in nq_pads if p <= nqc}):
-        out[t] = sum(r if t <= p <= nqc else c for p, r, c in zip(nq_pads, routed_ms, closed_ms))
-    return out
-
-
-def phase_routing(ctx):
-    """The per-query-length routing (``SearchEngine.COL_SINGLE_MIN_ROWS``,
-    ``_single_kinds``) on phase 4's database: each query's kernel kinds at
-    each window; the 20 queries as singles in exact and in int16 state,
-    with the window at the port's default, at the JAX engine's 512, at 8
-    and, where the default opens it, closed, in turns (forward, then
-    backward); every run writes phase
-    4's TSV byte for byte, and the routed runs launch B3 (B3 int16) in
-    place of B1 (B1 int16) on exactly the cell buckets that
-    ``_single_kinds`` routes; every threshold's total from the wide and
-    the closed runs, and the best one in each state."""
-    from cudasw4_tpu_torch.cli.align import TSV_HEADER, print_scan_result_tsv
-    from cudasw4_tpu_torch.constants import encode
-    from cudasw4_tpu_torch.db.fasta import read_sequences
-    from cudasw4_tpu_torch.engine import SearchEngine
-    from cudasw4_tpu_torch.ops import sw_col
-
-    t_phase = time.perf_counter()
-    with open(ctx["tsv"]) as f:
-        exact_text = f.read()
-    records = list(read_sequences(QUERY_SET))
-    codes = [encode(r.sequence) for r in records]
-    eng = ctx["eng"]
-    cells = float(sum(len(c) for c in codes)) * eng.packed.total_real_chars
-    default = SearchEngine.COL_SINGLE_MIN_ROWS
-    closed = sw_col.NQC + 1
-    windows = {"default": default, **ROUTING_WINDOWS}
-    if default <= sw_col.NQC:
-        windows["closed"] = closed
-    closed_name = "closed" if "closed" in windows else "default"
-    nq_pads = [int(eng._single_qpad(c)[1][3]) for c in codes]
-    base = eng._single_kinds(closed)
-
-    def kinds_at(w):
-        eng.COL_SINGLE_MIN_ROWS = w
-        return [eng._single_kinds(p) for p in nq_pads]
-
-    def routed(kinds):
-        return sum(k != b for ks in kinds for k, b in zip(ks, base))
-
-    try:
-        kinds = {name: kinds_at(w) for name, w in windows.items()}
-        expect = {name: routed(ks) for name, ks in kinds.items()}
-        check(expect["jax"] > 0 and expect["wide"] > expect["jax"],
-              f"the open windows route no cell bucket: {expect}")
-        order = list(windows)
-        runs = {state: {name: [] for name in windows} for state in ("int32", "int16")}
-        for state in runs:
-            eng.state16 = state == "int16"
-            for name in order + order[::-1]:
-                eng.COL_SINGLE_MIN_ROWS = windows[name]
-                reset_counts()
-                results = [eng.scan(c) for c in codes]
-                counts = read_counts()
-                out = io.StringIO()
-                out.write(TSV_HEADER)
-                for qi, (res, rec) in enumerate(zip(results, records)):
-                    print_scan_result_tsv(out, res, eng, qi, len(rec.sequence), rec.header)
-                check(out.getvalue() == exact_text,
-                      f"routing {state} window {name}: TSV differs from phase 4's")
-                runs[state][name].append({
-                    "ms": [1e3 * r.stats.seconds for r in results],
-                    "launches": {k: v[0] for k, v in counts.items()}})
-                check_path(counts, f"routing {state} window {name}",
-                           ("cell16", "col16") if state == "int16" else ("cell", "col"))
-    finally:
-        eng.state16 = False
-        eng.__dict__.pop("COL_SINGLE_MIN_ROWS", None)
-    mode = {"int32": "", "int16": "16"}
-    summary = {}
-    for state, by_window in runs.items():
-        ref = by_window[closed_name][0]["launches"]
-        for name, rs in by_window.items():
-            for r in rs:
-                col = r["launches"]["col" + mode[state]] - ref["col" + mode[state]]
-                cell = ref["cell" + mode[state]] - r["launches"]["cell" + mode[state]]
-                check(col == cell == expect[name],
-                      f"routing {state} window {name}: {col} more B3 and {cell} fewer B1 "
-                      f"launches, expected {expect[name]} routed buckets")
-        mean = {name: [sum(x) / len(rs) for x in zip(*(r["ms"] for r in rs))]
-                for name, rs in by_window.items()}
-        totals = routing_totals(nq_pads, mean["wide"], mean[closed_name], sw_col.NQC)
-        best = min(totals, key=lambda t: (totals[t], t == "closed"))
-        summary[state] = {
-            "gcups": {name: cells / sum(ms) / 1e6 for name, ms in mean.items()},
-            "turn_gcups": {name: [cells / sum(r["ms"]) / 1e6 for r in rs]
-                           for name, rs in by_window.items()},
-            "query_ms": mean, "threshold_total_ms": {str(t): v for t, v in totals.items()},
-            "best_threshold": best,
-            "default_slower_than_closed": sum(mean["default"]) / sum(mean[closed_name]) - 1,
-            "routed_b3_launches": {name: expect[name] for name in windows},
-        }
-    emit({"phase": "routing", "default_min_rows": default, "nqc": sw_col.NQC,
-          "windows": windows, "nq_pads": nq_pads,
-          "bucket_kinds": list(base), "bucket_L": [b.L for b in eng.packed.buckets],
-          "routed_buckets": {name: [[i for i, (k, b) in enumerate(zip(ks, base)) if k != b]
-                                    for ks in kinds[name]] for name in windows},
-          **summary,
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -2428,10 +2289,9 @@ def phase_mesh(ctx, kernels):
 
 # --------------------------------------------------------- phase tools
 
-#: Phase tools' sizes of the engine tools: bigsingle's T (a quarter of
-#: the JAX tool's 64) and reps, sweepdiag's L and nseq (cut from 1M to
-#: 200k, about phase 4's residues), tremblbench's scale (N = 20M / 20).
-BIGSINGLE_ARGS = (16, 3)
+#: Phase tools' sizes of the engine tools: sweepdiag's L and nseq (cut
+#: from 1M to 200k, about phase 4's residues), tremblbench's scale
+#: (N = 20M / 20).
 SWEEPDIAG_ARGS = (1024, 200_000)
 TREMBL_SCALE = 20
 
@@ -2448,12 +2308,11 @@ def phase_tools(kernels):
     """dmabench and pairbench in this process at their defaults: every
     checked line must say OK; their counters are B7's and B8's launches.
     Then the engine tools, each with its counters reset just before it:
-    bigsingle at BIGSINGLE_ARGS (B1 against B3 on the same cell tiles in
-    both states, every line OK), sweepdiag at SWEEPDIAG_ARGS (20 query
-    lines and the total), and tremblbench at TREMBL_SCALE: streamed, its
-    14 queries' hits equal to a resident engine's on the same database."""
+    sweepdiag at SWEEPDIAG_ARGS (20 query lines and the total), and
+    tremblbench at TREMBL_SCALE: streamed, its 14 queries' hits equal to
+    a resident engine's on the same database."""
     from cudasw4_tpu_torch.engine import SearchEngine
-    from cudasw4_tpu_torch.tools import bigsingle, dmabench, pairbench, sweepdiag, tremblbench
+    from cudasw4_tpu_torch.tools import dmabench, pairbench, sweepdiag, tremblbench
 
     t_phase = time.perf_counter()
     reset_counts()
@@ -2469,16 +2328,6 @@ def phase_tools(kernels):
     kernels["sw_manual_kernel"]["launches"] = counts["manual"][0]
     kernels["sw_pair_kernel"]["launches"] = counts["pair"][0]
     dev = torch.device("cuda")
-
-    t0 = time.perf_counter()
-    reset_counts()
-    big, lines["bigsingle"] = captured(bigsingle.run, *BIGSINGLE_ARGS, dev)
-    big_counts = read_counts()
-    n_lines = len(bigsingle.LENGTHS) * len(bigsingle.QUERY_LENGTHS) * 2
-    check(len(big) == n_lines and all(x["ok"] for x in big),
-          f"bigsingle: {[x for x in lines['bigsingle'] if 'OK' not in x]}")
-    check_path(big_counts, "bigsingle", ("cell", "cell16", "col", "col16"))
-    t_big = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     reset_counts()
@@ -2506,8 +2355,6 @@ def phase_tools(kernels):
     del resident
     t_trembl = time.perf_counter() - t0
     emit({"phase": "tools", "lines": lines, "launches": {k: v[0] for k, v in counts.items()},
-          "bigsingle": {"args": list(BIGSINGLE_ARGS), "lines": big, "seconds": t_big,
-                        "launches": {k: v[0] for k, v in big_counts.items()}},
           "sweepdiag": {"args": list(SWEEPDIAG_ARGS), **sweep, "seconds": t_sweep,
                         "launches": {k: v[0] for k, v in sweep_counts.items()}},
           "tremblbench": {"scale": TREMBL_SCALE, "sequences": trembl["db"].num_sequences,
@@ -3174,7 +3021,6 @@ def main() -> int:
     kernels, ctx = phase_sprot(clock_mhz)
     phase_state16(ctx, kernels)
     phase_long_query(ctx)
-    phase_routing(ctx)
     phase_stream(ctx, kernels)
     phase_mesh(ctx, kernels)
     phase_tools(kernels)

@@ -192,48 +192,6 @@ __device__ __forceinline__ typename P::V cell_group(
   return m;
 }
 
-// B1 and B4 in int32 lanes: group g of the grid's x axis scores subject
-// g % 4096 of tile g / 4096 against query rows q[0, nrows); out: the
-// slot's scores [T, 4096].  The engine's launches take sw_cell16_kernel
-// in both state modes, but for exact B1 at the smallest instances
-// (ops/sw_cell.py CELL_INT32_B1), where these ran faster; they are also
-// the yardstick of its tests and of tools/kernel_ab.py's sweep.
-template <int G, int R>
-__device__ __forceinline__ void cell_body(
-    const int8_t* __restrict__ tiles, const int32_t* __restrict__ q,
-    int nrows, const int32_t* __restrict__ mat, int A, int L, int gop,
-    int gex, float* __restrict__ out) {
-  __shared__ int tab[kMaxAlphabet * (kMaxAlphabet + 1)];
-  load_cell_table<false>(tab, mat, A, gop, kNeg);
-  __syncthreads();
-  const size_t g = ((size_t)blockIdx.x * kCellThreads + threadIdx.x) / G;
-  const int m = cell_group<G, R, LaneS32>(
-      tiles + g / kCellNS * L * kCellNS + g % kCellNS, L, kCellNS, q, nrows,
-      tab, A + 1, A, gop, gex);
-  if ((threadIdx.x & (G - 1)) == 0) out[g] = (float)m;
-}
-
-template <int G, int R>
-__global__ void
-__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell_kernel(
-    const int8_t* tiles, const int32_t* query, const int32_t* mat, int A,
-    int L, int nrows, int gop, int gex, float* out) {
-  cell_body<G, R>(tiles, query, nrows, mat, A, L, gop, gex, out);
-}
-
-// B4: slot blockIdx.y runs its nrows[slot] rows of queries[slot]; a slot
-// of 0 rows scores 0.
-template <int G, int R>
-__global__ void
-__launch_bounds__(kCellThreads, cell_min_blocks<R>()) sw_cell_batch_kernel(
-    const int8_t* tiles, const int32_t* queries, const int32_t* nrows,
-    const int32_t* mat, int A, int T, int L, int W, int gop, int gex,
-    float* out) {
-  const int slot = blockIdx.y;
-  cell_body<G, R>(tiles, queries + (size_t)slot * W, nrows[slot], mat, A, L,
-                  gop, gex, out + (size_t)slot * T * kCellNS);
-}
-
 // The largest substitution score with which s16x2 lanes cannot wrap: every
 // H is at most min(L, nrows) x max B <= 32767, and with gop, gex in
 // [-8192, 0] and every score >= -8192 no sum falls below -32768.  Below
@@ -544,26 +502,15 @@ int tool_launch_at(const sw::ToolArgs& a) {
 template <int G, int R>
 int cell_launch_at(const sw::CellArgs& a) {
   const long long threads = (long long)a.T * kCellNS * G;
-  if (a.k16) {
-    const int A1 = a.A + 1, smem = a.A * A1 * A1 * 4;
-    const cudaError_t err = cudaFuncSetAttribute(
-        sw_cell16_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)(threads / 2 / kCellThreads), (unsigned)a.S);
-    sw_cell16_kernel<G, R><<<grid, kCellThreads, smem, a.stream>>>(
-        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
-        a.out);
-  } else if (a.rows) {
-    const dim3 grid((unsigned)(threads / kCellThreads), (unsigned)a.S);
-    sw_cell_batch_kernel<G, R><<<grid, kCellThreads, 0, a.stream>>>(
-        a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
-        a.out);
-  } else {
-    sw_cell_kernel<G, R>
-        <<<(unsigned)(threads / kCellThreads), kCellThreads, 0, a.stream>>>(
-            a.tiles, a.queries, a.mat, a.A, a.L, a.W, a.gop, a.gex, a.out);
-  }
+  const int A1 = a.A + 1, smem = a.A * A1 * A1 * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sw_cell16_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(threads / 2 / kCellThreads), (unsigned)a.S);
+  sw_cell16_kernel<G, R><<<grid, kCellThreads, smem, a.stream>>>(
+      a.tiles, a.queries, a.rows, a.mat, a.A, a.T, a.L, a.W, a.gop, a.gex,
+      a.out);
   return (int)cudaGetLastError();
 }
 

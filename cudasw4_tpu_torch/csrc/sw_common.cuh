@@ -94,7 +94,6 @@ struct CellArgs {
   const int32_t* rows;
   const int32_t* mat;
   int A, T, L, S, W, gop, gex;
-  int k16;  // nonzero: s16x2 lanes (sw_cell16_kernel)
   float* out;
   cudaStream_t stream;
 };

@@ -18,11 +18,11 @@
 //   score   = max over i, j of H[i][j]
 //
 // * sw_cell_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
-//   score_bucket_pallas_cell (_sw_cell_kernel, _run_query_sweeps): one
-//   query against cell tiles [T, L, 32, 128], a pure reshape of
-//   [T, L, 4096], in int32 lanes (sw_cell_kernel) or, with k16 != 0,
-//   s16x2 lanes (sw_cell16_kernel).  Both give exact scores, which meet
-//   the int16 contract too.
+//   score_bucket_pallas_cell (with _run_query_sweeps): one query against
+//   cell tiles [T, L, 32, 128], a pure reshape of [T, L, 4096], in s16x2
+//   lanes (sw_cell16_kernel), each block in int32 lanes where it cannot
+//   prove the fit.  Its scores are exact, which meets the int16 contract
+//   too.
 // * sw_row_launch replaces cudasw4_tpu/ops/sw_pallas.py score_bucket_pallas
 //   (_sw_kernel): one query against row tiles [T, L, NS], int32 only; up
 //   to the largest cell instance (L <= 768) on the cell group routine
@@ -33,10 +33,9 @@
 //   between query chunks; int32 state (sw_col_kernel) or int16
 //   (sw_col16_kernel).
 // * sw_cell_launch with rows non-null replaces
-//   cudasw4_tpu/ops/sw_pallas_cell.py score_bucket_pallas_cell_batch
-//   (_sw_cell_batch_kernel): QB queries [QB, W] against cell tiles in one
-//   launch, out [QB, T, 4096] (sw_cell_batch_kernel), or with k16 != 0 in
-//   s16x2 lanes (sw_cell16_kernel with its slot axis), exact scores both.
+//   cudasw4_tpu/ops/sw_pallas_cell.py score_bucket_pallas_cell_batch: QB
+//   queries [QB, W] against cell tiles in one launch, out [QB, T, 4096]
+//   (sw_cell16_kernel with its slot axis), exact scores.
 // * sw_col_launch with slots (rows non-null) replaces
 //   cudasw4_tpu/ops/sw_pallas_col.py
 //   score_bucket_pallas_col_flat (_sw_col_flat_kernel): S query slots of
@@ -54,19 +53,17 @@
 //   the slot's pool rows [starts[s], starts[s + 1]) (sw_col_fused16_kernel
 //   for int16 state).
 // * sw_cell_manual_launch replaces cudasw4_tpu/ops/sw_pallas_cell.py
-//   score_bucket_pallas_cell_manual (_sw_cell_kernel_manual): B1's
-//   contract with the tiles staged by hand through a 2-deep ring in shared
-//   memory (sw_manual_kernel, or sw_manual16_kernel for sat > 0, whose
-//   scores are exact).
+//   score_bucket_pallas_cell_manual: B1's contract with the tiles staged
+//   by hand through a 2-deep ring in shared memory (sw_manual_kernel, or
+//   sw_manual16_kernel for sat > 0, whose scores are exact).
 // * sw_cell_pair_launch replaces tools/pairbench.py score_pair
 //   (_kernel_pair): B1's contract, exact, P consecutive tiles per block
 //   (sw_pair_kernel).
 //
-// The cell kernels (sw_cell_kernel, sw_cell16_kernel, sw_cell_batch_kernel,
-// the tool kernels sw_manual_kernel, sw_manual16_kernel and sw_pair_kernel,
-// and the row kernel up to L = 768) are single-pass register-tiled group
-// wavefronts, the shape of the
-// reference CUDASW++4.0's short-subject kernels.  A cell tile's L is at
+// The cell kernels (sw_cell16_kernel, the tool kernels sw_manual_kernel,
+// sw_manual16_kernel and sw_pair_kernel, and the row kernel up to
+// L = 768) are single-pass register-tiled group wavefronts, the shape of
+// the reference CUDASW++4.0's short-subject kernels.  A cell tile's L is at
 // most CELL_MAX_L = 768, so a group of G lanes (8, 16 or 32 of a warp)
 // holds a whole subject in registers: lane k keeps R consecutive columns
 // (code, H + gop and F of the row above), G x R >= L, picked per L from
@@ -232,28 +229,24 @@ extern "C" {
 //
 // The cell launch (B1 and B4 in both state modes).  tiles: int8
 // [T, L, 32, 128]; queries: int32 [S, W]; out: f32 [S, T, 4096]; (G, R):
-// an instance of CELL_SHAPES with G x R >= L.  With rows null it launches
-// B1: one query of W rows (S = 1), sw_cell_kernel, or sw_cell16_kernel
-// for k16 != 0.  With rows non-null it launches B4: rows int32 [S], the
-// slots' row counts (each <= W), sw_cell_batch_kernel, or
-// sw_cell16_kernel for k16 != 0.  Every kernel of them returns exact
-// scores (sw_cell16_kernel proves each block's fit, or runs it in int32
-// lanes), so the state mode does not choose the kernel: k16 (>= 0) does.
-// The caller passes the int16 state's sat there, or 1 for an exact launch
-// in s16x2 lanes.  No scratch: the cell kernels keep the whole DP row in
+// an instance of CELL_SHAPES with G x R >= L.  Both launch
+// sw_cell16_kernel.  With rows null it launches B1: one query of W rows
+// (S = 1).  With rows non-null it launches B4: rows int32 [S], the slots'
+// row counts (each <= W).  Its scores are exact (each block proves its
+// fit, or runs in int32 lanes), so the int16 state launches it as the
+// exact state does.  No scratch: the kernel keeps the whole DP row in
 // registers.
 int sw_cell_launch(const void* tiles, const void* queries, const void* rows,
                    const void* mat, int A, int T, int L, int S, int W,
-                   int gop, int gex, int G, int R, int k16, void* out,
-                   void* stream) {
-  if (k16 < 0 || (!rows && S != 1) || S < 1 || S > 65535 ||
+                   int gop, int gex, int G, int R, void* out, void* stream) {
+  if ((!rows && S != 1) || S < 1 || S > 65535 ||
       W < 0 || L < 0 || G * R < L) {
     return (int)cudaErrorInvalidValue;
   }
   if (T == 0) return 0;
   const sw::CellArgs a{(const int8_t*)tiles, (const int32_t*)queries,
                        (const int32_t*)rows, (const int32_t*)mat, A, T, L, S, W,
-                       gop, gex, k16, (float*)out, (cudaStream_t)stream};
+                       gop, gex, (float*)out, (cudaStream_t)stream};
   for (auto unit : kCellUnits) {
     const int rc = unit(a, G, R);
     if (rc != sw::kNotHere) return rc;

@@ -5,11 +5,12 @@ cudasw4_tpu/engine.py).
 Scan flow: encode the query -> score every bucket on its kernel (cell,
 row or col; col buckets chunk queries longer than NQC with the H/F carry;
 a query longer than QCAP grows its block in QCAP steps on cell and row
-buckets, as the JAX engine's ``_scan_long_query`` does; a single query of
-COL_SINGLE_MIN_ROWS to NQC padded rows takes the col kernel on cell
-buckets whose L is a multiple of LC, ``_single_kinds``) -> concatenate
-the scores in slot order (slot order is ascending reference id) -> mask
-padding slots -> top N by descending score, then ascending id.  With
+buckets, as the JAX engine's ``_scan_long_query`` does; every bucket
+runs on its own kind for every query length, since the JAX engine's
+routing of long singles onto the col kernel lost on the H100 at every
+threshold) -> concatenate the scores in slot order (slot order is
+ascending reference id) -> mask padding slots -> top N by descending
+score, then ascending id.  With
 ``state16`` (``CUDASW4_TPU_TORCH_STATE16=1``, ``align --dpx``) singles run
 int16 state on cell and col buckets; when the top score reaches SAT, only
 the tiles whose max reaches it are re-scored with exact state and merged
@@ -166,18 +167,6 @@ class SearchEngine(StreamingEngineMixin):
 
     #: Queries per streamed pass, of any length (engine_streaming.py).
     QB_STREAM = engine_streaming.QB_STREAM
-
-    #: Single scans whose unroll-padded query rows lie in
-    #: [COL_SINGLE_MIN_ROWS, sw_col.NQC] score every cell bucket whose L is
-    #: a multiple of sw_col.LC on the col kernel (B3) in place of the cell
-    #: kernel (B1): the JAX engine's per-query-length routing
-    #: (``_single_kinds``; 512 there, measured on a TPU).  On an NVIDIA
-    #: H100 80GB HBM3 at its 700 W limit B3 loses to B1 on every such
-    #: bucket, exact and int16 (it sweeps whole 512-column passes, and
-    #: computes int16 state in int32 lanes), and no threshold in [8, NQC]
-    #: beats none on the 20 reference queries in either state (PERF.md §5,
-    #: "Routing"), so the window is closed: no NQC reaches this value.
-    COL_SINGLE_MIN_ROWS = 1 << 30
 
     def __init__(
         self,
@@ -430,11 +419,10 @@ class SearchEngine(StreamingEngineMixin):
         kernel library's build and load, each kernel's module load (CUDA
         loads modules lazily), PyTorch's top-N kernels and the caching
         allocator's first blocks (the JAX engine's ``warmup``, which
-        compiles its programs).  Per bucket: B1 (both state modes under
-        ``state16``), B2 on its route, B3; per cell bucket that a query of
-        COL_SINGLE_MIN_ROWS rows routes to the col kernel also B3 (both
-        state modes under ``state16``; ``_single_kinds``); per col bucket
-        the carry variants of a query past NQC (``_warmup_col_chunked``).
+        compiles its programs).  Per bucket, on its own kind: B1 (both
+        state modes under ``state16``), B2 on its route, B3 (both state
+        modes under ``state16``); per col bucket also the carry variants of
+        a query past NQC (``_warmup_col_chunked``).
         Batches are not warmed, as in the JAX engine.  A streamed or mesh
         database warms with one tiny scan.  Returns the kernel launches
         warmed: 0 on the CPU and with no buckets, 1 for the tiny scan."""
@@ -454,15 +442,11 @@ class SearchEngine(StreamingEngineMixin):
         qpad, params = self._single_qpad(codes)
         qdev = cuda_lib.to_device(qpad, self.device)
         parts = []
-        routed = self._single_kinds(self.COL_SINGLE_MIN_ROWS)
-        for tiles, lens, kind, rkind in zip(self._bucket_tiles, self._bucket_lengths,
-                                            self._kinds, routed):
-            for k in dict.fromkeys((kind, rkind)):
-                s = self._score_bucket(tiles, k, codes, qdev, params, True, lengths=lens)
-                if self.state16 and k != "row":  # the row kernel is exact only
-                    self._score_bucket(tiles, k, codes, qdev, params, False,
-                                       lengths=lens).amax(dim=1)
-            parts.append(s)
+        for tiles, lens, kind in zip(self._bucket_tiles, self._bucket_lengths, self._kinds):
+            parts.append(self._score_bucket(tiles, kind, codes, qdev, params, True, lengths=lens))
+            if self.state16 and kind != "row":  # the row kernel is exact only
+                self._score_bucket(tiles, kind, codes, qdev, params, False,
+                                   lengths=lens).amax(dim=1)
             if kind == "col":
                 self._warmup_col_chunked(tiles, lens)
         self._top_n(self._slots(parts))
@@ -566,25 +550,12 @@ class SearchEngine(StreamingEngineMixin):
         return self._bucket_parts(self._bucket_tiles, self.device, codes, exact,
                                   lengths=self._bucket_lengths)
 
-    def _single_kinds(self, nq_pad: int) -> tuple:
-        """The kernel kind of each bucket for a single scan of ``nq_pad``
-        unroll-padded query rows (the JAX engine's ``_single_kinds``): the
-        bucket's own, but "col" for a cell bucket whose L is a multiple of
-        sw_col.LC when COL_SINGLE_MIN_ROWS <= nq_pad <= sw_col.NQC.
-        Batches, streamed passes and the overflow re-scores keep the
-        buckets' own kinds."""
-        route = self.COL_SINGLE_MIN_ROWS <= nq_pad <= sw_col.NQC
-        return tuple(
-            "col" if route and kind == "cell" and b.L % sw_col.LC == 0 else kind
-            for kind, b in zip(self._kinds, self.packed.buckets)
-        )
-
     def _bucket_parts(self, bucket_tiles, device, codes, exact: bool, matrix=None,
                       lengths=None) -> list:
         """Scores f32 [T, NS] of one query against each of ``bucket_tiles``
         on ``device`` (None where a shard holds no tile of the bucket), each
-        bucket on its kernel for this query's length (``_single_kinds``),
-        with its entry of ``lengths`` (``_col_lengths``; None: none)."""
+        bucket on its own kind, with its entry of ``lengths``
+        (``_col_lengths``; None: none)."""
         codes = np.asarray(codes, dtype=np.int8)
         qpad, params = self._single_qpad(codes)
         qdev = cuda_lib.to_device(qpad, device)
@@ -592,7 +563,7 @@ class SearchEngine(StreamingEngineMixin):
             None if tiles is None
             else self._score_bucket(tiles, kind, codes, qdev, params, exact, matrix, lens)
             for tiles, lens, kind in zip(bucket_tiles, lengths or [None] * len(bucket_tiles),
-                                         self._single_kinds(int(params[3])))
+                                         self._kinds)
         ]
 
     def slot_scores(self, codes, exact: bool = True) -> torch.Tensor:

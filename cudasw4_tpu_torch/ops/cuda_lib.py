@@ -53,16 +53,11 @@ _I = ctypes.c_int
 #: route's per-warp boundary columns, ``launch_row``).
 LAUNCHES = {"sw_row_kernel": "sw_row_launch"}
 _SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P]
-#: The launch function of the cell group kernels (B1 and B4 in both state
-#: modes), with a fifth signature: tiles, queries, rows, mat, A, T, L, S, W,
-#: gop, gex, G, R, k16, out, stream; k16 nonzero picks the s16x2 kernel
-#: (``launch_cell``).
-CELL_LAUNCHES = {
-    "sw_cell_kernel": "sw_cell_launch",
-    "sw_cell_batch_kernel": "sw_cell_launch",
-    "sw_cell16_kernel": "sw_cell_launch",
-}
-_CELL_SIGNATURE = [_P] * 4 + [_I] * 10 + [_P, _P]
+#: The launch function of the cell group kernel (B1 and B4 in both state
+#: modes, ``sw_cell16_kernel``), with a fifth signature: tiles, queries,
+#: rows, mat, A, T, L, S, W, gop, gex, G, R, out, stream (``launch_cell``).
+CELL_LAUNCHES = {"sw_cell16_kernel": "sw_cell_launch"}
+_CELL_SIGNATURE = [_P] * 4 + [_I] * 9 + [_P, _P]
 #: The launch function of the col wavefront kernels (B3, B5 and B6 in
 #: both state modes; col flat when rows is non-null, col fused when rows
 #: is null and offs holds the gapless starts), with a fourth signature:
@@ -332,22 +327,23 @@ def cell_shapes() -> list[tuple[int, int]]:
     return [(buf[2 * k], buf[2 * k + 1]) for k in range(n)]
 
 
-def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex: int,
-                rows, shape, sat: int = 0):
-    """Launch the cell group kernel ``kernel`` (a key of CELL_LAUNCHES) at
-    the instance ``shape`` = (G, R) on the tiles' device and stream, and
-    count the launch on the wrapper (``count``).
+def launch_cell(wrapper, tiles, queries, matrix_flat, gop: int, gex: int, rows, shape,
+                sat: int = 0):
+    """Launch the cell group kernel ``sw_cell16_kernel`` at the instance
+    ``shape`` = (G, R) on the tiles' device and stream, and count the
+    launch on the wrapper (``count``): in ``launches16`` for ``sat`` > 0
+    (int16 state), else in ``launches``.
 
     ``tiles``: int8 [T, L, 32, 128]; ``queries``: int32 [S, W].
-    ``rows``: an int, the one query's rows (S = 1; sw_cell_kernel), or
-    host ints, the slots' row counts (sw_cell_batch_kernel), copied to the
-    device without blocking; either in sw_cell16_kernel, which ``sat`` > 0
-    (int16 state) launches whatever ``kernel`` says.  All give exact
-    scores.  An exact launch also counts its slots (``count_slots``) by
-    the matrix's range (``matrix_range``): noted on a matrix that
-    ``device_matrix`` placed, else read from the card once, on the first
-    exact launch with that tensor (one synchronisation).  Allocates only
-    the f32 scores [S, T, 4096]: the kernels keep the DP in registers.
+    ``rows``: an int, the one query's rows (S = 1, B1), or host ints, the
+    slots' row counts (B4), copied to the device without blocking.  The
+    scores are exact in both state modes (each block proves its fit, or
+    runs in int32 lanes).  An exact launch also counts its slots
+    (``count_slots``) by the matrix's range (``matrix_range``): noted on a
+    matrix that ``device_matrix`` placed, else read from the card once, on
+    the first exact launch with that tensor (one synchronisation).
+    Allocates only the f32 scores [S, T, 4096]: the kernel keeps the DP in
+    registers.
     Raises if the launch reports an error.
     """
     dev = tiles.device
@@ -365,27 +361,25 @@ def launch_cell(wrapper, kernel: str, tiles, queries, matrix_flat, gop: int, gex
         rows_dev = to_device(np.asarray(rows, dtype=np.int32), dev)
     out = torch.empty((S, T, math.prod(tiles.shape[2:])), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = getattr(lib(), CELL_LAUNCHES[kernel])(
+        code = lib().sw_cell_launch(
             tiles.data_ptr(), queries.data_ptr(),
             None if rows_dev is None else rows_dev.data_ptr(), matrix_flat.data_ptr(),
-            A, T, L, S, W, gop, gex, *shape, sat or int(kernel == "sw_cell16_kernel"),
-            out.data_ptr(), stream_handle(dev),
+            A, T, L, S, W, gop, gex, *shape, out.data_ptr(), stream_handle(dev),
         )
-    check_launch(code, kernel)
+    check_launch(code, "sw_cell16_kernel")
     count(wrapper, not sat)
     if not sat:
         slots = [W] if rows_dev is None else [int(n) for n in rows if n > 0]
-        count_slots(wrapper, kernel == "sw_cell16_kernel", L, slots, gop, gex,
-                    matrix_range(matrix_flat))
+        count_slots(wrapper, L, slots, gop, gex, matrix_range(matrix_flat))
     return out
 
 
-def count_slots(wrapper, k16: bool, L: int, slots, gop: int, gex: int, score_range) -> None:
+def count_slots(wrapper, L: int, slots, gop: int, gex: int, score_range) -> None:
     """Count an exact cell launch's slots (their row counts: a B1 launch's
     one, a B4 launch's of rows > 0) on the wrapper: ``s16x2_slots``, those
-    that ``sw_cell16_kernel`` (``k16``) scores in s16x2 lanes
-    (``cell16_fits``), and ``int32_slots``, the rest."""
-    n16 = sum(cell16_fits(L, n, gop, gex, *score_range) for n in slots) if k16 else 0
+    that ``sw_cell16_kernel`` scores in s16x2 lanes (``cell16_fits``), and
+    ``int32_slots``, the rest, whose blocks run int32 lanes."""
+    n16 = sum(cell16_fits(L, n, gop, gex, *score_range) for n in slots)
     wrapper.s16x2_slots += n16
     wrapper.int32_slots += len(slots) - n16
 

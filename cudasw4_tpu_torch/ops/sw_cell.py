@@ -4,26 +4,26 @@ exact int32 or int16 state), the same with the tiles staged by hand
 (score_bucket_pallas_cell_manual), or a batch of queries in one launch
 (score_bucket_pallas_cell_batch, exact int32 or int16 state).
 
-The kernels are ``sw_cell_kernel``, ``sw_cell16_kernel``,
-``sw_cell_batch_kernel``, ``sw_manual_kernel`` and ``sw_manual16_kernel``
-in csrc/sw_cell.cuh (csrc/sw_tiles.cu's note gives the design and the
-bound on the H100).  All are single-pass group wavefronts
-(``cell_group``), one instance per (G, R) of CELL_SHAPES, picked for the
-tiles' L by ``cell_shape``; the s16x2 kernel ``sw_cell16_kernel`` serves
-the batch too, a slot on the grid's y axis, and the manual kernels feed
-the same routine from a ring in shared memory.  B1 and B4 launch the
-s16x2 kernel in both state modes: its scores are exact (each block
-proves that its lanes cannot wrap, or runs in int32 lanes), and it takes
-0.56-0.73 of the int32 kernels' time at the Swiss-Prot buckets
-(PERF.md).  Exact launches count their slots by lanes (``s16x2_slots``,
-``int32_slots``, ``cuda_lib.count_slots``).  Tiles longer than the
-largest instance take the col wavefront's passes (``sw_col_kernel``,
-``sw_col16_kernel``, ``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on
-the same layout, counted on the wrapper that was called.  The wrappers
-launch them for CUDA tensors and take their plain versions only for CPU
-tensors.  Each counts its launches and plain calls per mode (``launches`` and
-``plain_calls`` for exact state, ``launches16`` and ``plain_calls16`` for
-int16 state).
+The kernels are ``sw_cell16_kernel``, ``sw_manual_kernel`` and
+``sw_manual16_kernel`` in csrc/sw_cell.cuh (csrc/sw_tiles.cu's note gives
+the design and the bound on the H100).  All are single-pass group
+wavefronts (``cell_group``), one instance per (G, R) of CELL_SHAPES,
+picked for the tiles' L by ``cell_shape``; the s16x2 kernel
+``sw_cell16_kernel`` serves the batch too, a slot on the grid's y axis,
+and the manual kernels feed the same routine from a ring in shared
+memory.  B1 and B4 launch the s16x2 kernel in both state modes: its
+scores are exact (each block proves that its lanes cannot wrap, or runs
+in int32 lanes), and it took 0.56-0.73 of the time of the int32-lane
+kernels it replaced at the Swiss-Prot buckets (PERF.md).  Exact launches
+count their slots by lanes (``s16x2_slots``, ``int32_slots``,
+``cuda_lib.count_slots``).  Tiles longer than the largest instance take
+the col wavefront's passes (``sw_col_kernel``, ``sw_col16_kernel``,
+``sw_col_flat_kernel``, ``sw_col_flat16_kernel``) on the same layout,
+counted on the wrapper that was called.  The wrappers launch them for
+CUDA tensors and take their plain versions only for CPU tensors.  Each
+counts its launches and plain calls per mode (``launches`` and
+``plain_calls`` for exact state, ``launches16`` and ``plain_calls16``
+for int16 state).
 """
 
 from __future__ import annotations
@@ -129,8 +129,7 @@ def score_bucket_cell(tiles, query, matrix_flat, params, exact: bool = True):
         return col_route(score_bucket_cell, tiles, query, matrix_flat, params, sat)
     nq, gop, gex = int(params[0]), int(params[1]), int(params[2])
     cuda_lib.check_query_rows(query, nq, tiles.device)
-    kernel = "sw_cell16_kernel" if exact else "sw_cell_kernel"
-    return cuda_lib.launch_cell(score_bucket_cell, kernel, tiles, query[:nq].view(1, nq),
+    return cuda_lib.launch_cell(score_bucket_cell, tiles, query[:nq].view(1, nq),
                                 matrix_flat, gop, gex, nq, shape, sat)[0]
 
 
@@ -229,8 +228,7 @@ def score_bucket_cell_batch(tiles, queries, matrix_flat, params, exact: bool = T
         slots = (nqs, offs, max(W, sum(nqs)))
         return cuda_lib.launch_col(score_bucket_cell_batch, "sw_col_flat_kernel", tiles,
                                    queries, matrix_flat, gop, gex, slots=slots, sat=sat)[0]
-    kernel = "sw_cell16_kernel" if exact else "sw_cell_batch_kernel"
-    return cuda_lib.launch_cell(score_bucket_cell_batch, kernel, tiles, queries, matrix_flat,
+    return cuda_lib.launch_cell(score_bucket_cell_batch, tiles, queries, matrix_flat,
                                 gop, gex, nqs, shape, sat)
 
 

@@ -2,7 +2,6 @@
 compare their machine code.
 
     python3 -m cudasw4_tpu_torch.tools.kernel_ab DIR_A DIR_B [--rounds N]
-    python3 -m cudasw4_tpu_torch.tools.kernel_ab --sweep DIR
 
 Each round runs A, B, B, A, every run in a fresh process that builds its
 checkout's kernels (``cuda_lib.lib()``) and times the cell, row and col
@@ -16,16 +15,7 @@ took to build and load its library, then one line naming the kernels
 whose SASS (``cuobjdump -sass`` of the two libraries, the anonymous
 namespace's hashed names stripped) is identical in both checkouts and
 those whose SASS differs, with the SASS line counts (A, B) of the
-kernels both libraries hold.
-
-``--sweep`` times, in one checkout, every (G, R) instance of the cell
-kernels that its library holds (``cuda_lib.cell_shapes``) at L = G x R
-and the Swiss-Prot-scale tile count of that length (``sweep_tiles``), in
-exact state in int32 lanes (``sw_cell_kernel``) and in s16x2 lanes
-(``sw_cell16_kernel``), with the 464-aa query, for the 21-letter and the
-26-letter matrix; then B4 both ways at BATCH14's slots on [12, 640] and
-[1, 64].  One JSON line: each row's milliseconds and s16x2 over int32.
-Needs CUDA.
+kernels both libraries hold.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -71,18 +61,6 @@ CASES = (
 #: with the widest pass of its plan (padded rows, pool offsets).
 BATCH14 = (144, 189, 222, 375, 464, 567, 657, 729, 850, 1000, 1500, 2005, 2504, 3005)
 WIDEST_PASS = ((736, 664, 376, 224, 192, 144), (0, 768, 1536, 1920, 2176, 2432))
-
-#: The cell buckets of the Swiss-Prot-scale database (swbench's ``sprot``):
-#: L and tiles.
-SPROT_CELL_TILES = {64: 1, 80: 2, 96: 3, 112: 4, 128: 5, 160: 11, 192: 12, 224: 12,
-                    256: 12, 320: 20, 384: 16, 448: 12, 512: 9, 640: 12, 768: 7}
-
-
-def sweep_tiles(L: int) -> int:
-    """The sweep's tile count at L: that of the shortest Swiss-Prot cell
-    bucket at least L long (its instance runs such tiles), 1 below 64."""
-    return SPROT_CELL_TILES[min((b for b in SPROT_CELL_TILES if b >= L), default=768)]
-
 
 def _child(tree: str) -> dict:
     sys.path.insert(0, tree)
@@ -141,48 +119,6 @@ def _child(tree: str) -> dict:
             out[f"{name}16 {list(shape)} x{sum(rows)}"] = _ms(
                 lambda *a: fn(*a, exact=False), *args)
     return out
-
-
-def _sweep(tree: str) -> dict:
-    """Milliseconds of every compiled cell instance (G, R) at L = G x R and
-    ``sweep_tiles(L)`` tiles, exact, in int32 lanes and in s16x2 lanes,
-    with the 464-aa query, at A = 21 and A = 26; then B4 both ways."""
-    sys.path.insert(0, tree)
-    import numpy as np
-    import torch
-
-    from cudasw4_tpu_torch import make_scoring_config
-    from cudasw4_tpu_torch.ops import cuda_lib, sw_cell
-
-    rng = np.random.default_rng(1)
-    shapes = cuda_lib.cell_shapes()
-    rows = []
-    for mat in ("blosum62", "blosum62_full"):
-        cfg = make_scoring_config(mat)
-        A = cfg.alphabet_size
-        m = cuda_lib.device_matrix(cfg.matrix, "cuda")
-        q = torch.as_tensor(rng.integers(0, 20, size=(1, 464)).astype(np.int32)).cuda()
-        for g, r in shapes:
-            L, T = g * r, sweep_tiles(g * r)
-            t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
-            ms = {lanes: _ms(cuda_lib.launch_cell, sw_cell.score_bucket_cell, kernel, t, q, m,
-                             cfg.gop, cfg.gex, 464, (g, r))
-                  for lanes, kernel in (("int32", "sw_cell_kernel"), ("s16x2", "sw_cell16_kernel"))}
-            rows.append({"kernel": "B1", "A": A, "G": g, "R": r, "L": L, "T": T, **ms,
-                         "ratio": ms["s16x2"] / ms["int32"]})
-        qb = np.full((len(BATCH14), 3072), cfg.pad_code, np.int32)
-        for s, n in enumerate(BATCH14):
-            qb[s, :n] = rng.integers(0, 20, size=n)
-        qb = torch.as_tensor(qb).cuda()
-        for T, L in ((12, 640), (1, 64)):
-            t = _tiles(rng, (T, L, 32, 128), cfg.pad_code)
-            ms = {lanes: _ms(cuda_lib.launch_cell, sw_cell.score_bucket_cell_batch, kernel, t, qb,
-                             m, cfg.gop, cfg.gex, list(BATCH14), sw_cell.cell_shape(L))
-                  for lanes, kernel in (("int32", "sw_cell_batch_kernel"),
-                                        ("s16x2", "sw_cell16_kernel"))}
-            rows.append({"kernel": "B4", "A": A, "shape": [T, L], "slots": len(BATCH14), **ms,
-                         "ratio": ms["s16x2"] / ms["int32"]})
-    return {"rows": rows}
 
 
 #: Lines of cuobjdump's listing that belong to a cubin, not to a kernel:
@@ -244,9 +180,6 @@ def main(argv=None) -> int:
     if argv and argv[0] == "--child":
         print(json.dumps(_child(argv[1])), flush=True)
         return 0
-    if argv and argv[0] == "--sweep-child":
-        print(json.dumps(_sweep(argv[1])), flush=True)
-        return 0
     rounds = 1
     if "--rounds" in argv:
         i = argv.index("--rounds")
@@ -259,14 +192,6 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    if len(argv) == 2 and argv[0] == "--sweep":
-        res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--sweep-child", os.path.abspath(argv[1])],
-            capture_output=True, text=True, check=True,
-        )
-        print(json.dumps({"card": card, "sweep_ms": json.loads(res.stdout.strip().splitlines()[-1])}),
-              flush=True)
-        return 0
     argv = [os.path.abspath(tree) for tree in argv]
     runs = {tree: [] for tree in argv}
     for _ in range(rounds):

@@ -172,7 +172,7 @@ def _meta(shape, dtype):
 
 
 @pytest.mark.parametrize("L,launcher,kernel", [
-    (256, "launch_cell", "sw_cell_batch_kernel"),
+    (256, "launch_cell", None),
     (896, "launch_col", "sw_col_flat_kernel"),
 ])
 def test_cell_batch16_passes_sat_to_its_launcher(monkeypatch, L, launcher, kernel):
@@ -180,8 +180,12 @@ def test_cell_batch16_passes_sat_to_its_launcher(monkeypatch, L, launcher, kerne
     instance, the col flat route past it, each with sat = SAT."""
     calls = []
 
-    def fake(wrapper, name, tiles, queries, matrix_flat, gop, gex, *args, **kw):
-        calls.append((wrapper, name, args, kw))
+    def fake(wrapper, *args, **kw):
+        # launch_col takes the kernel's name before the tiles; launch_cell
+        # has one kernel and takes none.
+        name, args = (args[0], args[1:]) if launcher == "launch_col" else (None, args)
+        tiles, queries, matrix_flat, gop, gex, *args = args
+        calls.append((wrapper, name, tuple(args), kw))
         out = torch.zeros((queries.shape[0], tiles.shape[0], 4096))
         return (out, None) if launcher == "launch_col" else out
 
@@ -244,7 +248,8 @@ class _FakeLib:
 def test_launch_col_allocates_an_int16_pool_under_sat(monkeypatch, exact):
     """``launch_col`` on a device tensor past one pass: boundary columns
     [T * 4096, rtot] of int16 under sat (int32 exact), sat passed to the
-    library, and the launch counted on the mode's counter."""
+    library, and the launch counted on the mode's counter; B4 int16 on the
+    cell route passes its rows and counts as int16."""
     fake = _FakeLib()
     pools = []
     real_empty = torch.empty
@@ -271,7 +276,8 @@ def test_launch_col_allocates_an_int16_pool_under_sat(monkeypatch, exact):
     assert kind == "col" and args[20] == (0 if exact else sw_cell.SAT)  # sat
     assert args[5:13] == (21, 2, 1024, 2, 48, 128, -11, -1)  # A, T, L, S, W, rtot, gop, gex
 
-    # B4 int16 on the cell route: rows and sat reach sw_cell_launch.
+    # B4 int16 on the cell route: rows reach sw_cell_launch, whose one
+    # kernel is exact in both modes, and sat counts the launch as int16.
     fake.calls.clear()
     fn = sw_cell.score_bucket_cell_batch
     before = fn.launches16
@@ -279,7 +285,8 @@ def test_launch_col_allocates_an_int16_pool_under_sat(monkeypatch, exact):
     fn(t, q, m, (0, -11, -1, 0, 40, 0), exact=False)
     ((kind, args),) = fake.calls
     assert kind == "cell" and args[2] is not None  # the slots' row counts
-    assert args[4:14] == (21, 2, 640, 2, 48, -11, -1, 32, 20, sw_cell.SAT)
+    assert args[4:13] == (21, 2, 640, 2, 48, -11, -1, 32, 20)  # A, T, L, S, W, gop, gex, G, R
+    assert len(args) == len(cuda_lib._CELL_SIGNATURE)
     assert fn.launches16 == before + 1
 
 

@@ -173,10 +173,10 @@ SLOT_CASES = {
 
 @pytest.mark.parametrize("case", sorted(SLOT_CASES))
 def test_exact_cell_launch_takes_s16x2_lanes_and_counts_slots(fake_lib, case):
-    """An exact B1 or B4 launch passes k16 = 1 (the s16x2 kernel) and an
-    int16 one its SAT; each counts
-    in its mode's launches, and an exact one its slots by the route and
-    the host's fit, from the matrix's noted range."""
+    """An exact or int16 B1 or B4 launch passes the cell launch's whole
+    signature (the s16x2 kernel alone); each counts in its mode's
+    launches, and an exact one its slots by the route and the host's fit,
+    from the matrix's noted range."""
     kind, L, scale, exact, rows, n16, n32 = SLOT_CASES[case]
     t = _meta((2, L, 32, 128), torch.int8)
     m = _meta_matrix(scale)
@@ -195,16 +195,5 @@ def test_exact_cell_launch_takes_s16x2_lanes_and_counts_slots(fake_lib, case):
     assert call[4:13] == (21, 2, L, 1 if kind == "cell" else len(rows),
                           rows[0] if kind == "cell" else 48, -11, -1,
                           *sw_cell.cell_shape(L))  # A, T, L, S, W, gop, gex, G, R
-    assert call[13] == (1 if exact else sw_cell.SAT)  # k16
+    assert len(call) == len(cuda_lib._CELL_SIGNATURE)
     assert (call[2] is None) == (kind == "cell")  # B4: the slots' row counts
-
-
-def test_int32_kernel_names_launch_int32_lanes(fake_lib):
-    """``launch_cell`` with an int32 kernel's name (the sweep's and the card
-    tests' yardstick) passes k16 = 0 and counts its slots as int32."""
-    fn = sw_cell.score_bucket_cell_batch
-    before = (fn.s16x2_slots, fn.int32_slots)
-    cuda_lib.launch_cell(fn, "sw_cell_batch_kernel", _meta((1, 64, 32, 128), torch.int8),
-                         _meta((3, 16), torch.int32), _meta_matrix(), -11, -1, [16, 0, 3], (8, 8))
-    assert fake_lib.calls[0][13] == 0
-    assert (fn.s16x2_slots, fn.int32_slots) == (before[0], before[1] + 2)

@@ -174,7 +174,7 @@ EXACT16_CASES = [(g, r, mat) for g, r in sw_cell.CELL_SHAPES for mat in MATS] + 
 @pytest.mark.parametrize("g,r,mat", EXACT16_CASES)
 def test_exact_cell_launches_in_s16x2_lanes_equal_int32(dev, g, r, mat):
     """Exact B1 and B4 on the s16x2 route (``sw_cell16_kernel``) equal the
-    int32 kernels and the plain version bit for bit, at L = G x R on
+    plain version's int32 scores bit for bit, at L = G x R on
     subjects of L, L - 1 and 1 residues, B4 on slots of unequal rows (one
     empty); each launch
     counts in ``launches``, not ``launches16``, and its slots by lanes as
@@ -194,11 +194,10 @@ def test_exact_cell_launches_in_s16x2_lanes_equal_int32(dev, g, r, mat):
     t, q = t.to(dev), torch.as_tensor(qh).to(dev)
     m = cuda_lib.device_matrix(cfg.matrix * scale, dev)
     lo, hi = m.score_range
-    for name, fn, kernel32, args, slots in (
-        ("B1", sw_cell.score_bucket_cell, "sw_cell_kernel",
-         (t, q[0], m, (100, cfg.gop, cfg.gex, 104)), [100]),
-        ("B4", sw_cell.score_bucket_cell_batch, "sw_cell_batch_kernel",
-         (t, q, m, (0, cfg.gop, cfg.gex, 0, *rows)), [n for n in rows if n > 0]),
+    for name, fn, args, slots in (
+        ("B1", sw_cell.score_bucket_cell, (t, q[0], m, (100, cfg.gop, cfg.gex, 104)), [100]),
+        ("B4", sw_cell.score_bucket_cell_batch, (t, q, m, (0, cfg.gop, cfg.gex, 0, *rows)),
+         [n for n in rows if n > 0]),
     ):
         want = (sw_cell.score_bucket_cell_plain if name == "B1"
                 else sw_cell.score_bucket_cell_batch_plain)(*args)
@@ -209,12 +208,8 @@ def test_exact_cell_launches_in_s16x2_lanes_equal_int32(dev, g, r, mat):
         n16 = sum(fits)
         assert (fn.launches, fn.launches16, fn.s16x2_slots, fn.int32_slots) == (
             before[0] + 1, before[1], before[2] + n16, before[3] + len(slots) - n16), name
-        queries = q[:1, :100] if name == "B1" else q
-        nrows = 100 if name == "B1" else list(rows)
-        int32 = cuda_lib.launch_cell(fn, kernel32, t, queries, m, cfg.gop, cfg.gex, nrows, (g, r))
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
-        assert torch.equal(got, int32[0] if name == "B1" else int32), name
     if scale > 1:
         assert int(want.max()) > 32767  # past s16x2 lanes' range: the fallback ran
 
@@ -1240,46 +1235,3 @@ def test_fuzz_modes_agree_on_card(dev, trial):
     fuzz_trial(trial, "cuda")
 
 
-#: Cell buckets of L = 128 and 256 route (L % LC == 0), L = 64 does not;
-#: a col bucket of L = 256 keeps B3.
-ROUTING_LAYOUT = ((64, "cell", 4096, 2), (128, "cell", 4096, 2), (256, "cell", 4096, 1),
-                  (256, "col", 4096, 2))
-
-
-@pytest.mark.parametrize("state16", [False, True])
-def test_routed_single_scan_equals_unrouted_on_card(dev, state16):
-    """With COL_SINGLE_MIN_ROWS lowered to 8, single scans of queries of
-    one NQC pass score the cell buckets whose L is a multiple of LC on B3
-    (B3 int16 under state16) in place of B1 and give the closed window's
-    results; a query past NQC keeps B1; warmup launches B3 once more a
-    routed bucket and mode."""
-    rng = np.random.default_rng(45)
-    cfg = make_scoring_config("blosum62")
-    packed = _stream_packed(rng, cfg, ROUTING_LAYOUT)
-    queries = [rng.integers(0, 20, size=n).astype(np.int8) for n in (30, 600, 3000, 3500)]
-    eng = SearchEngine(scoring=cfg, num_top=15, device="cuda")
-    eng.state16 = state16
-    eng.set_database(None, packed=packed)
-    mode = "launches16" if state16 else "launches"
-    runs = {}
-    for window in (sw_col.NQC + 1, 8):
-        eng.COL_SINGLE_MIN_ROWS = window
-        before = (getattr(sw_cell.score_bucket_cell, mode), getattr(sw_col.score_bucket_col, mode))
-        res = [(r.scores, r.reference_ids) for r in map(eng.scan, queries)]
-        runs[window] = res, (getattr(sw_cell.score_bucket_cell, mode) - before[0],
-                             getattr(sw_col.score_bucket_col, mode) - before[1])
-    (closed, (cell_c, col_c)), (routed, (cell_r, col_r)) = runs[sw_col.NQC + 1], runs[8]
-    assert routed == closed
-    assert eng._single_kinds(600) == ("cell", "col", "col", "col")
-    assert eng._single_kinds(3504) == ("cell", "cell", "cell", "col")
-    assert (cell_c - cell_r, col_r - col_c) == (6, 6)  # three queries, two routed buckets
-    counters = [(fn, m) for fn in (sw_cell.score_bucket_cell, sw_col.score_bucket_col)
-                for m in ("launches", "launches16")]
-    warmed = {}
-    for window in (sw_col.NQC + 1, 8):
-        eng.COL_SINGLE_MIN_ROWS = window
-        before = [getattr(fn, m) for fn, m in counters]
-        eng.warmup()
-        warmed[window] = [getattr(fn, m) - b for (fn, m), b in zip(counters, before)]
-    extra = [a - b for a, b in zip(warmed[8], warmed[sw_col.NQC + 1])]
-    assert extra == [0, 0, 2, 2 * state16]

@@ -73,7 +73,7 @@ def test_cli_entry_points_start_without_jax(cmd):
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("tool", ["bigsingle", "sweepdiag", "tremblbench", "dbbench", "bench"])
+@pytest.mark.parametrize("tool", ["colpass", "sweepdiag", "tremblbench", "dbbench", "bench"])
 def test_engine_tools_import_without_jax(tool):
     """The engine tools and the benchmark entry point import with JAX, the
     JAX package and benchmarks/ blocked, and their usage texts name their

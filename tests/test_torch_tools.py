@@ -5,12 +5,11 @@ modes (SAT lowered to 30 for int16, under the SAT rule); the P-tiles-per-
 block kernel (B8, ``tools.pairbench.score_pair``) against the cell kernel
 in interpret mode (JAX's ``score_pair`` has no interpret mode, and
 pairbench itself checks against the cell kernel); and both tools' ``main``
-at L = 32, n = 8192.  The engine tools' bodies at tiny sizes: bigsingle
-(B1 against B3 on the same tiles, LC 16 and NQC 24 so that the longer
-query chunks with the carry), sweepdiag, and tremblbench, which must
-stream under a tiny budget and give a resident scan's hits on a database
-equal to the JAX tools/dbbench.py's.  The colpass tool's tile: the last of
-the largest col bucket of the benchmark's Swiss-Prot-scale lengths.  Inputs are made with numpy from
+at L = 32, n = 8192.  The engine tools' bodies at tiny sizes: sweepdiag,
+and tremblbench, which must stream under a tiny budget and give a
+resident scan's hits on a database equal to the JAX tools/dbbench.py's.
+The colpass tool's tile: the last of the largest col bucket of the
+benchmark's Swiss-Prot-scale lengths.  Inputs are made with numpy from
 seeds.
 """
 
@@ -29,7 +28,7 @@ from cudasw4_tpu.ops import sw_pallas_cell
 from cudasw4_tpu_torch.engine import SearchEngine
 from cudasw4_tpu_torch.engine_streaming import STREAM_CHUNK_BYTES
 from cudasw4_tpu_torch.ops import sw_cell, sw_col
-from cudasw4_tpu_torch.tools import bigsingle, colpass, dmabench, pairbench, sweepdiag, tremblbench
+from cudasw4_tpu_torch.tools import colpass, dmabench, pairbench, sweepdiag, tremblbench
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -129,25 +128,6 @@ def _load(relpath):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def test_bigsingle_body_on_cpu(monkeypatch, capsys):
-    """Both routes on one tile of subjects of 32 residues, queries of 8 and
-    40 rows (two chunks with the carry at NQC = 24), both states: four
-    lines, each OK, and each route's plain version called once a line and
-    mode besides the warm-up."""
-    monkeypatch.setattr(sw_col, "LC", 16)
-    monkeypatch.setattr(sw_col, "NQC", 24)
-    counters = [(fn, name) for fn in (sw_cell.score_bucket_cell, sw_col.score_bucket_col)
-                for name in ("plain_calls", "plain_calls16")]
-    before = [getattr(fn, name) for fn, name in counters]
-    lines = bigsingle.run(1, 1, torch.device("cpu"), lengths=(32,), query_lengths=(8, 40))
-    calls = [getattr(fn, name) - b for (fn, name), b in zip(counters, before)]
-    assert [(x["q"], x["state"], x["ok"]) for x in lines] == [
-        (8, "i32", True), (8, "i16", True), (40, "i32", True), (40, "i16", True)]
-    assert calls == [4, 4, 6, 6]  # B3: one chunk at q = 8, two at q = 40
-    out = capsys.readouterr().out.splitlines()
-    assert len(out) == 4 and all(x.endswith("[OK]") and "col" in x for x in out)
 
 
 def test_sweepdiag_body_on_cpu(capsys):
